@@ -3,11 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pqcache_tpu_torch/csrc``, holds each
-against its plain PyTorch version at the main path's shapes, serves requests
-through ``Engine.generate`` at Llama-3.1-8B width (random weights from a
-seeded generator) and checks that the main path launched every kernel, then
-holds the kernels against the plain versions end to end at reduced depth.
-Any failure exits non-zero. Without CUDA it exits 1 and prints no result.
+(K1, K2, K3, K5, K6) against its plain PyTorch version at the main path's
+shapes, serves requests through ``Engine.generate`` at Llama-3.1-8B width
+(random weights from a seeded generator) on the block path (joint-histogram
+scorer + K1), the per-token path (select_block 1: K5, and K6 with
+gather_mode "pallas") and the fused block-scorer path (K3 + K1), checks that
+each request launched exactly the kernels of its path, profiles a few decode
+steps of each path (device time and launches per step), then holds the
+kernels against the plain versions end to end at reduced depth. Any failure
+exits non-zero. Without CUDA it exits 1 and prints no result.
 
 Output: the card's name and power limit, per-phase results, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -27,13 +31,17 @@ import numpy as np
 import torch
 
 from pqcache_tpu_torch import config
+from pqcache_tpu_torch.core import pq
 from pqcache_tpu_torch.core.budget import compute_budget
 from pqcache_tpu_torch.models import llama
 from pqcache_tpu_torch.ops import _build
+from pqcache_tpu_torch.ops.adc import (adc_block_scores, adc_block_scores_ref,
+                                       adc_scores, adc_scores_ref)
 from pqcache_tpu_torch.ops.attention_ref import chunked_attention
 from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
                                               block_topk_attention_ref)
 from pqcache_tpu_torch.ops.flash_attention import flash_attention
+from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
 from pqcache_tpu_torch.policies.base import get_policy
 from pqcache_tpu_torch.runtime.generate import Engine, bucket_length
 
@@ -45,9 +53,24 @@ PEAK_BYTES = 3.35e12
 SEED = 0
 LAYERS = 32                     # full depth of Llama-3.1-8B
 NEW_TOKENS = 32
-# (prompt tokens, kv tail dtype): the last request is short enough that the
+# The engines of the main path: (kv tail dtype, PQConfig overrides).
+# "block" is the joint-histogram scorer + K1; "token" the per-token path
+# (select_block 1, the default PQConfig) with K5, "token-pallas" adds K6;
+# "k3" the fused ADC block scorer + K1 (select_block 512 would need a tail
+# that is a multiple of 512, and 33024 is not).
+ENGINES = {
+    "block-bf16": ("bf16", dict(select_block=256)),
+    "block-int8": ("int8", dict(select_block=256)),
+    "token": ("bf16", dict(select_block=1, adc_mode="v2")),
+    "token-pallas": ("int8", dict(select_block=1, adc_mode="v1",
+                                  gather_mode="pallas")),
+    "k3": ("bf16", dict(select_block=256, scorer="kernel")),
+}
+# (prompt tokens, engine): the 100-token request is short enough that the
 # engine falls back to the dense `original` policy
-REQUESTS = [(2000, "bf16"), (16000, "int8"), (32000, "bf16"), (100, "bf16")]
+REQUESTS = [(2000, "block-bf16"), (16000, "block-int8"),
+            (32000, "block-bf16"), (100, "block-bf16"),
+            (32000, "token"), (16000, "token-pallas"), (32000, "k3")]
 # K2 is held row by row: ||out - ref|| / ||ref|| of each query row. Rounding
 # P to bf16 for PV and the output to bf16 costs a few 1e-3 there at any
 # depth, while a key tile of 64 dropped from a row that sees n keys moves it
@@ -55,8 +78,13 @@ REQUESTS = [(2000, "bf16"), (16000, "int8"), (32000, "bf16"), (100, "bf16")]
 # that: the deep rows' entries are ~0.01.
 K2_TOL = 1e-2
 K1_TOL = 1e-4     # float32 both sides, relative to the largest |entry|
+# K3 sums exp terms per block, then rescales, where its plain version takes
+# one softmax: float32 summation order, relative to each row's largest entry
+K3_TOL = 1e-5
+# main-path decode shapes at 32k (budget 0.2 / recent 0.5 / sink 32)
+N_TAIL, N_CAND, TOPK = 33024, 25570, 3273
 SELF_LAYERS = 2   # depth of the kernels-vs-plain end-to-end check
-SELF_COMPRESS = 1.0   # its budget: block top-k selects every candidate block
+SELF_COMPRESS = 1.0   # its budget: top-k selects every candidate
 SELF_TOKENS = 16
 # |logit| difference, kernels vs plain: the logits are the bf16 lm-head
 # output, whose ulp is 0.03125 for |logit| in [4, 8): 4 ulps there
@@ -183,7 +211,7 @@ def k2_phase(dev) -> dict:
                      source="pqcache_tpu_torch/csrc/flash_attention.cu",
                      replaces="pqcache_tpu/ops/flash_attention.py:167",
                      max_abs_err=err, max_row_rel_err=rel, ms=ms,
-                     plain_ms=plain_ms, bound_ms=bound_ms,
+                     call_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by="operations", library_ms=lib_ms)
         del q, k, v, out, ref, mask, kr, vr
     return entry
@@ -201,8 +229,7 @@ def k1_phase(dev) -> dict:
     per-call time from Python is printed beside it."""
     m = config.LLAMA31_8B
     H, H_kv, D, bs, nb_sel, L = m.num_heads, m.num_kv_heads, m.head_dim, 256, 13, 8
-    N = 33024
-    n_cand = 25570                     # block 99 is cut at row 226 of 256
+    N, n_cand = N_TAIL, N_CAND         # block 99 is cut at row 226 of 256
     rng = np.random.default_rng(SEED)
     blk_np = np.stack([np.sort(np.concatenate([
         [n_cand // bs], rng.choice(n_cand // bs, nb_sel - 1, replace=False)]))
@@ -253,21 +280,189 @@ def k1_phase(dev) -> dict:
                          source="pqcache_tpu_torch/csrc/block_attn.cu",
                          replaces="pqcache_tpu/ops/block_attn_pallas.py:138",
                          max_abs_err=err, max_row_rel_err=row_rel, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by="bytes", library_ms=None)
+                         call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by="bytes",
+                         library_ms=None)
         del kv, q, got, ref
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# K5, K3 and K6 against their plain versions
+
+def _lut_codes(dev, L: int):
+    """A LUT at the main path's shapes ([8 kv heads, 4 q heads, 2 subvecs,
+    64 centroids], values of the size q . centroid takes) and L layers of
+    uint8 codes [8, 2, N_TAIL]."""
+    m = config.LLAMA31_8B
+    H_kv, g = m.num_kv_heads, m.num_heads // m.num_kv_heads
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    lut = torch.randn((H_kv, g, 2, 64), generator=gen, device=dev) * 8
+    codes = torch.randint(0, 64, (L, H_kv, 2, N_TAIL), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    return lut, codes
+
+
+def k5_phase(dev) -> dict:
+    """K5 at the 32k decode shapes, v1 (f32 LUT) and v2 (LUT rounded to
+    bf16). Exact against the plain version (S = 2: one f32 add per score).
+    The timed launches cycle over 32 layers of codes; each call writes 4.2
+    MB of scores, so a cycle writes 135 MB, above the 50 MB L2."""
+    L = 32
+    lut, codes = _lut_codes(dev, L)
+    entry = None
+    for mode, rnd in (("v1", False), ("v2", True)):
+        got = adc_scores(lut, codes[3], round_lut_bf16=rnd)
+        torch.cuda.synchronize()
+        ref = adc_scores_ref(lut, codes[3], round_lut_bf16=rnd)
+        err = (got - ref).abs().max().item()
+        log(f"K5 {mode}: max_abs_err {err:.3e} (tol 0: exact)")
+        if err != 0 or not torch.isfinite(got).all():
+            raise SystemExit(f"K5 {mode} disagrees with its plain version")
+        layer = iter(range(10 ** 9))
+        ms = graph_ms(lambda: adc_scores(lut, codes[next(layer) % L],
+                                         round_lut_bf16=rnd), 4 * L)
+        plain_ms = graph_ms(lambda: adc_scores_ref(
+            lut, codes[next(layer) % L], round_lut_bf16=rnd), L)
+        call_ms = cuda_ms(lambda: adc_scores(lut, codes[next(layer) % L],
+                                             round_lut_bf16=rnd), 400,
+                          warmup=16)
+        nbytes = (codes[0].numel() + lut.numel() * 4 + got.numel() * 4)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        log(f"K5 {mode}: kernel {ms * 1e3:.2f} us of device time per call "
+            f"({nbytes / ms / 1e6:.0f} GB/s), {call_ms * 1e3:.2f} us per "
+            f"call from Python; plain {plain_ms * 1e3:.2f} us; bound "
+            f"{bound_ms * 1e3:.2f} us (bytes); library call: none")
+        if mode == "v2":
+            entry = dict(name="adc_scores", route="cuda",
+                         source="pqcache_tpu_torch/csrc/adc.cu",
+                         replaces="pqcache_tpu/ops/adc_pallas.py:327",
+                         max_abs_err=err,
+                         max_row_rel_err=row_rel_err(got, ref), ms=ms,
+                         call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by="bytes",
+                         library_ms=None)
+    return entry
+
+
+def k3_phase(dev) -> dict:
+    """K3 at the 32k decode shapes with sel_block 256 and n_cand = N_CAND:
+    per-q-head block mass [32, 129], held at K3_TOL relative to each row's
+    largest entry, and the block top-k of the main path (13 blocks per kv
+    head) must be identical. Timed cycling over 32 layers of codes."""
+    L, bs, D = 32, 256, 128
+    g = config.LLAMA31_8B.num_heads // config.LLAMA31_8B.num_kv_heads
+    lut, codes = _lut_codes(dev, L)
+    got = adc_block_scores(lut, codes[3], N_CAND, sel_block=bs, head_dim=D)
+    torch.cuda.synchronize()
+    ref = adc_block_scores_ref(lut, codes[3], N_CAND, sel_block=bs,
+                               head_dim=D)
+    err = (got - ref).abs().max().item()
+    rel = ((got - ref).abs() / ref.abs().amax(-1, keepdim=True)).max().item()
+    same = torch.equal(
+        pq.topk_from_block_mass(got, N_CAND, TOPK, group=g, block=bs),
+        pq.topk_from_block_mass(ref, N_CAND, TOPK, group=g, block=bs))
+    log(f"K3: max_abs_err {err:.3e}, {rel:.3e} relative to each row's "
+        f"largest entry (tol {K3_TOL}); block top-k identical: {same}")
+    if not rel <= K3_TOL or not same:
+        raise SystemExit("K3 disagrees with its plain version")
+    layer = iter(range(10 ** 9))
+    ms = graph_ms(lambda: adc_block_scores(
+        lut, codes[next(layer) % L], N_CAND, sel_block=bs, head_dim=D), 4 * L)
+    plain_ms = graph_ms(lambda: adc_block_scores_ref(
+        lut, codes[next(layer) % L], N_CAND, sel_block=bs, head_dim=D), L)
+    call_ms = cuda_ms(lambda: adc_block_scores(
+        lut, codes[next(layer) % L], N_CAND, sel_block=bs, head_dim=D), 400,
+        warmup=16)
+    nbytes = codes[0].numel() + lut.numel() * 4 + got.numel() * 4
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    log(f"K3: kernel {ms * 1e3:.2f} us of device time per call (two "
+        f"launches), {call_ms * 1e3:.2f} us per call from Python; plain "
+        f"{plain_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.2f} us (bytes); "
+        f"library call: none")
+    return dict(name="adc_block_scores", route="cuda",
+                source="pqcache_tpu_torch/csrc/adc.cu",
+                replaces="pqcache_tpu/ops/adc_pallas.py:255",
+                max_abs_err=err, max_row_rel_err=rel, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=None)
+
+
+def k6_phase(dev) -> dict:
+    """K6 at the 32k decode shapes: TOPK sorted rows below N_CAND per kv
+    head out of the stacked [L * 8, N_TAIL, 256] tail, layer 3 by head
+    offset, bf16 and int8 rows; exact. The timed launches cycle over 8
+    layers (107 MB of bf16 rows per cycle, above the 50 MB L2). The library
+    yardstick is one advanced-index call, src[off + heads[:, None], idx]."""
+    m = config.LLAMA31_8B
+    H_kv, D, L = m.num_kv_heads, m.head_dim, 8
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    idx = torch.sort(torch.stack([
+        torch.randperm(N_CAND, generator=gen, device=dev)[:TOPK]
+        for _ in range(H_kv)]), -1).values
+    heads = torch.arange(H_kv, device=dev)[:, None]
+    entry = None
+    for kv_dtype in ("int8", "bf16"):
+        if kv_dtype == "bf16":
+            src = torch.randn((L * H_kv, N_TAIL, 2 * D), generator=gen,
+                              device=dev).bfloat16()
+        else:
+            src = torch.randint(-127, 128, (L * H_kv, N_TAIL, 2 * D),
+                                generator=gen, device=dev, dtype=torch.int8)
+        got = gather_rows(src, idx, 3 * H_kv)
+        torch.cuda.synchronize()
+        ref = gather_rows_ref(src, idx, 3 * H_kv)
+        same = torch.equal(got, ref)
+        err = (got.float() - ref.float()).abs().max().item()
+        log(f"K6 {kv_dtype} rows: identical to the plain version: {same}")
+        if not same:
+            raise SystemExit(f"K6 disagrees with its plain version "
+                             f"({kv_dtype} rows)")
+        layer = iter(range(10 ** 9))
+        ms = graph_ms(lambda: gather_rows(
+            src, idx, (next(layer) % L) * H_kv), 8 * L)
+        plain_ms = graph_ms(lambda: gather_rows_ref(
+            src, idx, (next(layer) % L) * H_kv), 2 * L)
+        lib_ms = graph_ms(lambda: src[(next(layer) % L) * H_kv + heads, idx],
+                          8 * L)
+        call_ms = cuda_ms(lambda: gather_rows(
+            src, idx, (next(layer) % L) * H_kv), 400, warmup=16)
+        nbytes = 2 * got.numel() * got.element_size() + idx.numel() * 8
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        log(f"K6 {kv_dtype} rows: kernel {ms * 1e3:.2f} us of device time "
+            f"per call ({nbytes / ms / 1e6:.0f} GB/s), {call_ms * 1e3:.2f} "
+            f"us per call from Python; plain {plain_ms * 1e3:.2f} us; "
+            f"library (advanced index) {lib_ms * 1e3:.2f} us; bound "
+            f"{bound_ms * 1e3:.2f} us (bytes)")
+        if kv_dtype == "bf16":
+            entry = dict(name="gather_rows", route="cuda",
+                         source="pqcache_tpu_torch/csrc/gather.cu",
+                         replaces="pqcache_tpu/ops/gather_pallas.py:71",
+                         max_abs_err=err,
+                         max_row_rel_err=row_rel_err(got, ref), ms=ms,
+                         call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by="bytes",
+                         library_ms=lib_ms)
+        del src, got, ref
     return entry
 
 
 # ---------------------------------------------------------------------------
 # The main path through Engine.generate
 
-def engine_cfg(model, kv_dtype: str, kernels: str = "auto",
+KERNELS = {"flash_attention": flash_attention,
+           "block_topk_attention": block_topk_attention,
+           "adc_scores": adc_scores, "adc_block_scores": adc_block_scores,
+           "gather_rows": gather_rows}
+
+
+def engine_cfg(model, engine: str, kernels: str = "auto",
                compress_ratio: float = 0.2):
+    kv_dtype, pq_kw = ENGINES[engine]
     return config.EngineConfig(
         model=model,
         pq=config.PQConfig(n_subvec_per_head=2, n_subbits=6, kmeans_iters=6,
-                           select_block=256),
+                           **pq_kw),
         budget=config.BudgetConfig(compress_ratio=compress_ratio,
                                    recent_ratio=0.5, sink_size=32),
         cache=config.CacheConfig(kv_dtype=kv_dtype),
@@ -276,38 +471,94 @@ def engine_cfg(model, kv_dtype: str, kernels: str = "auto",
                                      kernels=kernels))
 
 
+def _expected_decode_kernels(engine: str) -> set:
+    """The kernels one pq_search decode step of this engine launches, once
+    per layer."""
+    pq_kw = ENGINES[engine][1]
+    if pq_kw["select_block"] == 1:
+        return {"adc_scores"} | ({"gather_rows"} if pq_kw.get(
+            "gather_mode") == "pallas" else set())
+    if pq_kw.get("scorer") == "kernel":
+        return {"adc_block_scores", "block_topk_attention"}
+    return {"block_topk_attention"}
+
+
 def main_path(dev, params, model) -> dict:
     L = model.num_layers
     rng = np.random.default_rng(SEED)
-    engines = {kv: Engine(engine_cfg(model, kv), params, device=dev)
-               for kv in ("bf16", "int8")}
-    flash_attention.launches = 0
-    block_topk_attention.launches = 0
-    for n_prompt, kv in REQUESTS:
+    engines = {e: Engine(engine_cfg(model, e), params, device=dev)
+               for e in ENGINES}
+    for fn in KERNELS.values():
+        fn.launches = 0
+    for n_prompt, eng in REQUESTS:
         ids = rng.integers(0, model.vocab_size, size=n_prompt)
-        k2_0, k1_0 = flash_attention.launches, block_topk_attention.launches
+        before = {k: fn.launches for k, fn in KERNELS.items()}
         torch.cuda.reset_peak_memory_stats()
-        res = engines[kv].generate(ids, NEW_TOKENS)
-        k2 = flash_attention.launches - k2_0
-        k1 = block_topk_attention.launches - k1_0
+        res = engines[eng].generate(ids, NEW_TOKENS)
+        got = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
         steps = len(res.tokens) - 1
-        log(f"request prompt={n_prompt} tail={kv} policy={res.policy_name}: "
-            f"TTFT {res.prefill_seconds * 1e3:.1f} ms, decode "
-            f"{res.decode_seconds / steps * 1e3:.2f} ms/token over {steps} "
-            f"steps, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
-            f"launches K2 {k2} K1 {k1}")
-        want_k1 = L * steps if res.policy_name == "pq_search" else 0
-        if (len(res.tokens) != NEW_TOKENS or k2 != L or k1 != want_k1
+        log(f"request prompt={n_prompt} engine={eng} "
+            f"policy={res.policy_name}: TTFT {res.prefill_seconds * 1e3:.1f} "
+            f"ms, decode {res.decode_seconds / steps * 1e3:.2f} ms/token over "
+            f"{steps} steps, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches "
+            + " ".join(f"{k} {v}" for k, v in got.items()))
+        dec = (_expected_decode_kernels(eng)
+               if res.policy_name == "pq_search" else set())
+        want = {k: (L if k == "flash_attention" else 0)
+                + (L * steps if k in dec else 0) for k in KERNELS}
+        if (len(res.tokens) != NEW_TOKENS or got != want
                 or not all(0 <= t < model.vocab_size for t in res.tokens)):
-            raise SystemExit(f"main path check failed for prompt {n_prompt}")
+            raise SystemExit(f"main path check failed for prompt {n_prompt} "
+                             f"({eng}): launches {got}, expected {want}")
         if (res.policy_name == "original") != (n_prompt < 1000):
             raise SystemExit(f"unexpected policy {res.policy_name}")
-    return {"flash_attention": flash_attention.launches,
-            "block_topk_attention": block_topk_attention.launches}
+    return {k: fn.launches for k, fn in KERNELS.items()}
 
 
-def _policy(model, kernels: str, n_prompt: int, dev):
-    cfg = engine_cfg(model, "bf16", kernels, SELF_COMPRESS)
+def decode_profile(dev, params, model, engine: str, n_prompt: int = 32000,
+                   steps: int = 4) -> None:
+    """Where a decode step's time goes: torch.profiler over `steps` decode
+    steps after the prefill of one request. Prints the device time per step
+    (the sum of the CUDA kernels' own times, one stream, so they do not
+    overlap), the kernel launches per step and the kernels that take the
+    most device time, beside the profiled wall time per step. The profiler
+    adds host time per op, so the device's busy share is read against the
+    unprofiled decode ms/token of the main path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng = Engine(engine_cfg(model, engine), params, device=dev)
+    ids = np.random.default_rng(SEED + 2).integers(0, model.vocab_size,
+                                                   n_prompt)
+    it = eng.generate_stream(ids, steps + 1, chunk=steps)
+    next(it)                                  # prefill and the first token
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        toks = list(it)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / steps
+    if len(toks) != steps:
+        raise SystemExit(f"decode profile ({engine}): {len(toks)} tokens")
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / steps
+    if not ev or dev_ms <= 0:
+        log(f"decode profile {engine} prompt={n_prompt}: the profiler saw no "
+            f"device time (not measured); wall {wall_ms:.2f} ms/step")
+        return
+    launches = sum(e.count for e in ev) / steps
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"decode profile {engine} prompt={n_prompt}: device "
+        f"{dev_ms:.3f} ms/step in {launches:.0f} kernel launches/step; wall "
+        f"under the profiler {wall_ms:.2f} ms/step; top kernels (ms/step): "
+        + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / steps:.3f}"
+                    for e in top))
+
+
+def _policy(model, engine: str, kernels: str, n_prompt: int, dev,
+            compress: float = SELF_COMPRESS):
+    cfg = engine_cfg(model, engine, kernels, compress)
     P = bucket_length(n_prompt, cfg.runtime.prefill_bucket)
     return get_policy(cfg, compute_budget(cfg.budget, P,
                                           cfg.runtime.max_new_tokens), dev), P
@@ -332,33 +583,55 @@ def _decode_forced(model, params, pol, state, n_prompt, tokens, dev):
         for i, t in enumerate(tokens[:-1])])
 
 
-def self_check(dev, params, model):
+class _Selections:
+    """Records the per-token top-k of every decode step (pq.mips_topk, which
+    the policy looks up at each call) while active."""
+
+    def __enter__(self):
+        self.seen, self._orig = [], pq.mips_topk
+
+        def rec(*a, **kw):
+            out = self._orig(*a, **kw)
+            self.seen.append(out[0].clone())
+            return out
+        pq.mips_topk = rec
+        return self
+
+    def __exit__(self, *exc):
+        pq.mips_topk = self._orig
+
+
+def self_check(dev, params, model, engine: str = "block-bf16",
+               shared_compress: float = SELF_COMPRESS):
     """kernels="auto" against kernels="xla" (the plain versions) at reduced
     depth. Held to LOGIT_TOL: the prefill logits (K2 against its plain
     version) and the logits of each decode step taken from one shared state
-    (K1 against its plain version, same codebooks and tail). Greedy tokens of
-    the two Engine.generate runs must agree up to a step where their logits
-    differ by more than half the top-2 gap (a near tie, after which the
-    sequences are not comparable); each run trains its own codebooks on its
-    own prefill K, so logits may part further there.
+    (same codebooks and tail), at budget ``shared_compress``. Greedy tokens
+    of the two Engine.generate runs must agree up to a step where their
+    logits differ by more than half the top-2 gap (a near tie, after which
+    the sequences are not comparable); each run trains its own codebooks on
+    its own prefill K, so logits may part further there.
 
     Random weights give nearly uniform block masses, so a block top-k of 2
     of 12 blocks parts at near ties that are noise, not kernel error. The
-    check therefore uses a budget (compress 1.0, a 3072-token prompt, 15
-    decode steps) whose top-k of 6 blocks selects every candidate block at
-    every step; the last one is cut by n_cand, so K1 still masks rows."""
+    whole-run comparison therefore uses a budget (compress 1.0, a
+    3072-token prompt, 15 decode steps) whose top-k selects every candidate
+    at every step; for block selection the last block is cut by n_cand, so
+    K1 still masks rows. On the per-token path K5 and K6 are exact, so the
+    shared-state steps run at the main path's budget 0.2 and their per-token
+    selections must be identical."""
     small = dataclasses.replace(model, num_layers=SELF_LAYERS)
     sp = dict(params, layers={k: v[:SELF_LAYERS]
                               for k, v in params["layers"].items()})
     ids = np.random.default_rng(SEED + 1).integers(0, model.vocab_size, 3072)
     toks, pols, own = {}, {}, {}
     for kernels in ("auto", "xla"):
-        cfg = engine_cfg(small, "bf16", kernels, SELF_COMPRESS)
+        cfg = engine_cfg(small, engine, kernels, SELF_COMPRESS)
         res = Engine(cfg, sp, device=dev).generate(ids, SELF_TOKENS)
         if res.policy_name != "pq_search":
             raise SystemExit("self-check must run the pq_search path")
         toks[kernels] = res.tokens
-        pols[kernels], P = _policy(small, kernels, len(ids), dev)
+        pols[kernels], P = _policy(small, engine, kernels, len(ids), dev)
     ref = toks["xla"]
     for kernels in ("auto", "xla"):
         lg, st = _prefill(small, sp, pols[kernels], P, ids, dev)
@@ -367,36 +640,48 @@ def self_check(dev, params, model):
     pre_diff = (own["auto"][0] - own["xla"][0]).abs().max().item()
     # each decode step from one shared state: the auto run's state before
     # the step, cloned for the plain run
-    _, state = _prefill(small, sp, pols["auto"], P, ids, dev)
-    dec_diff = []
+    shared = {k: _policy(small, engine, k, len(ids), dev, shared_compress)[0]
+              for k in ("auto", "xla")}
+    _, state = _prefill(small, sp, shared["auto"], P, ids, dev)
+    dec_diff, sel_same = [], True
     for i, t in enumerate(ref[:-1]):
         tok = torch.full((), t, device=dev)
-        lx = llama.decode_step(small, sp, pols["xla"], copy.deepcopy(state),
-                               tok, len(ids) + i)
-        la = llama.decode_step(small, sp, pols["auto"], state, tok,
-                               len(ids) + i)
+        with _Selections() as sx:
+            lx = llama.decode_step(small, sp, shared["xla"],
+                                   copy.deepcopy(state), tok, len(ids) + i)
+        with _Selections() as sa:
+            la = llama.decode_step(small, sp, shared["auto"], state, tok,
+                                   len(ids) + i)
+        sel_same &= (len(sa.seen) == len(sx.seen) and all(
+            torch.equal(a, b) for a, b in zip(sa.seen, sx.seen)))
         dec_diff.append((la - lx).abs().max().item())
     dec_diff = torch.tensor(dec_diff)
     first = next((i for i, (a, b) in enumerate(zip(toks["auto"], ref))
                   if a != b), None)
-    log(f"self-check ({SELF_LAYERS} layers): prefill |logit diff| "
-        f"{pre_diff:.4f}, decode from a shared state max |logit diff| "
-        f"{dec_diff.max().item():.4f} (tol {LOGIT_TOL}); per step "
-        f"{[round(x, 4) for x in dec_diff.tolist()[:8]]}...")
+    per_token = ENGINES[engine][1]["select_block"] == 1
+    log(f"self-check {engine} ({SELF_LAYERS} layers): prefill |logit diff| "
+        f"{pre_diff:.4f}; decode from a shared state at budget "
+        f"{shared_compress}: max |logit diff| {dec_diff.max().item():.4f} "
+        f"(tol {LOGIT_TOL}), per step "
+        f"{[round(x, 4) for x in dec_diff.tolist()[:8]]}..."
+        + (f"; per-token selections identical: {sel_same}" if per_token
+           else ""))
     if first is None:
-        log(f"self-check: greedy tokens equal {len(ref)}/{len(ref)}")
+        log(f"self-check {engine}: greedy tokens equal {len(ref)}/{len(ref)}")
     else:
         top2 = own["xla"][first].topk(2).values
         gap = (top2[0] - top2[1]).item()
         d = (own["auto"][first] - own["xla"][first]).abs().max().item()
-        log(f"self-check: greedy tokens equal up to step {first} of "
+        log(f"self-check {engine}: greedy tokens equal up to step {first} of "
             f"{len(ref)}; there the top-2 gap is {gap:.4f} and the runs' "
             f"logits differ by {d:.4f}")
         if gap > 2 * d:
             raise SystemExit("greedy tokens differ away from a near tie")
     if (pre_diff > LOGIT_TOL or dec_diff.max().item() > LOGIT_TOL
-            or not torch.isfinite(own["auto"]).all()):
-        raise SystemExit("kernels disagree with the plain versions end to end")
+            or not torch.isfinite(own["auto"]).all()
+            or (per_token and not sel_same)):
+        raise SystemExit(f"kernels disagree with the plain versions end to "
+                         f"end ({engine})")
 
 
 def main() -> int:
@@ -408,8 +693,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     environment()
-    k2 = k2_phase(dev)
-    k1 = k1_phase(dev)
+    entries = [k2_phase(dev), k1_phase(dev), k3_phase(dev), k5_phase(dev),
+               k6_phase(dev)]
     log(f"kernel phases done at {time.perf_counter() - t0:.0f} s")
 
     model = dataclasses.replace(config.LLAMA31_8B, num_layers=LAYERS)
@@ -421,17 +706,23 @@ def main() -> int:
     launches = main_path(dev, params, model)
     log(f"main path done at {time.perf_counter() - t0:.0f} s; launches "
         f"{launches}")
-    self_check(dev, params, model)
+    for engine in ("block-bf16", "token", "k3"):
+        decode_profile(dev, params, model, engine)
+    log(f"decode profiles done at {time.perf_counter() - t0:.0f} s")
+    self_check(dev, params, model, "block-bf16")
+    self_check(dev, params, model, "token", shared_compress=0.2)
+    self_check(dev, params, model, "k3")
+    log(f"self-checks done at {time.perf_counter() - t0:.0f} s")
     del params
-    for e in (k2, k1):
+    for e in entries:
         e["launches"] = launches[e["name"]]
         if not e["launches"]:
             raise SystemExit(f"{e['name']} never launched on the main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "max_row_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "max_row_rel_err", "ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t0:.0f} s")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in (k2, k1)]}))
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

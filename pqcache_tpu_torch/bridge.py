@@ -11,14 +11,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.runtime.state import DenseState, PQState
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
-    """numpy array (bf16 via ml_dtypes included) -> a torch tensor that owns
-    a copy of the data. ``np.asarray`` of a JAX array can be a read-only view
-    of JAX's own buffer, and the port updates its state in place: sharing the
-    buffer would write into memory JAX may still be reading."""
+def tensor_from_numpy(a, device=None) -> torch.Tensor:
+    """numpy array (bf16 via ml_dtypes included) -> a torch tensor on
+    ``device`` (cuda unless given) that owns a copy of the data.
+    ``np.asarray`` of a JAX array can be a read-only view of JAX's own
+    buffer, and the port updates its state in place: sharing the buffer
+    would write into memory JAX may still be reading."""
+    device = resolve_device(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         # bf16 is the top half of an f32: widen the bit pattern, then narrow
@@ -28,9 +31,10 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_numpy(tree: dict, device="cpu") -> dict:
+def params_from_numpy(tree: dict, device=None) -> dict:
     """The JAX params dict (leaves as numpy arrays) -> the port's params
-    dict, same keys and layouts."""
+    dict on ``device`` (cuda unless given), same keys and layouts."""
+    device = resolve_device(device)
     out = {k: tensor_from_numpy(v, device) for k, v in tree.items()
            if k != "layers"}
     out["layers"] = {k: tensor_from_numpy(v, device)
@@ -42,9 +46,11 @@ def _field(src, name):
     return src[name] if isinstance(src, dict) else getattr(src, name)
 
 
-def pq_state_from_numpy(src, device="cpu") -> PQState:
+def pq_state_from_numpy(src, device=None) -> PQState:
     """A single-sequence JAX ``PQState`` with numpy leaves (an object with
-    the fields as attributes, or a dict) -> the port's PQState."""
+    the fields as attributes, or a dict) -> the port's PQState on
+    ``device`` (cuda unless given)."""
+    device = resolve_device(device)
     def opt(name):
         v = _field(src, name)
         return None if v is None else tensor_from_numpy(v, device)
@@ -64,9 +70,10 @@ def pq_state_from_numpy(src, device="cpu") -> PQState:
     )
 
 
-def dense_state_from_numpy(src, device="cpu") -> DenseState:
+def dense_state_from_numpy(src, device=None) -> DenseState:
     """A single-sequence JAX ``DenseState`` with numpy leaves -> the port's
-    DenseState."""
+    DenseState on ``device`` (cuda unless given)."""
+    device = resolve_device(device)
     return DenseState(
         k_cache=tensor_from_numpy(_field(src, "k_cache"), device),
         v_cache=tensor_from_numpy(_field(src, "v_cache"), device),

@@ -1,10 +1,16 @@
 """Product-quantization math on the single-sequence main path.
 
 Counterpart of the functions of ``pqcache_tpu/core/pq.py`` that the
-``pq_search`` block-decode path calls: batched Lloyd k-means with
-empty-cluster relocation, nearest-centroid encoding, the euclidean ADC
-lookup table, the uint8 joint code histogram and its block scorer, block
-top-k, and the exact top-k recall oracle.
+``pq_search`` decode paths call: batched Lloyd k-means with empty-cluster
+relocation, nearest-centroid encoding, the euclidean ADC lookup table and
+its gather-sum scores, the uint8 joint code histogram and its block scorer,
+the GQA-reduced per-token and per-block top-k, and the exact top-k recall
+oracle.
+
+Every selection goes through ``_topk_stable``, which breaks ties toward the
+lower index as ``jax.lax.top_k`` does (and ``approx_max_k`` off the TPU);
+``torch.topk`` orders ties arbitrarily, and per-token ADC scores tie all the
+time (a kv head has at most C^S distinct scores).
 
 Conventions: G = kv heads x subvectors (independent PQ subspaces), N points,
 d = subvector dim, C = 2 ** n_subbits centroids.
@@ -159,6 +165,18 @@ def adc_lut_euc(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
         H, S, -1)
 
 
+def adc_gather_scores(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Gather and sum the LUT by PQ codes. lut [H, S, C]; codes [H_kv, S, T]
+    (shared by each GQA group). Returns scores [H, T] f32 with
+    scores[h, t] = sum_s lut[h, s, codes[kv(h), s, t]]."""
+    H, S, C = lut.shape
+    H_kv, _, T = codes.shape
+    g = H // H_kv
+    idx = codes.long()[:, None].expand(H_kv, g, S, T)
+    return torch.gather(lut.float().reshape(H_kv, g, S, C), -1,
+                        idx).sum(2).reshape(H, T)
+
+
 # ---------------------------------------------------------------------------
 # Joint-code-histogram block scorer (S = 2): a block's softmax mass is the
 # inner product of exp(LUT_0) x exp(LUT_1) with the block's joint code
@@ -240,13 +258,89 @@ def joint_block_mass(lut: torch.Tensor, J: torch.Tensor, *, head_dim: int,
     return mass / torch.clamp(mass.sum(-1, keepdim=True), min=1e-30)
 
 
+# ---------------------------------------------------------------------------
+# GQA-reduced selection from per-token ADC scores (euclidean metric)
+
+def _later_ip():
+    raise NotImplementedError(
+        "metric='ip' is not ported yet (later slice: non-default pq_search "
+        "branches)")
+
+
+def _valid_masks(n_valid, H_kv: int, group: int, T: int, device):
+    """Candidate-validity masks from a scalar n_valid (int or 0-d tensor)
+    or a per-kv-head [H_kv] vector. Returns (valid_kv [H_kv or 1, T],
+    valid_q [H or 1, T])."""
+    pos = torch.arange(T, device=device)
+    if isinstance(n_valid, torch.Tensor) and n_valid.dim() == 1:
+        valid_kv = pos[None, :] < n_valid.to(device)[:, None]
+        return valid_kv, valid_kv.repeat_interleave(group, 0)
+    v = (pos < n_valid)[None, :]
+    return v, v
+
+
+def _group_mass(scores, n_valid, group: int, head_dim: int):
+    """Masked softmax(scores / sqrt(head_dim)) per q head, summed over each
+    GQA group: (g [H_kv, T], valid_kv)."""
+    H, T = scores.shape
+    H_kv = H // group
+    valid_kv, valid_q = _valid_masks(n_valid, H_kv, group, T, scores.device)
+    masked = torch.where(valid_q, scores / (head_dim ** 0.5), -torch.inf)
+    probs = torch.where(valid_q, torch.softmax(masked, -1), 0.0)
+    return probs.reshape(H_kv, group, T).sum(1), valid_kv
+
+
+def group_scores(scores: torch.Tensor, n_valid, *, group: int, head_dim: int,
+                 metric: str = "euc") -> torch.Tensor:
+    """GQA-reduced per-kv-head candidate importances: the softmax attention
+    mass summed over each group. scores [H, T]; n_valid scalar or [H_kv].
+    Returns [H_kv, T] with invalid candidates at -inf."""
+    if metric != "euc":
+        _later_ip()
+    g, valid_kv = _group_mass(scores, n_valid, group, head_dim)
+    return torch.where(valid_kv, g, -torch.inf)
+
+
+def mips_topk(scores: torch.Tensor, n_valid, k: int, *, group: int,
+              head_dim: int, metric: str = "euc", approx: bool = False):
+    """GQA-reduced per-token top-k: softmax(scores / sqrt(head_dim)) per q
+    head, summed over each group, largest k (ties to the lower index).
+    scores [H, T] raw ADC scores; positions >= n_valid (scalar or [H_kv])
+    are padding. Returns (topk_idx [H_kv, k] int64, group mass [H_kv, T]).
+    ``approx`` gives the exact result, as JAX's approx_max_k off the TPU."""
+    if metric != "euc":
+        _later_ip()
+    g, valid_kv = _group_mass(scores, n_valid, group, head_dim)
+    return _topk_stable(torch.where(valid_kv, g, -torch.inf), k)[1], g
+
+
+def mips_topk_blocks(scores: torch.Tensor, n_valid, k_tokens: int, *,
+                     group: int, head_dim: int, block: int,
+                     metric: str = "euc", approx: bool = False):
+    """Block-granular selection: rank blocks of ``block`` candidates by
+    their total GQA-reduced attention mass and take ceil(k_tokens / block)
+    of those starting below n_valid. Returns (block_idx [H_kv, k_blocks]
+    int64, group mass [H_kv, T])."""
+    if metric != "euc":
+        _later_ip()
+    H, T = scores.shape
+    if T % block:
+        raise ValueError(f"T={T} must be a multiple of block={block}")
+    g, _ = _group_mass(scores, n_valid, group, head_dim)
+    blk = g.reshape(H // group, T // block, block).sum(-1)
+    return topk_from_block_mass(blk, n_valid, k_tokens, group=1,
+                                block=block), g
+
+
 def topk_from_block_mass(blk_mass: torch.Tensor, n_valid, k_tokens: int, *,
-                         group: int, block: int) -> torch.Tensor:
+                         group: int, block: int,
+                         approx: bool = False) -> torch.Tensor:
     """Block selection from per-q-head block mass: group-sum [H -> H_kv],
     mask blocks past n_valid, exact top-ceil(k_tokens / block).
 
     blk_mass [H, NB]; n_valid int or [H_kv]. Returns [H_kv, k_blocks] int64.
-    (The TPU used approx_max_k; the JAX function is exact off the TPU.)"""
+    ``approx`` is accepted and gives the exact result: the TPU used
+    approx_max_k, which is exact off the TPU."""
     H, NB = blk_mass.shape
     k_blocks = max((k_tokens + block - 1) // block, 1)
     g = blk_mass.reshape(H // group, group, NB).sum(1)
@@ -254,7 +348,7 @@ def topk_from_block_mass(blk_mass: torch.Tensor, n_valid, k_tokens: int, *,
         n_valid.dim() == 1 else n_valid
     blk_valid = torch.arange(NB, device=blk_mass.device)[None] * block < n
     sel = torch.where(blk_valid, g, -torch.inf)
-    return torch.topk(sel, k_blocks, dim=-1).indices
+    return _topk_stable(sel, k_blocks)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +362,7 @@ def exact_topk(q: torch.Tensor, keys: torch.Tensor, n_valid, k: int, *,
     logits = torch.einsum("hd,htd->ht", q.float(),
                           keys.float().repeat_interleave(group, 0))
     valid = torch.arange(T, device=q.device)[None, :] < n_valid
-    return torch.topk(torch.where(valid, logits, -torch.inf), k, -1).indices
+    return _topk_stable(torch.where(valid, logits, -torch.inf), k)[1]
 
 
 def topk_recall(pq_idx: torch.Tensor, exact_idx: torch.Tensor, *,

@@ -16,17 +16,19 @@ import math
 import torch
 import torch.nn.functional as F
 
+from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.config import ModelConfig
 
 _LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "gate", "up", "down")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device="cpu") -> dict:
+                dtype=torch.bfloat16, device=None) -> dict:
     """Random parameters (normal, std 0.02; norms at 1) with the JAX
     package's layout, drawn from ``generator`` (which must live on
-    ``device``). Drawn layer by layer so the float32 draw never holds more
-    than one layer's matrix."""
+    ``device``, cuda unless given). Drawn layer by layer so the float32 draw
+    never holds more than one layer's matrix."""
+    device = resolve_device(device)
     E, H, Hkv, D, I, L, V = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                              cfg.head_dim, cfg.intermediate_size,
                              cfg.num_layers, cfg.vocab_size)
@@ -64,9 +66,11 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def rope_inv_freq(cfg: ModelConfig, device="cpu") -> torch.Tensor:
+def rope_inv_freq(cfg: ModelConfig, device=None) -> torch.Tensor:
     """Base inverse frequencies, with Llama-3.1 rope scaling when configured
-    (HF modeling_rope_utils _compute_llama3_parameters)."""
+    (HF modeling_rope_utils _compute_llama3_parameters); on cuda unless
+    ``device`` is given."""
+    device = resolve_device(device)
     D = cfg.head_dim
     inv = 1.0 / (cfg.rope_theta ** (
         torch.arange(0, D, 2, dtype=torch.float32, device=device) / D))

@@ -31,6 +31,9 @@ SIGNATURES = {
     "flash_attention": {"pq_flash_attention": [_P] * 4 + [_I] * 9 + [_P]},
     "block_attn": {"pq_block_attn": [_P, _P] + [_I] * 6
                    + [_P, _I, _P, _I, _I, _I] + [_P] * 7},
+    "adc": {"pq_adc_scores": [_P, _P] + [_I] * 6 + [_P, _P],
+            "pq_adc_block_scores": [_P, _P, _P] + [_I] * 9 + [_P] * 4},
+    "gather": {"pq_gather_rows": [_P, _P] + [_I] * 6 + [_P, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -42,7 +42,8 @@ def policy_class(name: str) -> Any:
     return _REGISTRY[name]
 
 
-def get_policy(cfg: EngineConfig, budget: Budget, device="cpu"):
+def get_policy(cfg: EngineConfig, budget: Budget, device=None):
+    """The configured policy, its state on ``device`` (cuda unless given)."""
     return policy_class(cfg.runtime.policy)(cfg, budget, device=device)
 
 

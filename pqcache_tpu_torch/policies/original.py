@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.config import EngineConfig
 from pqcache_tpu_torch.core.budget import Budget
 from pqcache_tpu_torch.ops.attention_ref import decode_window_attention_segments
@@ -19,10 +20,10 @@ from pqcache_tpu_torch.runtime.state import DenseState, make_dense_state
 
 @register_policy("original")
 class OriginalPolicy:
-    def __init__(self, cfg: EngineConfig, budget: Budget, device="cpu"):
+    def __init__(self, cfg: EngineConfig, budget: Budget, device=None):
         self.cfg = cfg
         self.budget = budget
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.max_len = budget.prefill_len + budget.max_new_tokens
         self.use_kernel = use_kernels(cfg)
 

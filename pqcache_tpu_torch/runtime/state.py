@@ -14,7 +14,8 @@ layouts are the JAX package's, stacked over layers:
     ``centroids`` [L, H_kv, S, C, d]; ``phi`` [L, H_kv*S, 1, 1] (zeros for
     the euclidean metric).
   * ``jhist`` [L, H_kv, N_tail // select_block, C^2] uint8: the joint code
-    histogram of the block scorer.
+    histogram of the block scorer; None where that scorer does not apply
+    (select_block 1 or above 256, or ``scorer="kernel"``).
 
 The counters ``n_cand`` and ``pos`` are host ints here (the JAX package keeps
 device scalars): the single-sequence engine always knows them, and the
@@ -29,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.config import EngineConfig
 from pqcache_tpu_torch.core.budget import Budget
 
@@ -62,11 +64,13 @@ class DenseState:
 
 
 def make_pq_state(cfg: EngineConfig, budget: Budget, *,
-                  dtype=torch.bfloat16, device="cpu",
+                  dtype=torch.bfloat16, device=None,
                   jhist_blocks: int = 0) -> PQState:
-    """Zero-filled single-sequence PQ state. The tail holds
-    budget.n_tail_max rows (rounded up to 256); jhist_blocks > 0 adds the
-    joint-code-histogram buffer."""
+    """Zero-filled single-sequence PQ state on ``device`` (cuda unless
+    given). The tail holds budget.n_tail_max rows (rounded up to 256);
+    jhist_blocks > 0 adds the joint-code-histogram buffer, which only the
+    joint-histogram scorer reads."""
+    device = resolve_device(device)
     m = cfg.model
     S = cfg.pq.n_subvec_per_head
     C = cfg.pq.n_centroids
@@ -96,9 +100,10 @@ def make_pq_state(cfg: EngineConfig, budget: Budget, *,
 
 
 def make_dense_state(cfg: EngineConfig, max_len: int, *,
-                     dtype=torch.bfloat16, device="cpu") -> DenseState:
-    """Zero-filled dense cache; the token dim rounds up to 256 as in the JAX
-    package."""
+                     dtype=torch.bfloat16, device=None) -> DenseState:
+    """Zero-filled dense cache on ``device`` (cuda unless given); the token
+    dim rounds up to 256 as in the JAX package."""
+    device = resolve_device(device)
     m = cfg.model
     max_len = (max_len + 255) // 256 * 256
     shape = (m.num_layers, m.num_kv_heads, max_len, m.head_dim)

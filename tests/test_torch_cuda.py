@@ -8,7 +8,11 @@ needs jax, which that machine may not have).
 Tolerances: K2 rounds P to bf16 before PV and writes bf16, so it is held at
 bf16 resolution (2e-2) entry by entry and to 1e-2 in each row's norm; K1
 computes in float32 from the same inputs as its
-plain version (1e-4).
+plain version (1e-4). K5 sums the same float32 LUT entries in the plain
+version's order for S <= 2 (exact) and in its own order above (1e-6
+relative); K3 sums exp terms in another order than the plain softmax (1e-5
+relative to each row's largest entry, and the same block selection); K6
+copies bytes (exact).
 """
 
 import numpy as np
@@ -16,11 +20,15 @@ import pytest
 import torch
 
 from pqcache_tpu_torch import config
+from pqcache_tpu_torch.core import pq
 from pqcache_tpu_torch.models import llama
+from pqcache_tpu_torch.ops.adc import (adc_block_scores, adc_block_scores_ref,
+                                       adc_scores, adc_scores_ref)
 from pqcache_tpu_torch.ops.attention_ref import chunked_attention
 from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
                                               block_topk_attention_ref)
 from pqcache_tpu_torch.ops.flash_attention import flash_attention
+from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
 from pqcache_tpu_torch.runtime.generate import Engine
 
 pytestmark = pytest.mark.cuda
@@ -91,7 +99,82 @@ def test_block_attn_kernel_matches_plain(dev, kv_dtype, D, bs, nb_sel,
                                    atol=1e-4 * max(1.0, b.abs().max().item()))
 
 
-def test_engine_kernels_match_plain_versions(dev):
+@pytest.mark.parametrize("round_bf16", [False, True])
+@pytest.mark.parametrize("lead,H_kv,g,S,C,T", [
+    ((), 8, 4, 2, 64, 33024), ((), 2, 8, 1, 256, 300), ((3,), 2, 2, 4, 16, 1000),
+    ((), 1, 1, 16, 256, 77)])
+def test_adc_scores_kernel_matches_plain(dev, lead, H_kv, g, S, C, T,
+                                         round_bf16):
+    rng = np.random.default_rng(T + S)
+    lut = torch.from_numpy(rng.normal(size=(*lead, H_kv, g, S, C)).astype(
+        np.float32)).to(dev)
+    codes = torch.from_numpy(rng.integers(0, C, size=(*lead, H_kv, S, T))
+                             .astype(np.uint8)).to(dev)
+    n0 = adc_scores.launches
+    got = adc_scores(lut, codes, round_lut_bf16=round_bf16)
+    torch.cuda.synchronize()
+    assert adc_scores.launches == n0 + 1
+    ref = adc_scores_ref(lut, codes, round_lut_bf16=round_bf16)
+    assert got.shape == (*lead, H_kv, g, T)
+    if S <= 2:
+        assert torch.equal(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,H_kv,g,C,T,bs,n_cand", [
+    (None, 8, 4, 64, 33024, 256, 25570), (None, 2, 8, 256, 2048, 16, 1999),
+    (3, 2, 2, 64, 2048, 128, [2048, 700, 0]), (None, 2, 4, 64, 4096, 512, 0)])
+def test_adc_block_scores_kernel_matches_plain(dev, B, H_kv, g, C, T, bs,
+                                               n_cand):
+    rng = np.random.default_rng(T + bs)
+    lead = () if B is None else (B,)
+    lut = torch.from_numpy(rng.normal(size=(*lead, H_kv, g, 2, C)).astype(
+        np.float32) * 4).to(dev)
+    codes = torch.from_numpy(rng.integers(0, C, size=(*lead, H_kv, 2, T))
+                             .astype(np.uint8)).to(dev)
+    nc = (torch.tensor(n_cand, dtype=torch.int32, device=dev)
+          if isinstance(n_cand, list) else n_cand)
+    n0 = adc_block_scores.launches
+    got = adc_block_scores(lut, codes, nc, sel_block=bs, head_dim=128)
+    torch.cuda.synchronize()
+    assert adc_block_scores.launches == n0 + 1
+    ref = adc_block_scores_ref(lut, codes, nc, sel_block=bs, head_dim=128)
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    scale = ref.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    assert ((got - ref).abs() / scale).max().item() <= 1e-5
+    assert (got[ref.sum(-1) == 0] == 0).all()       # n_cand 0: zeros
+    if B is None and n_cand:
+        k = 13 * bs
+        assert torch.equal(
+            pq.topk_from_block_mass(got, n_cand, k, group=g, block=bs),
+            pq.topk_from_block_mass(ref, n_cand, k, group=g, block=bs))
+
+
+@pytest.mark.parametrize("dtype,D2", [(torch.bfloat16, 256),
+                                      (torch.int8, 256), (torch.float32, 128),
+                                      (torch.int8, 6)])
+@pytest.mark.parametrize("idx_dtype", [torch.int64, torch.int32])
+def test_gather_rows_kernel_matches_plain(dev, dtype, D2, idx_dtype):
+    rng = np.random.default_rng(D2)
+    L, H, T, K = 3, 8, 1030, 3273
+    x = torch.from_numpy(rng.normal(size=(L * H, T, D2)).astype(np.float32)
+                         * 50).to(dev)
+    src = x.to(dtype)
+    idx = torch.from_numpy(rng.integers(-5, T + 5, size=(H, K))).to(dev).to(
+        idx_dtype)
+    n0 = gather_rows.launches
+    got = gather_rows(src, idx, H)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == n0 + 1
+    assert torch.equal(got, gather_rows_ref(src, idx, H))
+
+
+@pytest.mark.parametrize("pq_kw", [
+    dict(select_block=64), dict(select_block=1, gather_mode="pallas"),
+    dict(select_block=64, scorer="kernel")],
+    ids=["jhist", "per-token", "kernel-scorer"])
+def test_engine_kernels_match_plain_versions(dev, pq_kw):
     # head_dim 64: the smallest head dim the kernels take
     cfg = config.tiny_model_config(hidden_size=256, num_heads=4,
                                    num_kv_heads=2, head_dim=64,
@@ -103,7 +186,7 @@ def test_engine_kernels_match_plain_versions(dev):
     for kernels in ("auto", "xla"):
         ecfg = config.EngineConfig(
             model=cfg,
-            pq=config.PQConfig(n_subbits=4, kmeans_iters=4, select_block=64),
+            pq=config.PQConfig(n_subbits=4, kmeans_iters=4, **pq_kw),
             budget=config.BudgetConfig(compress_ratio=0.3, sink_size=4),
             cache=config.CacheConfig(kv_dtype="int8"),
             runtime=config.RuntimeConfig(prefill_bucket=256,

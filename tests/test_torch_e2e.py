@@ -2,7 +2,10 @@
 
 The same float32 parameters (JAX ``init_params`` moved through
 ``bridge.params_from_numpy``) go through both packages; the JAX side runs its
-XLA path (``kernels="xla"``), the port its plain versions on the CPU.
+XLA path (``kernels="xla"``), the port its plain versions on the CPU, once
+with ``kernels="xla"`` and once with ``kernels="auto"`` (the kernel wrappers,
+which compute their plain versions for CPU tensors). Both sides run
+``adc_mode="v1"`` (JAX's XLA route sums the f32 LUT) and exact top-k.
 Prefill logits agree to float32 summation order (1e-4 absolute on logits of
 order 1e-1). Decode starts from the JAX prefill state transplanted into the
 port (the port's k-means++ draws from torch, so its own codebooks differ)
@@ -25,6 +28,7 @@ from pqcache_tpu.core.budget import compute_budget as jcompute_budget
 from pqcache_tpu.models import llama as jllama
 from pqcache_tpu.policies.base import get_policy as jget_policy
 from pqcache_tpu.runtime.generate import Engine as JEngine
+import pqcache_tpu_torch
 from pqcache_tpu_torch import bridge, config
 from pqcache_tpu_torch.core.budget import compute_budget
 from pqcache_tpu_torch.models import llama
@@ -43,7 +47,8 @@ def model():
     jcfg = jconfig.tiny_model_config(**cfg_kw)
     jparams = jllama.init_params(jcfg, jax.random.PRNGKey(7),
                                  dtype=jnp.float32)
-    params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                      device="cpu")
     rng = np.random.default_rng(3)
     motif = rng.integers(0, jcfg.vocab_size, size=16)
     ids = np.concatenate([motif, rng.integers(0, jcfg.vocab_size, size=1000),
@@ -51,10 +56,11 @@ def model():
     return jcfg, jparams, config.tiny_model_config(**cfg_kw), params, ids
 
 
-def _ecfgs(jcfg, cfg, policy, select_block, kv_dtype):
+def _ecfgs(jcfg, cfg, policy, select_block, kv_dtype, scorer="auto"):
     kw = dict(
         pq=dict(n_subvec_per_head=2, n_subbits=4, kmeans_iters=4,
-                select_block=select_block),
+                select_block=select_block, scorer=scorer, adc_mode="v1",
+                gather_mode="pallas", approx_topk=False),
         budget=dict(compress_ratio=0.3, recent_ratio=0.5, sink_size=4),
         cache=dict(kv_dtype=kv_dtype),
         runtime=dict(policy=policy, prefill_bucket=64, max_new_tokens=32,
@@ -69,13 +75,29 @@ def _ecfgs(jcfg, cfg, policy, select_block, kv_dtype):
     return build(jconfig, jcfg), build(config, cfg)
 
 
-@pytest.mark.parametrize("policy,select_block,kv_dtype", [
-    ("pq_search", 16, "bf16"), ("pq_search", 16, "int8"),
-    ("pq_search", 256, "bf16"), ("pq_search", 256, "int8"),
-    ("original", 16, "bf16")])
-def test_slice_matches_jax(model, policy, select_block, kv_dtype):
+def _with_kernels(ecfg, kernels):
+    return dataclasses.replace(ecfg, runtime=dataclasses.replace(
+        ecfg.runtime, kernels=kernels))
+
+
+# select_block 1 is the per-token path (K5, K6); 16 with scorer "kernel"
+# the fused block scorer (K3) on the "auto" route, mips_topk_blocks on
+# the "xla" route; 16 and 256 with scorer "auto" the joint histogram
+SLICE_CASES = [
+    ("pq_search", 16, "bf16", "auto"), ("pq_search", 16, "int8", "auto"),
+    ("pq_search", 256, "bf16", "auto"), ("pq_search", 256, "int8", "auto"),
+    ("original", 16, "bf16", "auto"),
+    ("pq_search", 1, "bf16", "auto"), ("pq_search", 1, "int8", "auto"),
+    ("pq_search", 16, "bf16", "kernel")]
+
+
+@pytest.mark.parametrize(
+    "policy,select_block,kv_dtype,scorer", SLICE_CASES,
+    ids=["-".join(map(str, c[:3])) + ("-kernel" if c[3] == "kernel" else "")
+         for c in SLICE_CASES])
+def test_slice_matches_jax(model, policy, select_block, kv_dtype, scorer):
     jcfg, jparams, cfg, params, ids = model
-    jecfg, ecfg = _ecfgs(jcfg, cfg, policy, select_block, kv_dtype)
+    jecfg, ecfg = _ecfgs(jcfg, cfg, policy, select_block, kv_dtype, scorer)
     true_len = len(ids)
     P = 1152                                  # the 64-bucket of the prompt
     pad = P - true_len
@@ -89,37 +111,53 @@ def test_slice_matches_jax(model, policy, select_block, kv_dtype):
                                        jnp.asarray(true_len)))(
         jparams, jpol.init_state(jnp.float32), jnp.asarray(tokens))
 
-    pol = get_policy(ecfg, compute_budget(ecfg.budget, P,
-                                          ecfg.runtime.max_new_tokens))
-    logits = llama.prefill(cfg, params, pol, pol.init_state(torch.float32),
+    budget = compute_budget(ecfg.budget, P, ecfg.runtime.max_new_tokens)
+    pol = get_policy(ecfg, budget, device="cpu")
+    state0 = pol.init_state(torch.float32)
+    logits = llama.prefill(cfg, params, pol, state0,
                            torch.from_numpy(tokens).long(), pad, true_len)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                **LOGIT_TOL)
+    if policy == "pq_search":
+        # the histogram only where its scorer reads it
+        assert (state0.jhist is None) == (select_block == 1
+                                          or scorer == "kernel")
 
-    # decode from the JAX state, transplanted
+    # decode from the JAX state, transplanted: JAX once, the port on both
+    # of its routes
     jnp_state = jax.tree.map(np.asarray, jstate)
-    state = (bridge.pq_state_from_numpy(jnp_state) if policy == "pq_search"
-             else bridge.dense_state_from_numpy(jnp_state))
     jstep = jax.jit(lambda p, s, t, pos: jllama.decode_step(
         jcfg, p, jpol, s, t, pos))
     tok = int(jnp.argmax(jlogits))
+    jlog, jtoks = [], []
     for i in range(N_STEPS):
-        pos = true_len + i
         jl, jstate = jstep(jparams, jstate, jnp.asarray(tok, jnp.int32),
-                           jnp.asarray(pos, jnp.int32))
-        tl = llama.decode_step(cfg, params, pol, state, torch.tensor(tok),
-                               pos)
-        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
-        assert int(torch.argmax(tl)) == int(jnp.argmax(jl)), f"step {i}"
+                           jnp.asarray(true_len + i, jnp.int32))
+        jlog.append(np.asarray(jl))
+        jtoks.append(tok)
         tok = int(jnp.argmax(jl))
-    # the states advanced identically
-    if policy == "pq_search":
-        assert state.n_cand == int(jstate.n_cand)
-        np.testing.assert_array_equal(state.codes.numpy(),
-                                      np.asarray(jstate.codes))
-        np.testing.assert_array_equal(state.jhist.numpy(),
-                                      np.asarray(jstate.jhist))
-    assert state.pos == int(jstate.pos)
+    for kernels in ("xla", "auto"):
+        pol = get_policy(_with_kernels(ecfg, kernels), budget, device="cpu")
+        state = (bridge.pq_state_from_numpy(jnp_state, device="cpu")
+                 if policy == "pq_search"
+                 else bridge.dense_state_from_numpy(jnp_state, device="cpu"))
+        for i in range(N_STEPS):
+            tl = llama.decode_step(cfg, params, pol, state,
+                                   torch.tensor(jtoks[i]), true_len + i)
+            np.testing.assert_allclose(tl.numpy(), jlog[i], **LOGIT_TOL)
+            assert int(torch.argmax(tl)) == int(np.argmax(jlog[i])), \
+                f"{kernels} step {i}"
+        # the states advanced identically
+        if policy == "pq_search":
+            assert state.n_cand == int(jstate.n_cand)
+            np.testing.assert_array_equal(state.codes.numpy(),
+                                          np.asarray(jstate.codes))
+            if jstate.jhist is None:
+                assert state.jhist is None
+            else:
+                np.testing.assert_array_equal(state.jhist.numpy(),
+                                              np.asarray(jstate.jhist))
+        assert state.pos == int(jstate.pos)
 
 
 def test_engine_generate_end_to_end(model):
@@ -167,12 +205,91 @@ def test_engine_device_default_and_unported_options(model):
         with pytest.raises(NotImplementedError):
             Engine(bad, params, device="cpu")
     budget = compute_budget(ecfg.budget, 1024, 16)
-    for pq_kw in (dict(select_block=1), dict(metric="ip", select_block=16),
-                  dict(select_block=16, scorer="kernel")):
-        bad = dataclasses.replace(ecfg, pq=dataclasses.replace(
-            ecfg.pq, **pq_kw))
+    # select_block 1 and the kernel scorer now serve; these still raise
+    for section, kw in (("pq", dict(metric="ip", select_block=16)),
+                        ("pq", dict(fetch_mode="masked")),
+                        ("runtime", dict(gqa=False))):
+        bad = dataclasses.replace(ecfg, **{section: dataclasses.replace(
+            getattr(ecfg, section), **kw)})
         with pytest.raises(NotImplementedError):
-            get_policy(bad, budget)
+            get_policy(bad, budget, device="cpu")
+    for kw in (dict(select_block=1), dict(select_block=16, scorer="kernel"),
+               dict(select_block=512, scorer="kernel")):
+        ok = dataclasses.replace(ecfg, pq=dataclasses.replace(ecfg.pq, **kw))
+        pol = get_policy(ok, budget, device="cpu")
+        assert pol.init_state(torch.float32).jhist is None
+
+
+def test_engine_default_pq_config_end_to_end(model, capsys):
+    # the default PQConfig is the per-token path (select_block 1, adc_mode
+    # v2, approximate top-k): prefill, decode and appends on the CPU, with
+    # no joint histogram allocated
+    jcfg, jparams, cfg, params, ids = model
+    ecfg = config.EngineConfig(
+        model=cfg, pq=config.PQConfig(kmeans_iters=4),
+        runtime=config.RuntimeConfig(prefill_bucket=64, max_new_tokens=16,
+                                     max_seq_len=2048))
+    assert ecfg.pq.select_block == 1
+    eng = Engine(ecfg, params, dtype=torch.float32, device="cpu")
+    res = eng.generate(ids, 10)
+    assert res.policy_name == "pq_search" and len(res.tokens) == 10
+    assert all(0 <= t < cfg.vocab_size for t in res.tokens)
+    pol = next(iter(eng._policies.values()))
+    assert pol.select_block == 1 and not pol.use_jhist
+    assert pol.init_state(torch.float32).jhist is None
+    # the kernel wrappers' CPU branches give the plain route's tokens
+    xla = _with_kernels(ecfg, "xla")
+    assert Engine(xla, params, dtype=torch.float32,
+                  device="cpu").generate(ids, 10).tokens == res.tokens
+    # the recall oracle prints one line per layer and decode step, and
+    # does not change the tokens
+    capsys.readouterr()
+    rec = dataclasses.replace(ecfg, pq=dataclasses.replace(
+        ecfg.pq, check_recall=True))
+    assert Engine(rec, params, dtype=torch.float32,
+                  device="cpu").generate(ids, 3).tokens == res.tokens[:3]
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("pq recall layer=")]
+    assert len(lines) == 2 * cfg.num_layers
+    assert all(0.0 <= float(ln.split(": ")[1]) <= 1.0 for ln in lines)
+
+
+def test_entry_points_default_to_cuda(model):
+    # every public entry point that places tensors runs on cuda unless the
+    # caller names a device; without CUDA it raises instead of falling back
+    _, _, cfg, params, _ = model
+    ecfg = config.EngineConfig(model=cfg)
+    budget = compute_budget(ecfg.budget, 1024, 16)
+    from pqcache_tpu_torch.policies.base import policy_class
+    from pqcache_tpu_torch.runtime import state as st
+    a = np.zeros((2, 3), np.float32)
+    calls = [
+        lambda: llama.init_params(cfg, torch.Generator()),
+        lambda: llama.rope_inv_freq(cfg),
+        lambda: get_policy(ecfg, budget),
+        lambda: policy_class("pq_search")(ecfg, budget),
+        lambda: policy_class("original")(ecfg, budget),
+        lambda: st.make_pq_state(ecfg, budget),
+        lambda: st.make_dense_state(ecfg, 256),
+        lambda: bridge.tensor_from_numpy(a),
+        lambda: bridge.params_from_numpy({"embed": a, "layers": {"wq": a}}),
+        lambda: bridge.pq_state_from_numpy(dict(
+            k_sink=a, v_sink=a, kv_tail=a, codes=a, centroids=a, phi=a,
+            n_cand=0, pos=0, jhist=None, k_scale=None, v_scale=None)),
+        lambda: bridge.dense_state_from_numpy(dict(
+            k_cache=a, v_cache=a, length=0, start=0, pos=0)),
+    ]
+    if torch.cuda.is_available():
+        assert pqcache_tpu_torch.resolve_device().type == "cuda"
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    # with the device named, they run on the CPU
+    assert llama.rope_inv_freq(cfg, "cpu").device.type == "cpu"
+    assert st.make_dense_state(ecfg, 256, device="cpu").k_cache.device.type \
+        == "cpu"
+    assert bridge.tensor_from_numpy(a, "cpu").device.type == "cpu"
 
 
 def test_port_imports_no_jax():

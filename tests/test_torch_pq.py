@@ -134,10 +134,9 @@ def _make_keys(rng, H_kv, T, D, n_modes=32):
 
 
 def _group_topk(scores, group, D, k):
-    """GQA softmax-mass reduction + top-k (the JAX mips_topk, euc)."""
-    H, T = scores.shape
-    probs = torch.softmax(scores / D ** 0.5, -1)
-    return torch.topk(probs.reshape(H // group, group, T).sum(1), k).indices
+    """GQA softmax-mass reduction + top-k over every candidate."""
+    return pq.mips_topk(scores, scores.shape[1], k, group=group,
+                        head_dim=D)[0]
 
 
 def test_port_prefill_codebooks_reach_the_recall_operating_point():
@@ -167,3 +166,29 @@ def test_port_prefill_codebooks_reach_the_recall_operating_point():
                              group=group)
     assert r > 0.8 * ceiling, f"recall {r} vs ceiling {ceiling}"
     assert r > 0.4, f"absolute recall {r}"
+
+
+def test_block_and_exact_topk_break_ties_like_jax():
+    # torch.topk orders ties arbitrarily (on this input it returned
+    # [5 23 16 17 ...]); jax.lax.top_k takes the lower index first, also
+    # among -inf entries past n_valid
+    mass = np.zeros((2, 30), np.float32)
+    mass[:, 5] = 1.0
+    for n_valid in (30, 9):
+        sel = pq.topk_from_block_mass(torch.from_numpy(mass), n_valid, 12,
+                                      group=1, block=1)
+        jsel = jpq.topk_from_block_mass(jnp.asarray(mass),
+                                        jnp.asarray(n_valid), 12, group=1,
+                                        block=1, approx=False)
+        np.testing.assert_array_equal(sel.numpy(), np.asarray(jsel))
+    assert sel[0].tolist() == [5, 0, 1, 2, 3, 4, 6, 7, 8, 9, 10, 11]
+    # exact_topk over keys with repeated rows: tied logits
+    rng = np.random.default_rng(4)
+    keys = np.repeat(rng.normal(size=(2, 4, 8)).astype(np.float32), 10, 1)
+    q = rng.normal(size=(4, 8)).astype(np.float32)
+    for n_valid in (40, 13):
+        got = pq.exact_topk(torch.from_numpy(q), torch.from_numpy(keys),
+                            n_valid, 16, group=2)
+        want = jpq.exact_topk(jnp.asarray(q), jnp.asarray(keys),
+                              jnp.asarray(n_valid), 16, group=2)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
