@@ -3,15 +3,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pqcache_tpu_torch/csrc``, holds each
-(K1, K2, K3, K5, K6) against its plain PyTorch version at the main path's
-shapes, serves requests through ``Engine.generate`` at Llama-3.1-8B width
-(random weights from a seeded generator) on the block path (joint-histogram
-scorer + K1), the per-token path (select_block 1: K5, and K6 with
-gather_mode "pallas") and the fused block-scorer path (K3 + K1), checks that
-each request launched exactly the kernels of its path, profiles a few decode
-steps of each path (device time and launches per step), then holds the
-kernels against the plain versions end to end at reduced depth. Any failure
-exits non-zero. Without CUDA it exits 1 and prints no result.
+(K1–K6) against its plain PyTorch version at the main path's shapes, serves
+requests through ``Engine.generate`` at Llama-3.1-8B width (random weights
+from a seeded generator) on the block path (joint-histogram scorer + K1),
+the per-token path (select_block 1: K5, and K6 with gather_mode "pallas"),
+the fused block-scorer path (K3 + K1) and the score-reading policies h2o
+("sum" and "max") and infllm (K2 + K4 at prefill), checks that each request
+launched exactly the kernels of its path, profiles a few decode steps of
+each path (device time and launches per step), then holds the kernels
+against the plain versions end to end at reduced depth. Any failure exits
+non-zero. Without CUDA it exits 1 and prints no result.
 
 Output: the card's name and power limit, per-phase results, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -20,6 +21,7 @@ Output: the card's name and power limit, per-phase results, a
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -34,14 +36,17 @@ from pqcache_tpu_torch import config
 from pqcache_tpu_torch.core import pq
 from pqcache_tpu_torch.core.budget import compute_budget
 from pqcache_tpu_torch.models import llama
-from pqcache_tpu_torch.ops import _build
+from pqcache_tpu_torch.ops import _build, dispatch
 from pqcache_tpu_torch.ops.adc import (adc_block_scores, adc_block_scores_ref,
                                        adc_scores, adc_scores_ref)
-from pqcache_tpu_torch.ops.attention_ref import chunked_attention
+from pqcache_tpu_torch.ops.attention_ref import (chunked_attention,
+                                                 flash_scores_ref)
 from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
                                               block_topk_attention_ref)
 from pqcache_tpu_torch.ops.flash_attention import flash_attention
+from pqcache_tpu_torch.ops.flash_scores import flash_scores
 from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
+from pqcache_tpu_torch.policies import h2o, infllm
 from pqcache_tpu_torch.policies.base import get_policy
 from pqcache_tpu_torch.runtime.generate import Engine, bucket_length
 
@@ -53,24 +58,30 @@ PEAK_BYTES = 3.35e12
 SEED = 0
 LAYERS = 32                     # full depth of Llama-3.1-8B
 NEW_TOKENS = 32
-# The engines of the main path: (kv tail dtype, PQConfig overrides).
-# "block" is the joint-histogram scorer + K1; "token" the per-token path
-# (select_block 1, the default PQConfig) with K5, "token-pallas" adds K6;
-# "k3" the fused ADC block scorer + K1 (select_block 512 would need a tail
-# that is a multiple of 512, and 33024 is not).
+# The engines of the main path: policy (pq_search unless named), kv tail
+# dtype, PQConfig overrides, score_func. "block" is the joint-histogram
+# scorer + K1; "token" the per-token path (select_block 1, the default
+# PQConfig) with K5, "token-pallas" adds K6; "k3" the fused ADC block scorer
+# + K1 (select_block 512 would need a tail that is a multiple of 512, and
+# 33024 is not); h2o and infllm read K4's scores at prefill.
 ENGINES = {
-    "block-bf16": ("bf16", dict(select_block=256)),
-    "block-int8": ("int8", dict(select_block=256)),
-    "token": ("bf16", dict(select_block=1, adc_mode="v2")),
-    "token-pallas": ("int8", dict(select_block=1, adc_mode="v1",
-                                  gather_mode="pallas")),
-    "k3": ("bf16", dict(select_block=256, scorer="kernel")),
+    "block-bf16": dict(kv="bf16", pq=dict(select_block=256)),
+    "block-int8": dict(kv="int8", pq=dict(select_block=256)),
+    "token": dict(kv="bf16", pq=dict(select_block=1, adc_mode="v2")),
+    "token-pallas": dict(kv="int8", pq=dict(select_block=1, adc_mode="v1",
+                                            gather_mode="pallas")),
+    "k3": dict(kv="bf16", pq=dict(select_block=256, scorer="kernel")),
+    "h2o-sum": dict(policy="h2o", score_func="sum"),
+    "h2o-max": dict(policy="h2o", score_func="max"),
+    "infllm": dict(policy="infllm"),
 }
+SCORE_POLICIES = ("h2o", "infllm")
 # (prompt tokens, engine): the 100-token request is short enough that the
 # engine falls back to the dense `original` policy
 REQUESTS = [(2000, "block-bf16"), (16000, "block-int8"),
             (32000, "block-bf16"), (100, "block-bf16"),
-            (32000, "token"), (16000, "token-pallas"), (32000, "k3")]
+            (32000, "token"), (16000, "token-pallas"), (32000, "k3"),
+            (32000, "h2o-sum"), (16000, "h2o-max"), (32000, "infllm")]
 # K2 is held row by row: ||out - ref|| / ||ref|| of each query row. Rounding
 # P to bf16 for PV and the output to bf16 costs a few 1e-3 there at any
 # depth, while a key tile of 64 dropped from a row that sees n keys moves it
@@ -81,6 +92,10 @@ K1_TOL = 1e-4     # float32 both sides, relative to the largest |entry|
 # K3 sums exp terms per block, then rescales, where its plain version takes
 # one softmax: float32 summation order, relative to each row's largest entry
 K3_TOL = 1e-5
+# K4 sums the logits on bf16 tensor cores in another order and uses the
+# fast exp: |F - F_ref| relative to each head's largest entry. Dropping one
+# q tile of 64 rows from a key's column moves it by far more (PERF.md)
+K4_TOL = 1e-4
 # main-path decode shapes at 32k (budget 0.2 / recent 0.5 / sink 32)
 N_TAIL, N_CAND, TOPK = 33024, 25570, 3273
 SELF_LAYERS = 2   # depth of the kernels-vs-plain end-to-end check
@@ -214,6 +229,75 @@ def k2_phase(dev) -> dict:
                      call_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by="operations", library_ms=lib_ms)
         del q, k, v, out, ref, mask, kr, vr
+    return entry
+
+
+def head_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest |out - ref| over each row of the last axis, relative to that
+    row's largest |ref| (F of one head)."""
+    return ((out - ref).abs().amax(-1)
+            / ref.abs().amax(-1).clamp(min=1e-30)).max().item()
+
+
+# ---------------------------------------------------------------------------
+# K4 against its plain version
+
+def k4_phase(dev) -> dict:
+    """K4 at the main prefill shapes: q [32, 32768, 128], k [8, 32768, 128]
+    bf16, pad 768 (32000 valid rows), "sum" and "max". Held per head at
+    K4_TOL of the head's largest entry; pad columns exactly 0. Device time
+    by CUDA-graph replay cycling over 2 layers of inputs (each call reads
+    335 MB, far above the 50 MB L2); the per-call time from Python and the
+    plain version's time beside it."""
+    m = config.LLAMA31_8B
+    H, H_kv, D, T, pad, L = (m.num_heads, m.num_kv_heads, m.head_dim, 32768,
+                             768, 2)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    q = torch.randn((L, H, T, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((L, H_kv, T, D), generator=g, device=dev).bfloat16()
+    n = T - pad
+    ops = 2.0 * H * D * n * (n + 1)         # two causal QK^T sweeps
+    exps = float(H) * n * (n + 1)            # one exp per pair and sweep
+    nbytes = 2 * (H + H_kv) * T * D + 4 * H * T
+    bound_ms = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    entry = None
+    for mode in ("sum", "max"):
+        layer = iter(range(10 ** 9))
+
+        def call(i=None, mode=mode):
+            i = next(layer) % L if i is None else i
+            return flash_scores(q[i], k[i], valid_lo=pad, score_mode=mode)
+        got = call(1)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        ref = flash_scores_ref(q[1], k[1], pad, score_mode=mode)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        err = (got - ref).abs().max().item()
+        rel = head_rel_err(got, ref)
+        ok = bool(torch.isfinite(got).all() and (got[:, :pad] == 0).all())
+        log(f"K4 {mode} T={T} pad={pad}: max_abs_err {err:.3e}, largest "
+            f"|err| per head over its largest entry {rel:.3e} (tol "
+            f"{K4_TOL}); finite, pad columns 0: {ok}")
+        if not ok or not rel <= K4_TOL:
+            raise SystemExit(f"K4 ({mode}) disagrees with its plain version")
+        ms = graph_ms(call, 2 * L)
+        call_ms = cuda_ms(call, 3, warmup=1)
+        log(f"K4 {mode}: kernel {ms:.3f} ms of device time per call "
+            f"({ops / ms / 1e9:.1f} TFLOP/s of QK^T, {exps / ms / 1e9:.2f} "
+            f"T exp/s), {call_ms:.3f} ms per call from Python; plain "
+            f"{plain_ms:.1f} ms; bound {bound_ms:.3f} ms (operations); "
+            f"library call: none")
+        if mode == "sum":
+            entry = dict(name="flash_scores", route="cuda",
+                         source="pqcache_tpu_torch/csrc/flash_scores.cu",
+                         replaces="pqcache_tpu/ops/flash_attention.py:379",
+                         max_abs_err=err, max_row_rel_err=rel, ms=ms,
+                         call_ms=call_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by="operations",
+                         library_ms=None)
+        del got, ref
     return entry
 
 
@@ -451,6 +535,7 @@ def k6_phase(dev) -> dict:
 # The main path through Engine.generate
 
 KERNELS = {"flash_attention": flash_attention,
+           "flash_scores": flash_scores,
            "block_topk_attention": block_topk_attention,
            "adc_scores": adc_scores, "adc_block_scores": adc_block_scores,
            "gather_rows": gather_rows}
@@ -458,44 +543,53 @@ KERNELS = {"flash_attention": flash_attention,
 
 def engine_cfg(model, engine: str, kernels: str = "auto",
                compress_ratio: float = 0.2):
-    kv_dtype, pq_kw = ENGINES[engine]
+    e = ENGINES[engine]
     return config.EngineConfig(
         model=model,
         pq=config.PQConfig(n_subvec_per_head=2, n_subbits=6, kmeans_iters=6,
-                           **pq_kw),
+                           **e.get("pq", {})),
         budget=config.BudgetConfig(compress_ratio=compress_ratio,
                                    recent_ratio=0.5, sink_size=32),
-        cache=config.CacheConfig(kv_dtype=kv_dtype),
-        runtime=config.RuntimeConfig(policy="pq_search", prefill_bucket=1024,
-                                     max_new_tokens=64, max_seq_len=33000,
-                                     kernels=kernels))
+        cache=config.CacheConfig(kv_dtype=e.get("kv", "bf16")),
+        runtime=config.RuntimeConfig(
+            policy=e.get("policy", "pq_search"),
+            score_func=e.get("score_func", "sum"), prefill_bucket=1024,
+            max_new_tokens=64, max_seq_len=33000, kernels=kernels))
 
 
-def _expected_decode_kernels(engine: str) -> set:
-    """The kernels one pq_search decode step of this engine launches, once
-    per layer."""
-    pq_kw = ENGINES[engine][1]
-    if pq_kw["select_block"] == 1:
-        return {"adc_scores"} | ({"gather_rows"} if pq_kw.get(
+def _expected_launches(engine: str, policy: str, L: int, steps: int) -> dict:
+    """The launches of one request: K2 once per layer at prefill, K4 too
+    for the score-reading policies, and per layer and decode step the
+    kernels of this engine's pq_search decode."""
+    pq_kw = ENGINES[engine].get("pq", {})
+    dec = set()
+    if policy == "pq_search" and pq_kw["select_block"] == 1:
+        dec = {"adc_scores"} | ({"gather_rows"} if pq_kw.get(
             "gather_mode") == "pallas" else set())
-    if pq_kw.get("scorer") == "kernel":
-        return {"adc_block_scores", "block_topk_attention"}
-    return {"block_topk_attention"}
+    elif policy == "pq_search":
+        dec = {"block_topk_attention"} | ({"adc_block_scores"} if pq_kw.get(
+            "scorer") == "kernel" else set())
+    pre = {"flash_attention"} | ({"flash_scores"} if policy in SCORE_POLICIES
+                                 else set())
+    return {k: L * (k in pre) + L * steps * (k in dec) for k in KERNELS}
 
 
 def main_path(dev, params, model) -> dict:
+    """Serves REQUESTS; every kernel count is set to 0 just before each
+    request and read just after it. Returns the launches summed over all
+    requests."""
     L = model.num_layers
     rng = np.random.default_rng(SEED)
     engines = {e: Engine(engine_cfg(model, e), params, device=dev)
                for e in ENGINES}
-    for fn in KERNELS.values():
-        fn.launches = 0
+    total = dict.fromkeys(KERNELS, 0)
     for n_prompt, eng in REQUESTS:
         ids = rng.integers(0, model.vocab_size, size=n_prompt)
-        before = {k: fn.launches for k, fn in KERNELS.items()}
         torch.cuda.reset_peak_memory_stats()
+        for fn in KERNELS.values():
+            fn.launches = 0
         res = engines[eng].generate(ids, NEW_TOKENS)
-        got = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
+        got = {k: fn.launches for k, fn in KERNELS.items()}
         steps = len(res.tokens) - 1
         log(f"request prompt={n_prompt} engine={eng} "
             f"policy={res.policy_name}: TTFT {res.prefill_seconds * 1e3:.1f} "
@@ -503,17 +597,18 @@ def main_path(dev, params, model) -> dict:
             f"{steps} steps, peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches "
             + " ".join(f"{k} {v}" for k, v in got.items()))
-        dec = (_expected_decode_kernels(eng)
-               if res.policy_name == "pq_search" else set())
-        want = {k: (L if k == "flash_attention" else 0)
-                + (L * steps if k in dec else 0) for k in KERNELS}
+        want = _expected_launches(eng, res.policy_name, L, steps)
         if (len(res.tokens) != NEW_TOKENS or got != want
                 or not all(0 <= t < model.vocab_size for t in res.tokens)):
             raise SystemExit(f"main path check failed for prompt {n_prompt} "
                              f"({eng}): launches {got}, expected {want}")
-        if (res.policy_name == "original") != (n_prompt < 1000):
+        policy = ("original" if n_prompt < 1000
+                  else ENGINES[eng].get("policy", "pq_search"))
+        if res.policy_name != policy:
             raise SystemExit(f"unexpected policy {res.policy_name}")
-    return {k: fn.launches for k, fn in KERNELS.items()}
+        for k in total:
+            total[k] += got[k]
+    return total
 
 
 def decode_profile(dev, params, model, engine: str, n_prompt: int = 32000,
@@ -620,23 +715,9 @@ def self_check(dev, params, model, engine: str = "block-bf16",
     K1 still masks rows. On the per-token path K5 and K6 are exact, so the
     shared-state steps run at the main path's budget 0.2 and their per-token
     selections must be identical."""
-    small = dataclasses.replace(model, num_layers=SELF_LAYERS)
-    sp = dict(params, layers={k: v[:SELF_LAYERS]
-                              for k, v in params["layers"].items()})
-    ids = np.random.default_rng(SEED + 1).integers(0, model.vocab_size, 3072)
-    toks, pols, own = {}, {}, {}
-    for kernels in ("auto", "xla"):
-        cfg = engine_cfg(small, engine, kernels, SELF_COMPRESS)
-        res = Engine(cfg, sp, device=dev).generate(ids, SELF_TOKENS)
-        if res.policy_name != "pq_search":
-            raise SystemExit("self-check must run the pq_search path")
-        toks[kernels] = res.tokens
-        pols[kernels], P = _policy(small, engine, kernels, len(ids), dev)
+    small, sp, ids = _small(model, params)
+    toks, own, P = _both_routes(small, sp, ids, engine, SELF_COMPRESS, dev)
     ref = toks["xla"]
-    for kernels in ("auto", "xla"):
-        lg, st = _prefill(small, sp, pols[kernels], P, ids, dev)
-        own[kernels] = torch.cat([lg[None], _decode_forced(
-            small, sp, pols[kernels], st, len(ids), ref, dev)])
     pre_diff = (own["auto"][0] - own["xla"][0]).abs().max().item()
     # each decode step from one shared state: the auto run's state before
     # the step, cloned for the plain run
@@ -656,9 +737,7 @@ def self_check(dev, params, model, engine: str = "block-bf16",
             torch.equal(a, b) for a, b in zip(sa.seen, sx.seen)))
         dec_diff.append((la - lx).abs().max().item())
     dec_diff = torch.tensor(dec_diff)
-    first = next((i for i, (a, b) in enumerate(zip(toks["auto"], ref))
-                  if a != b), None)
-    per_token = ENGINES[engine][1]["select_block"] == 1
+    per_token = ENGINES[engine]["pq"]["select_block"] == 1
     log(f"self-check {engine} ({SELF_LAYERS} layers): prefill |logit diff| "
         f"{pre_diff:.4f}; decode from a shared state at budget "
         f"{shared_compress}: max |logit diff| {dec_diff.max().item():.4f} "
@@ -666,20 +745,114 @@ def self_check(dev, params, model, engine: str = "block-bf16",
         f"{[round(x, 4) for x in dec_diff.tolist()[:8]]}..."
         + (f"; per-token selections identical: {sel_same}" if per_token
            else ""))
-    if first is None:
-        log(f"self-check {engine}: greedy tokens equal {len(ref)}/{len(ref)}")
-    else:
-        top2 = own["xla"][first].topk(2).values
-        gap = (top2[0] - top2[1]).item()
-        d = (own["auto"][first] - own["xla"][first]).abs().max().item()
-        log(f"self-check {engine}: greedy tokens equal up to step {first} of "
-            f"{len(ref)}; there the top-2 gap is {gap:.4f} and the runs' "
-            f"logits differ by {d:.4f}")
-        if gap > 2 * d:
-            raise SystemExit("greedy tokens differ away from a near tie")
+    _check_greedy(engine, toks, own)
     if (pre_diff > LOGIT_TOL or dec_diff.max().item() > LOGIT_TOL
             or not torch.isfinite(own["auto"]).all()
             or (per_token and not sel_same)):
+        raise SystemExit(f"kernels disagree with the plain versions end to "
+                         f"end ({engine})")
+
+
+def _small(model, params):
+    """The model cut to SELF_LAYERS layers, its params, and the 3072-token
+    prompt of the self-checks."""
+    small = dataclasses.replace(model, num_layers=SELF_LAYERS)
+    sp = dict(params, layers={k: v[:SELF_LAYERS]
+                              for k, v in params["layers"].items()})
+    ids = np.random.default_rng(SEED + 1).integers(0, model.vocab_size, 3072)
+    return small, sp, ids
+
+
+def _both_routes(small, sp, ids, engine: str, compress: float, dev,
+                 on_prefill=None):
+    """Engine.generate's greedy tokens on the kernel ("auto") and plain
+    ("xla") routes, and each route's own logits: prefill, then teacher
+    forcing with the plain route's tokens. on_prefill(kernels) is a context
+    manager entered around each route's prefill."""
+    toks, own = {}, {}
+    policy = ENGINES[engine].get("policy", "pq_search")
+    for kernels in ("auto", "xla"):
+        cfg = engine_cfg(small, engine, kernels, compress)
+        res = Engine(cfg, sp, device=dev).generate(ids, SELF_TOKENS)
+        if res.policy_name != policy:
+            raise SystemExit(f"self-check must run the {policy} path")
+        toks[kernels] = res.tokens
+    for kernels in ("auto", "xla"):
+        pol, P = _policy(small, engine, kernels, len(ids), dev, compress)
+        with on_prefill(kernels) if on_prefill else contextlib.nullcontext():
+            lg, st = _prefill(small, sp, pol, P, ids, dev)
+        own[kernels] = torch.cat([lg[None], _decode_forced(
+            small, sp, pol, st, len(ids), toks["xla"], dev)])
+    return toks, own, P
+
+
+def _check_greedy(engine: str, toks: dict, own: dict) -> None:
+    """The greedy tokens of the two routes agree up to a step where their
+    logits differ by more than half the top-2 gap (a near tie, after which
+    the sequences are not comparable)."""
+    ref = toks["xla"]
+    first = next((i for i, (a, b) in enumerate(zip(toks["auto"], ref))
+                  if a != b), None)
+    if first is None:
+        log(f"self-check {engine}: greedy tokens equal {len(ref)}/{len(ref)}")
+        return
+    top2 = own["xla"][first].topk(2).values
+    gap = (top2[0] - top2[1]).item()
+    d = (own["auto"][first] - own["xla"][first]).abs().max().item()
+    log(f"self-check {engine}: greedy tokens equal up to step {first} of "
+        f"{len(ref)}; there the top-2 gap is {gap:.4f} and the runs' "
+        f"logits differ by {d:.4f}")
+    if gap > 2 * d:
+        raise SystemExit("greedy tokens differ away from a near tie")
+
+
+class _ScoreErrors:
+    """While active, holds K4's output at each prefill layer of h2o and
+    infllm against flash_scores_ref on that layer's own q and k, and
+    records the largest error relative to each head's largest entry."""
+
+    def __enter__(self):
+        self.rel, self._orig = [], dispatch.dense_prefill_attention
+
+        def rec(q, k, v, pad_len, **kw):
+            out, F = self._orig(q, k, v, pad_len, **kw)
+            if F is not None and kw.get("use_kernel", True):
+                ref = flash_scores_ref(q, k, pad_len,
+                                       score_mode=kw.get("score_mode", "sum"))
+                self.rel.append(head_rel_err(F, ref))
+            return out, F
+        h2o.dense_prefill_attention = infllm.dense_prefill_attention = rec
+        return self
+
+    def __exit__(self, *exc):
+        h2o.dense_prefill_attention = self._orig
+        infllm.dense_prefill_attention = self._orig
+
+
+def score_self_check(dev, params, model, engine: str):
+    """h2o / infllm, kernels="auto" against kernels="xla" at reduced depth
+    and the main path's budget 0.2 (the keep-mask and the block selection
+    prune): the prefill logits within LOGIT_TOL, K4 at every prefill layer
+    within K4_TOL of its plain version on the layer's own inputs, and the
+    greedy tokens under the near-tie rule. Decode runs no kernel on these
+    policies; its logits part only through the prefill state."""
+    small, sp, ids = _small(model, params)
+    errs = {}
+
+    def on_prefill(kernels):
+        errs[kernels] = _ScoreErrors()
+        return errs[kernels]
+    toks, own, _ = _both_routes(small, sp, ids, engine, 0.2, dev,
+                                on_prefill)
+    pre_diff = (own["auto"][0] - own["xla"][0]).abs().max().item()
+    k4 = errs["auto"].rel
+    log(f"self-check {engine} ({SELF_LAYERS} layers): prefill |logit diff| "
+        f"{pre_diff:.4f} (tol {LOGIT_TOL}); K4 per prefill layer, largest "
+        f"|err| per head over its largest entry "
+        f"{[f'{x:.2e}' for x in k4]} (tol {K4_TOL})")
+    _check_greedy(engine, toks, own)
+    if (pre_diff > LOGIT_TOL or len(k4) != SELF_LAYERS or errs["xla"].rel
+            or not max(k4) <= K4_TOL or not torch.isfinite(own["auto"]).all()):
         raise SystemExit(f"kernels disagree with the plain versions end to "
                          f"end ({engine})")
 
@@ -693,8 +866,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     environment()
-    entries = [k2_phase(dev), k1_phase(dev), k3_phase(dev), k5_phase(dev),
-               k6_phase(dev)]
+    entries = [k2_phase(dev), k4_phase(dev), k1_phase(dev), k3_phase(dev),
+               k5_phase(dev), k6_phase(dev)]
     log(f"kernel phases done at {time.perf_counter() - t0:.0f} s")
 
     model = dataclasses.replace(config.LLAMA31_8B, num_layers=LAYERS)
@@ -706,12 +879,14 @@ def main() -> int:
     launches = main_path(dev, params, model)
     log(f"main path done at {time.perf_counter() - t0:.0f} s; launches "
         f"{launches}")
-    for engine in ("block-bf16", "token", "k3"):
+    for engine in ("block-bf16", "token", "k3", "h2o-sum", "infllm"):
         decode_profile(dev, params, model, engine)
     log(f"decode profiles done at {time.perf_counter() - t0:.0f} s")
     self_check(dev, params, model, "block-bf16")
     self_check(dev, params, model, "token", shared_compress=0.2)
     self_check(dev, params, model, "k3")
+    score_self_check(dev, params, model, "h2o-sum")
+    score_self_check(dev, params, model, "infllm")
     log(f"self-checks done at {time.perf_counter() - t0:.0f} s")
     del params
     for e in entries:

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from pqcache_tpu_torch import resolve_device
+from pqcache_tpu_torch.policies.infllm import InfLLMState
 from pqcache_tpu_torch.runtime.state import DenseState, PQState
 
 
@@ -46,15 +47,17 @@ def _field(src, name):
     return src[name] if isinstance(src, dict) else getattr(src, name)
 
 
+def _opt(src, name, device):
+    """An optional field (None or absent -> None) as a tensor."""
+    v = src.get(name) if isinstance(src, dict) else getattr(src, name, None)
+    return None if v is None else tensor_from_numpy(v, device)
+
+
 def pq_state_from_numpy(src, device=None) -> PQState:
     """A single-sequence JAX ``PQState`` with numpy leaves (an object with
     the fields as attributes, or a dict) -> the port's PQState on
     ``device`` (cuda unless given)."""
     device = resolve_device(device)
-    def opt(name):
-        v = _field(src, name)
-        return None if v is None else tensor_from_numpy(v, device)
-
     return PQState(
         k_sink=tensor_from_numpy(_field(src, "k_sink"), device),
         v_sink=tensor_from_numpy(_field(src, "v_sink"), device),
@@ -64,15 +67,16 @@ def pq_state_from_numpy(src, device=None) -> PQState:
         phi=tensor_from_numpy(_field(src, "phi"), device),
         n_cand=int(_field(src, "n_cand")),
         pos=int(_field(src, "pos")),
-        jhist=opt("jhist"),
-        k_scale=opt("k_scale"),
-        v_scale=opt("v_scale"),
+        jhist=_opt(src, "jhist", device),
+        k_scale=_opt(src, "k_scale", device),
+        v_scale=_opt(src, "v_scale", device),
     )
 
 
 def dense_state_from_numpy(src, device=None) -> DenseState:
     """A single-sequence JAX ``DenseState`` with numpy leaves -> the port's
-    DenseState on ``device`` (cuda unless given)."""
+    DenseState on ``device`` (cuda unless given), with h2o's ``scores`` and
+    ``mask`` where the source has them."""
     device = resolve_device(device)
     return DenseState(
         k_cache=tensor_from_numpy(_field(src, "k_cache"), device),
@@ -80,4 +84,18 @@ def dense_state_from_numpy(src, device=None) -> DenseState:
         length=int(_field(src, "length")),
         start=int(_field(src, "start")),
         pos=int(_field(src, "pos")),
+        scores=_opt(src, "scores", device),
+        mask=_opt(src, "mask", device),
+    )
+
+
+def infllm_state_from_numpy(src, device=None) -> InfLLMState:
+    """A single-sequence JAX ``InfLLMState`` with numpy leaves -> the port's
+    InfLLMState on ``device`` (cuda unless given)."""
+    device = resolve_device(device)
+    return InfLLMState(
+        dense=dense_state_from_numpy(_field(src, "dense"), device),
+        k_repr=tensor_from_numpy(_field(src, "k_repr"), device),
+        repr_valid=tensor_from_numpy(_field(src, "repr_valid"), device),
+        gen_scores=tensor_from_numpy(_field(src, "gen_scores"), device),
     )

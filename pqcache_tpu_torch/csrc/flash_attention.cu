@@ -28,47 +28,14 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
 constexpr int BM = 64;        // q rows per CTA
 constexpr int BN = 64;        // keys per tile
 constexpr int NTHREADS = 128; // 4 warps x 16 q rows
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // 0 source bytes: the 16 destination bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two floats -> packed bf16 pair, `lo` in the low 16 bits
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
@@ -139,13 +106,8 @@ flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     __syncthreads();
     if (j == j_lo) {
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const uint16_t* base = sQ + (wr + r0) * LD + kc * 16 + c0;
-        qf[kc][0] = ld_u32(base);
-        qf[kc][1] = ld_u32(base + 8 * LD);
-        qf[kc][2] = ld_u32(base + 8);
-        qf[kc][3] = ld_u32(base + 8 * LD + 8);
-      }
+      for (int kc = 0; kc < D / 16; ++kc)
+        ld_frag_a(qf[kc], sQ + (wr + r0) * LD + kc * 16 + c0, LD);
     }
     const uint16_t* cK = sK + stage * BN * LD;
     const uint16_t* cV = sV + stage * BN * LD;

@@ -174,8 +174,9 @@ def prefill(cfg: ModelConfig, params: dict, policy, state,
 def decode_step(cfg: ModelConfig, params: dict, policy, state,
                 token: torch.Tensor, pos: int):
     """One decode step. token: 0-d or [1] int tensor on the device; pos:
-    the token's absolute position. Returns logits [V] f32; all layers' new
-    tokens are committed to ``state`` after the layer loop."""
+    the token's absolute position. Returns logits [V] f32. A policy with
+    ``deferred_appends`` gets all layers' new tokens committed to ``state``
+    after the layer loop; the others wrote theirs inside decode_attn."""
     hidden = params["embed"][token.reshape(1)]               # [1, E]
     cos, sin = rope_cos_sin(
         cfg, torch.arange(pos, pos + 1, device=hidden.device))
@@ -187,9 +188,10 @@ def decode_step(cfg: ModelConfig, params: dict, policy, state,
         hidden, payload = _layer_fwd(cfg, _layer_params(params, idx), hidden,
                                      attn_fn, cos, sin)
         payloads.append(payload)
-    policy.commit_appends(state, (torch.stack([p[0] for p in payloads]),
-                                  torch.stack([p[1] for p in payloads])),
-                          shared)
+    if getattr(policy, "deferred_appends", False):
+        policy.commit_appends(state, (torch.stack([p[0] for p in payloads]),
+                                      torch.stack([p[1] for p in payloads])),
+                              shared)
     policy.shared_post(state, shared)
     return _logits(cfg, params, hidden)
 

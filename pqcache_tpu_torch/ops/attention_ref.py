@@ -1,5 +1,7 @@
 """Plain PyTorch attention: the reference versions the CUDA kernels are held
-against, and the decode segment merge.
+against (``chunked_attention`` for K2, ``flash_scores_ref`` for K4), the
+materialized-softmax oracle ``dense_attention``, and the decode paths (the
+segment merge, and the one-window attention of infllm).
 
 Counterpart of ``pqcache_tpu/ops/attention_xla.py``. Shapes: q [H, Tq, D],
 k/v [H_kv, Tk, D] (no batch dim). GQA reshapes q into [H_kv, group, ...] so
@@ -18,6 +20,96 @@ NEG_INF = -1e30  # finite sentinel: keeps fully-masked rows NaN-free
 
 def _as_int(x) -> int:
     return int(x.item()) if isinstance(x, torch.Tensor) else int(x)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0, valid_len=None,
+                    valid_lo=None, scale: Optional[float] = None
+                    ) -> torch.Tensor:
+    """Materialized-scores attention, O(Tq*Tk) memory: the test oracle.
+    q [H, Tq, D], k/v [H_kv, Tk, D]; keys at index >= valid_len or
+    < valid_lo are masked; with ``causal`` a key at index > q_offset + q row
+    is masked. Returns [H, Tq, D] in q.dtype."""
+    H, Tq, D = q.shape
+    H_kv, Tk, _ = k.shape
+    group = H // H_kv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    qg = q.reshape(H_kv, group, Tq, D).float()
+    logits = torch.einsum("hgqd,hkd->hgqk", qg, k.float()) * scale
+    kpos = torch.arange(Tk, device=q.device)[None, :]
+    mask = torch.ones((Tq, Tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= torch.arange(Tq, device=q.device)[:, None] + q_offset
+    if valid_len is not None:
+        mask &= kpos < _as_int(valid_len)
+    if valid_lo is not None:
+        mask &= kpos >= _as_int(valid_lo)
+    probs = torch.softmax(torch.where(mask, logits, NEG_INF), -1)
+    out = torch.einsum("hgqk,hkd->hgqd", probs, v.float())
+    return out.reshape(H, Tq, D).to(q.dtype)
+
+
+def flash_scores_ref(q: torch.Tensor, k: torch.Tensor, valid_lo=0,
+                     valid_len=None, *, score_mode: str = "sum",
+                     recent_cnt: int = 32, block: int = 512) -> torch.Tensor:
+    """Per-key columns of the causal softmax, the plain version of K4.
+
+    q [H, T, D], k [H_kv, T, D] -> F [H, T] float32. A pair (q row, key)
+    counts when both lie in [valid_lo, valid_len) and key <= q row; p is
+    its softmax probability within the q row. "sum": F[h, t] = sum over
+    q of p(q, t). "max": F[h, t] = max of p(q, t) over pairs with
+    t <= q - recent_cnt (0 where there is none). Two float32 sweeps per q
+    block, as ``pqcache_tpu/ops/attention_xla.py::chunked_attention``
+    (with_scores=True): the first finds each row's (m, l), the second
+    adds up the normalised columns; nothing larger than block x block is
+    built."""
+    if score_mode not in ("sum", "max"):
+        raise ValueError(f"score_mode must be 'sum' or 'max', got "
+                         f"{score_mode!r}")
+    H, T, D = q.shape
+    H_kv = k.shape[0]
+    group = H // H_kv
+    scale = 1.0 / (D ** 0.5)
+    lo = max(_as_int(valid_lo), 0)
+    hi = T if valid_len is None else min(_as_int(valid_len), T)
+    F = torch.zeros((H_kv, group, T), dtype=torch.float32, device=q.device)
+    kf = k.float()
+    qg = q.reshape(H_kv, group, T, D).float() * scale
+    offs = torch.arange(block, device=q.device)
+    first = lo // block * block
+    for i0 in range(first, hi, block):
+        i1 = min(i0 + block, T)
+        qpos = i0 + offs[:i1 - i0]
+        q_ok = (qpos >= lo) & (qpos < hi)
+        q_i = qg[:, :, i0:i1]
+
+        def tiles():
+            for j0 in range(first, min(hi, i1), block):
+                kpos = j0 + offs[:min(j0 + block, T) - j0]
+                mask = (q_ok[:, None] & ((kpos >= lo) & (kpos < hi))[None, :]
+                        & (kpos[None, :] <= qpos[:, None]))
+                lg = torch.einsum("hgqd,hkd->hgqk", q_i,
+                                  kf[:, j0:j0 + kpos.numel()])
+                yield j0, kpos, mask, torch.where(mask, lg, NEG_INF)
+
+        m = torch.full((H_kv, group, i1 - i0), NEG_INF, device=q.device)
+        l = torch.zeros((H_kv, group, i1 - i0), device=q.device)
+        for _, _, mask, lg in tiles():
+            m_new = torch.maximum(m, lg.amax(-1))
+            p = torch.where(mask, torch.exp(lg - m_new[..., None]), 0.0)
+            l = l * torch.exp(m - m_new) + p.sum(-1)
+            m = m_new
+        l = torch.clamp(l, min=1e-30)[..., None]
+        for j0, kpos, mask, lg in tiles():
+            if score_mode == "max":
+                mask = mask & (kpos[None, :] <= qpos[:, None] - recent_cnt)
+            p = torch.where(mask, torch.exp(lg - m[..., None]), 0.0) / l
+            cols = F[:, :, j0:j0 + kpos.numel()]
+            if score_mode == "sum":
+                cols += p.sum(2)
+            else:
+                cols.copy_(torch.maximum(cols, p.amax(2)))
+    return F.reshape(H, T)
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -136,3 +228,29 @@ def decode_window_attention_segments(q: torch.Tensor, segments,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(H, 1, D).to(q.dtype)
+
+
+def decode_window_attention(q: torch.Tensor, k_win: torch.Tensor,
+                            v_win: torch.Tensor,
+                            win_mask: Optional[torch.Tensor] = None, *,
+                            return_probs: bool = False):
+    """Single-step attention over one assembled window with a materialized
+    softmax. q [H, 1, D]; k/v_win [H_kv, W, D]; win_mask [H_kv, W] bool
+    (True = attend). Returns out [H, 1, D] in q.dtype and, with
+    ``return_probs``, the probabilities summed over each GQA group
+    [H_kv, W] f32 (the attention mass each window position received)."""
+    H, _, D = q.shape
+    H_kv, W, _ = k_win.shape
+    group = H // H_kv
+    scale = 1.0 / (D ** 0.5)
+    qg = q.reshape(H_kv, group, D).float()
+    logits = torch.einsum("hgd,hwd->hgw", qg, k_win.float()) * scale
+    if win_mask is not None:
+        logits = torch.where(win_mask[:, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, -1)
+    out = torch.einsum("hgw,hwd->hgd", probs.to(v_win.dtype).float(),
+                       v_win.float())
+    out = out.reshape(H, 1, D).to(q.dtype)
+    if return_probs:
+        return out, probs.sum(1)
+    return out

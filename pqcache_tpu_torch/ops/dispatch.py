@@ -1,32 +1,36 @@
-"""Prefill attention dispatch: the CUDA kernel K2 or its plain version.
+"""Prefill attention dispatch: the CUDA kernels K2 (+ K4) or their plain
+versions.
 
 Counterpart of ``pqcache_tpu/ops/dispatch.py::dense_prefill_attention``.
-There is no head-dim gate: the kernel wrapper takes the head dims it
-supports and raises on any other.
+There is no head-dim gate: the kernel wrappers take the head dims they
+support and raise on any other.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pqcache_tpu_torch.ops.attention_ref import chunked_attention
+from pqcache_tpu_torch.ops.attention_ref import (chunked_attention,
+                                                 flash_scores_ref)
 from pqcache_tpu_torch.ops.flash_attention import flash_attention
+from pqcache_tpu_torch.ops.flash_scores import flash_scores
 
 
 def dense_prefill_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, pad_len, *,
                             with_scores: bool = False,
+                            score_mode: str = "sum",
                             use_kernel: bool = True):
     """Causal self-attention over a left-padded prompt (keys before
-    ``pad_len`` are masked). Returns (out [H, T, D], None).
+    ``pad_len`` are masked). Returns (out [H, T, D], scores [H, T] f32 or
+    None): with ``with_scores`` the per-key softmax columns of
+    ``score_mode`` "sum" or "max" (K4, with its default recent window of
+    32, as JAX's dispatch leaves it).
 
-    use_kernel=False runs the plain version (RuntimeConfig.kernels="xla").
-    Per-key attention scores need the flash_scores kernel (K4), which a
-    later slice ports."""
-    if with_scores:
-        raise NotImplementedError(
-            "with_scores needs the flash_scores kernel (K4), ported in a "
-            "later slice")
-    if use_kernel:
-        return flash_attention(q, k, v, valid_lo=pad_len, causal=True), None
-    return chunked_attention(q, k, v, valid_lo=pad_len, causal=True), None
+    use_kernel=False runs the plain versions (RuntimeConfig.kernels="xla")."""
+    attn = flash_attention if use_kernel else chunked_attention
+    out = attn(q, k, v, valid_lo=pad_len, causal=True)
+    if not with_scores:
+        return out, None
+    scores = flash_scores if use_kernel else flash_scores_ref
+    return out, scores(q, k, valid_lo=pad_len, score_mode=score_mode)

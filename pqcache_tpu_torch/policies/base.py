@@ -7,13 +7,16 @@ decode attention that the model calls at its attention site:
   prefill_attn(state, idx, q [H, P, D], k, v [H_kv, P, D], pad_len,
                true_len) -> out [H, P, D]            (writes layer idx)
   decode_attn(state, idx, q [H, 1, D], k_new, v_new [H_kv, 1, D], shared)
-      -> (out [H, 1, D], append payload)
+      -> (out [H, 1, D], append payload or None)
   commit_appends(state, payloads, shared)            (all layers, per step)
   shared_pre(state) -> shared;  shared_post(state, shared)
 
-The port updates the state in place instead of returning a new pytree.
-This slice registers ``original`` and ``pq_search``; the other policies come
-in later slices.
+A policy with ``deferred_appends = True`` returns its layer's new K/V as the
+payload and writes every layer's at once in ``commit_appends`` after the
+layer loop; the others write it inside ``decode_attn`` (JAX's
+``deferred_appends`` switch). The port updates the state in place instead of
+returning a new pytree. Registered: ``original``, ``pq_search``, ``h2o`` and
+``infllm``; ``no_drop_lb`` and ``sparq_f`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ def register_policy(name: str):
 
 
 def policy_class(name: str) -> Any:
+    import pqcache_tpu_torch.policies.h2o  # noqa: F401
+    import pqcache_tpu_torch.policies.infllm  # noqa: F401
     import pqcache_tpu_torch.policies.original  # noqa: F401
     import pqcache_tpu_torch.policies.pq_search  # noqa: F401
     if name not in _REGISTRY:

@@ -20,6 +20,8 @@ from pqcache_tpu_torch.runtime.state import DenseState, make_dense_state
 
 @register_policy("original")
 class OriginalPolicy:
+    deferred_appends = True
+
     def __init__(self, cfg: EngineConfig, budget: Budget, device=None):
         self.cfg = cfg
         self.budget = budget

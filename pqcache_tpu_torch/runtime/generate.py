@@ -1,13 +1,14 @@
 """Generation engine: bucketed prefill and a greedy decode loop.
 
 Counterpart of ``pqcache_tpu/runtime/generate.py::Engine`` for one sequence
-on one device. It left-pads the prompt to a bucket length, picks
-``pq_search`` or the dense ``original`` fallback when the PQ budgets are
-degenerate for the prompt, runs one prefill and then decodes greedily.
+on one device. It left-pads the prompt to a bucket length, runs the
+configured policy (``pq_search``, ``original``, ``h2o`` or ``infllm``;
+``pq_search`` falls back to ``original`` when its budgets are degenerate
+for the prompt, the others pass straight through), runs one prefill and
+then decodes greedily.
 
-This slice serves greedy decoding only. Sampling (temperature > 0), chunked
-prefill, prefix caching and the host-offload tier raise
-NotImplementedError: later slices port them.
+Greedy decoding only: sampling (temperature > 0), chunked prefill, prefix
+caching and the host-offload tier raise NotImplementedError.
 """
 
 from __future__ import annotations

@@ -54,13 +54,16 @@ class PQState:
 
 @dataclass
 class DenseState:
-    """Plain KV cache for the `original` policy."""
+    """Plain KV cache (`original`, `infllm`), with the accumulated scores
+    and keep-mask of `h2o`."""
 
     k_cache: torch.Tensor    # [L, H_kv, T_max, D]
     v_cache: torch.Tensor    # [L, H_kv, T_max, D]
     length: int = 0          # tokens written (== next write slot)
     start: int = 0           # first valid slot (left-pad offset)
     pos: int = 0             # absolute position of the next token
+    scores: Optional[torch.Tensor] = None   # [L, H_kv, T_max] f32
+    mask: Optional[torch.Tensor] = None     # [L, H_kv, T_max] bool
 
 
 def make_pq_state(cfg: EngineConfig, budget: Budget, *,
@@ -100,12 +103,19 @@ def make_pq_state(cfg: EngineConfig, budget: Budget, *,
 
 
 def make_dense_state(cfg: EngineConfig, max_len: int, *,
-                     dtype=torch.bfloat16, device=None) -> DenseState:
+                     with_scores: bool = False, dtype=torch.bfloat16,
+                     device=None) -> DenseState:
     """Zero-filled dense cache on ``device`` (cuda unless given); the token
-    dim rounds up to 256 as in the JAX package."""
+    dim rounds up to 256 as in the JAX package. with_scores adds the
+    per-slot scores (zeros) and keep-mask (ones)."""
     device = resolve_device(device)
     m = cfg.model
     max_len = (max_len + 255) // 256 * 256
     shape = (m.num_layers, m.num_kv_heads, max_len, m.head_dim)
-    return DenseState(k_cache=torch.zeros(shape, dtype=dtype, device=device),
-                      v_cache=torch.zeros(shape, dtype=dtype, device=device))
+    return DenseState(
+        k_cache=torch.zeros(shape, dtype=dtype, device=device),
+        v_cache=torch.zeros(shape, dtype=dtype, device=device),
+        scores=(torch.zeros(shape[:3], device=device) if with_scores
+                else None),
+        mask=(torch.ones(shape[:3], dtype=torch.bool, device=device)
+              if with_scores else None))

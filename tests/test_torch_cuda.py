@@ -11,8 +11,9 @@ computes in float32 from the same inputs as its
 plain version (1e-4). K5 sums the same float32 LUT entries in the plain
 version's order for S <= 2 (exact) and in its own order above (1e-6
 relative); K3 sums exp terms in another order than the plain softmax (1e-5
-relative to each row's largest entry, and the same block selection); K6
-copies bytes (exact).
+relative to each row's largest entry, and the same block selection); K4
+sums its bf16 tensor-core logits in another order and uses the fast exp
+(1e-4 of each head's largest entry); K6 copies bytes (exact).
 """
 
 import numpy as np
@@ -21,17 +22,22 @@ import torch
 
 from pqcache_tpu_torch import config
 from pqcache_tpu_torch.core import pq
+from pqcache_tpu_torch.core.budget import compute_budget
 from pqcache_tpu_torch.models import llama
 from pqcache_tpu_torch.ops.adc import (adc_block_scores, adc_block_scores_ref,
                                        adc_scores, adc_scores_ref)
-from pqcache_tpu_torch.ops.attention_ref import chunked_attention
+from pqcache_tpu_torch.ops.attention_ref import (chunked_attention,
+                                                 flash_scores_ref)
 from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
                                               block_topk_attention_ref)
 from pqcache_tpu_torch.ops.flash_attention import flash_attention
+from pqcache_tpu_torch.ops.flash_scores import flash_scores
 from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
+from pqcache_tpu_torch.policies.base import get_policy
 from pqcache_tpu_torch.runtime.generate import Engine
 
 pytestmark = pytest.mark.cuda
+K4_TOL = 1e-4
 
 
 @pytest.fixture
@@ -68,6 +74,30 @@ def test_flash_attention_kernel_matches_plain(dev, D, T, pad, q_offset,
     nrm = ref.float().norm(dim=-1)
     assert (err[nrm == 0] == 0).all()      # rows that see no key give 0
     assert (err[nrm > 0] / nrm[nrm > 0]).max() <= 1e-2
+
+
+@pytest.mark.parametrize("mode", ["sum", "max"])
+@pytest.mark.parametrize("D,T,pad,valid_len,H,H_kv", [
+    (128, 1000, 60, None, 8, 4), (64, 777, 0, None, 4, 2),
+    (128, 2048, 300, 1900, 4, 1), (64, 200, 150, None, 2, 2),
+    (128, 64, 0, None, 2, 1)])
+def test_flash_scores_kernel_matches_plain(dev, mode, D, T, pad, valid_len,
+                                           H, H_kv):
+    g = torch.Generator(device=dev).manual_seed(T + D)
+    q = torch.randn((H, T, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((H_kv, T, D), generator=g, device=dev).bfloat16()
+    n0 = flash_scores.launches
+    got = flash_scores(q, k, valid_lo=pad, valid_len=valid_len,
+                       score_mode=mode)
+    torch.cuda.synchronize()
+    assert flash_scores.launches == n0 + 1
+    ref = flash_scores_ref(q, k, pad, valid_len, score_mode=mode)
+    assert got.shape == (H, T) and torch.isfinite(got).all()
+    # per head, relative to the head's largest entry
+    scale = ref.abs().amax(-1, keepdim=True)
+    assert ((got - ref).abs() <= K4_TOL * scale).all()
+    hi = T if valid_len is None else valid_len
+    assert (got[:, :pad] == 0).all() and (got[:, hi:] == 0).all()
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
@@ -198,3 +228,61 @@ def test_engine_kernels_match_plain_versions(dev, pq_kw):
     assert len(toks["auto"]) == 8
     # first token from the prefill logits; later ones may part at a near tie
     assert toks["auto"][0] == toks["xla"][0]
+
+
+@pytest.mark.parametrize("policy,score_func", [
+    ("h2o", "sum"), ("h2o", "max"), ("infllm", "sum")])
+def test_score_policies_kernels_match_plain(dev, policy, score_func):
+    # one layer's prefill from identical bf16 q, k, v: on the card through
+    # K2 + K4, on the CPU through the plain versions. K2's rows are held as
+    # in its own test; the scores differ by K4's error (K4_TOL of each
+    # head's largest entry), which may move a near tie at the top-k
+    # boundary: the kept sets may differ in at most 1% of the valid slots
+    cfg = config.tiny_model_config(hidden_size=256, num_heads=4,
+                                   num_kv_heads=2, head_dim=64,
+                                   intermediate_size=512, num_layers=2)
+
+    def ecfg(kernels):
+        return config.EngineConfig(
+            model=cfg,
+            budget=config.BudgetConfig(compress_ratio=0.3, sink_size=4),
+            cache=config.CacheConfig(block_size=32),
+            runtime=config.RuntimeConfig(policy=policy, score_func=score_func,
+                                         prefill_bucket=256, max_new_tokens=8,
+                                         max_seq_len=4096, kernels=kernels))
+    rng = np.random.default_rng(1)
+    P, pad = 1024, 90
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .bfloat16() for s in ((4, P, 64), (2, P, 64), (2, P, 64)))
+    budget = compute_budget(ecfg("auto").budget, P, 8)
+    got = {}
+    for device, kernels in (("cuda", "auto"), ("cpu", "xla")):
+        pol = get_policy(ecfg(kernels), budget, device=device)
+        st = pol.init_state(torch.bfloat16)
+        n0 = flash_scores.launches
+        out = pol.prefill_attn(st, 0, q.to(device), k.to(device),
+                               v.to(device), pad, P)
+        assert flash_scores.launches == n0 + (device == "cuda")
+        got[device] = (out.cpu().float(), st)
+    (out, st), (ref, st_ref) = got["cuda"], got["cpu"]
+    err = (out - ref).norm(dim=-1)[:, pad:]
+    assert (err / ref.norm(dim=-1)[:, pad:]).max() <= 1e-2
+    if policy == "h2o":
+        mask, mask_ref = st.mask[0].cpu(), st_ref.mask[0]
+        assert (mask != mask_ref).sum() <= 0.01 * 2 * (P - pad)
+        both = mask & mask_ref
+        scale = st_ref.scores[0].abs().amax(-1, keepdim=True)
+        diff = (st.scores[0].cpu() - st_ref.scores[0]).abs()
+        assert (diff[both] <= (K4_TOL * scale).expand_as(diff)[both]).all()
+    else:
+        valid = st_ref.repr_valid[0]
+        assert torch.equal(st.repr_valid[0].cpu(), valid)
+        same = (st.k_repr[0].cpu() == st_ref.k_repr[0]).all(-1)[valid]
+        assert same.float().mean() >= 0.99
+    # end to end on the card: the first token comes from the prefill logits
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    ids = rng.integers(0, cfg.vocab_size, size=1500)
+    toks = {kn: Engine(ecfg(kn), params).generate(ids, 8).tokens
+            for kn in ("auto", "xla")}
+    assert len(toks["auto"]) == 8 and toks["auto"][0] == toks["xla"][0]

@@ -56,15 +56,19 @@ def model():
     return jcfg, jparams, config.tiny_model_config(**cfg_kw), params, ids
 
 
-def _ecfgs(jcfg, cfg, policy, select_block, kv_dtype, scorer="auto"):
+def _ecfgs(jcfg, cfg, policy, select_block, kv_dtype, scorer="auto",
+           score_func="sum"):
     kw = dict(
         pq=dict(n_subvec_per_head=2, n_subbits=4, kmeans_iters=4,
                 select_block=select_block, scorer=scorer, adc_mode="v1",
                 gather_mode="pallas", approx_topk=False),
         budget=dict(compress_ratio=0.3, recent_ratio=0.5, sink_size=4),
-        cache=dict(kv_dtype=kv_dtype),
+        # infllm: 16-token blocks, so generated tokens complete a block
+        # within the test's decode steps (the default 128 would not)
+        cache=dict(kv_dtype=kv_dtype,
+                   block_size=16 if policy == "infllm" else 128),
         runtime=dict(policy=policy, prefill_bucket=64, max_new_tokens=32,
-                     max_seq_len=2048, kernels="xla"))
+                     max_seq_len=2048, kernels="xla", score_func=score_func))
 
     def build(mod, model_cfg):
         return mod.EngineConfig(
@@ -82,22 +86,67 @@ def _with_kernels(ecfg, kernels):
 
 # select_block 1 is the per-token path (K5, K6); 16 with scorer "kernel"
 # the fused block scorer (K3) on the "auto" route, mips_topk_blocks on
-# the "xla" route; 16 and 256 with scorer "auto" the joint histogram
+# the "xla" route; 16 and 256 with scorer "auto" the joint histogram.
+# h2o (both score modes) and infllm read K4's scores at prefill.
 SLICE_CASES = [
     ("pq_search", 16, "bf16", "auto"), ("pq_search", 16, "int8", "auto"),
     ("pq_search", 256, "bf16", "auto"), ("pq_search", 256, "int8", "auto"),
     ("original", 16, "bf16", "auto"),
     ("pq_search", 1, "bf16", "auto"), ("pq_search", 1, "int8", "auto"),
-    ("pq_search", 16, "bf16", "kernel")]
+    ("pq_search", 16, "bf16", "kernel"),
+    ("h2o", 16, "bf16", "auto", "sum"), ("h2o", 16, "bf16", "auto", "max"),
+    ("infllm", 16, "bf16", "auto")]
 
 
-@pytest.mark.parametrize(
-    "policy,select_block,kv_dtype,scorer", SLICE_CASES,
-    ids=["-".join(map(str, c[:3])) + ("-kernel" if c[3] == "kernel" else "")
-         for c in SLICE_CASES])
-def test_slice_matches_jax(model, policy, select_block, kv_dtype, scorer):
+def _case_id(c):
+    if c[0] in ("h2o", "infllm"):
+        return "-".join(c[:1] + c[4:])
+    return "-".join(map(str, c[:3])) + ("-kernel" if c[3] == "kernel" else "")
+
+
+def _state_from_jax(policy, jnp_state):
+    if policy == "pq_search":
+        return bridge.pq_state_from_numpy(jnp_state, device="cpu")
+    if policy == "infllm":
+        return bridge.infllm_state_from_numpy(jnp_state, device="cpu")
+    return bridge.dense_state_from_numpy(jnp_state, device="cpu")
+
+
+def _assert_score_state_equal(policy, state, jstate):
+    """The h2o / infllm state fields against JAX's: masks and flags
+    exactly, keys and accumulated scores to float32 summation order. Keys
+    are compared on the valid span only: left-pad rows see no key, and the
+    port writes 0 there where JAX's XLA twin writes the mean of V, so the
+    pad rows of later layers differ (nothing reads them)."""
+    tol = dict(rtol=1e-5, atol=1e-5)
+    if policy == "infllm":
+        valid = state.repr_valid.numpy()
+        np.testing.assert_array_equal(valid, np.asarray(jstate.repr_valid))
+        np.testing.assert_allclose(state.k_repr.numpy()[valid],
+                                   np.asarray(jstate.k_repr)[valid], **tol)
+        np.testing.assert_allclose(state.gen_scores.numpy(),
+                                   np.asarray(jstate.gen_scores), **tol)
+        state, jstate = state.dense, jstate.dense
+    else:
+        np.testing.assert_array_equal(state.mask.numpy(),
+                                      np.asarray(jstate.mask))
+        np.testing.assert_allclose(state.scores.numpy(),
+                                   np.asarray(jstate.scores), **tol)
+    assert (state.length, state.start, state.pos) == (
+        int(jstate.length), int(jstate.start), int(jstate.pos))
+    span = slice(state.start, state.length)
+    np.testing.assert_allclose(state.k_cache[:, :, span].numpy(),
+                               np.asarray(jstate.k_cache)[:, :, span], **tol)
+
+
+@pytest.mark.parametrize("case", SLICE_CASES,
+                         ids=[_case_id(c) for c in SLICE_CASES])
+def test_slice_matches_jax(model, case):
+    policy, select_block, kv_dtype, scorer = case[:4]
+    score_func = case[4] if len(case) > 4 else "sum"
     jcfg, jparams, cfg, params, ids = model
-    jecfg, ecfg = _ecfgs(jcfg, cfg, policy, select_block, kv_dtype, scorer)
+    jecfg, ecfg = _ecfgs(jcfg, cfg, policy, select_block, kv_dtype, scorer,
+                         score_func)
     true_len = len(ids)
     P = 1152                                  # the 64-bucket of the prompt
     pad = P - true_len
@@ -122,10 +171,13 @@ def test_slice_matches_jax(model, policy, select_block, kv_dtype, scorer):
         # the histogram only where its scorer reads it
         assert (state0.jhist is None) == (select_block == 1
                                           or scorer == "kernel")
+    jnp_state = jax.tree.map(np.asarray, jstate)
+    if policy in ("h2o", "infllm"):
+        # nothing random at prefill: the port's own state is JAX's
+        _assert_score_state_equal(policy, state0, jnp_state)
 
     # decode from the JAX state, transplanted: JAX once, the port on both
     # of its routes
-    jnp_state = jax.tree.map(np.asarray, jstate)
     jstep = jax.jit(lambda p, s, t, pos: jllama.decode_step(
         jcfg, p, jpol, s, t, pos))
     tok = int(jnp.argmax(jlogits))
@@ -138,9 +190,7 @@ def test_slice_matches_jax(model, policy, select_block, kv_dtype, scorer):
         tok = int(jnp.argmax(jl))
     for kernels in ("xla", "auto"):
         pol = get_policy(_with_kernels(ecfg, kernels), budget, device="cpu")
-        state = (bridge.pq_state_from_numpy(jnp_state, device="cpu")
-                 if policy == "pq_search"
-                 else bridge.dense_state_from_numpy(jnp_state, device="cpu"))
+        state = _state_from_jax(policy, jnp_state)
         for i in range(N_STEPS):
             tl = llama.decode_step(cfg, params, pol, state,
                                    torch.tensor(jtoks[i]), true_len + i)
@@ -157,7 +207,16 @@ def test_slice_matches_jax(model, policy, select_block, kv_dtype, scorer):
             else:
                 np.testing.assert_array_equal(state.jhist.numpy(),
                                               np.asarray(jstate.jhist))
-        assert state.pos == int(jstate.pos)
+            assert state.pos == int(jstate.pos)
+        elif policy in ("h2o", "infllm"):
+            _assert_score_state_equal(policy, state,
+                                      jax.tree.map(np.asarray, jstate))
+        else:
+            assert state.pos == int(jstate.pos)
+    if policy == "infllm":
+        # a block was formed from generated tokens during these steps
+        assert not state0.repr_valid[:, :, -(-P // pol.block):].any()
+        assert state.repr_valid[:, :, -(-P // pol.block):].any()
 
 
 def test_engine_generate_end_to_end(model):
@@ -184,6 +243,74 @@ def test_engine_generate_end_to_end(model):
     assert stop == res.tokens[:res.tokens.index(eos) + 1]
     with pytest.raises(ValueError):
         eng.generate(ids, 64)           # beyond the max_new_tokens reservation
+
+
+@pytest.mark.parametrize("policy,score_func", [
+    ("h2o", "sum"), ("h2o", "max"), ("infllm", "sum")])
+def test_engine_generate_score_policies(model, policy, score_func):
+    # h2o and infllm draw nothing at random: from the same prompt the
+    # port's Engine gives the JAX Engine's tokens, on both of its routes
+    jcfg, jparams, cfg, params, ids = model
+    jecfg, ecfg = _ecfgs(jcfg, cfg, policy, 16, "bf16",
+                         score_func=score_func)
+    want = JEngine(jecfg, jparams, dtype=jnp.float32).generate(ids, 12)
+    for kernels in ("auto", "xla"):
+        got = Engine(_with_kernels(ecfg, kernels), params, dtype=torch.float32,
+                     device="cpu").generate(ids, 12)
+        assert got.policy_name == policy
+        assert got.tokens == want.tokens, kernels
+
+
+def test_infllm_clamped_windows_match_jax():
+    # a state whose token dim is exactly max_len (256), decoded to its last
+    # slot: the local window [length + 1 - local, length + 2) and the
+    # gen_scores window run past the end and JAX's dynamic slices move
+    # them back; 24-token blocks (not a divisor of 256) with a top-k that
+    # selects all 11 blocks, so the last block's gather indices 256..263
+    # are clamped; a left pad of 60 leaves block 0 without representatives
+    from pqcache_tpu.core.budget import Budget as JBudget
+    from pqcache_tpu_torch.core.budget import Budget
+    cfg_kw = dict(num_layers=1)
+    jcfg, cfg = (jconfig.tiny_model_config(**cfg_kw),
+                 config.tiny_model_config(**cfg_kw))
+    jecfg, ecfg = _ecfgs(jcfg, cfg, "infllm", 16, "bf16")
+    jecfg, ecfg = (dataclasses.replace(e, cache=dataclasses.replace(
+        e.cache, block_size=24)) for e in (jecfg, ecfg))
+    P, pad, new = 224, 60, 32
+    bkw = dict(prefill_len=P, sink=4, local=40, topk=264, max_new_tokens=new)
+    jpol = jget_policy(jecfg, JBudget(**bkw))
+    pol = get_policy(ecfg, Budget(**bkw), device="cpu")
+    assert pol.n_sel == pol.n_blocks == 11
+    H, H_kv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    rng = np.random.default_rng(9)
+    rand = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    q, k, v = rand(H, P, D), rand(H_kv, P, D), rand(H_kv, P, D)
+    jout, jstate = jpol.prefill_attn(
+        jpol.init_state(jnp.float32), jnp.asarray(0), jnp.asarray(q),
+        jnp.asarray(k), jnp.asarray(v), jnp.asarray(pad), jnp.asarray(P))
+    state = pol.init_state(torch.float32)
+    out = pol.prefill_attn(state, 0, *map(torch.from_numpy, (q, k, v)), pad,
+                           P)
+    np.testing.assert_allclose(out[:, pad:].numpy(),
+                               np.asarray(jout)[:, pad:], **LOGIT_TOL)
+    _assert_score_state_equal("infllm", state,
+                              jax.tree.map(np.asarray, jstate))
+
+    @jax.jit
+    def jstep(s, q, k, v):
+        out, s = jpol.decode_attn(s, jnp.asarray(0), q, k, v,
+                                  jpol.shared_pre(s))
+        return out, jpol.shared_post(s, None)
+    for _ in range(new):
+        q, k, v = rand(H, 1, D), rand(H_kv, 1, D), rand(H_kv, 1, D)
+        jout, jstate = jstep(jstate, *map(jnp.asarray, (q, k, v)))
+        out, _ = pol.decode_attn(state, 0, *map(torch.from_numpy, (q, k, v)),
+                                 pol.shared_pre(state))
+        pol.shared_post(state, None)
+        np.testing.assert_allclose(out.numpy(), np.asarray(jout), **LOGIT_TOL)
+    assert state.dense.length == state.dense.k_cache.shape[2] == P + new
+    _assert_score_state_equal("infllm", state,
+                              jax.tree.map(np.asarray, jstate))
 
 
 def test_engine_device_default_and_unported_options(model):
@@ -269,8 +396,11 @@ def test_entry_points_default_to_cuda(model):
         lambda: get_policy(ecfg, budget),
         lambda: policy_class("pq_search")(ecfg, budget),
         lambda: policy_class("original")(ecfg, budget),
+        lambda: policy_class("h2o")(ecfg, budget),
+        lambda: policy_class("infllm")(ecfg, budget),
         lambda: st.make_pq_state(ecfg, budget),
         lambda: st.make_dense_state(ecfg, 256),
+        lambda: st.make_dense_state(ecfg, 256, with_scores=True),
         lambda: bridge.tensor_from_numpy(a),
         lambda: bridge.params_from_numpy({"embed": a, "layers": {"wq": a}}),
         lambda: bridge.pq_state_from_numpy(dict(
@@ -278,6 +408,9 @@ def test_entry_points_default_to_cuda(model):
             n_cand=0, pos=0, jhist=None, k_scale=None, v_scale=None)),
         lambda: bridge.dense_state_from_numpy(dict(
             k_cache=a, v_cache=a, length=0, start=0, pos=0)),
+        lambda: bridge.infllm_state_from_numpy(dict(
+            dense=dict(k_cache=a, v_cache=a, length=0, start=0, pos=0),
+            k_repr=a, repr_valid=a, gen_scores=a)),
     ]
     if torch.cuda.is_available():
         assert pqcache_tpu_torch.resolve_device().type == "cuda"
