@@ -96,6 +96,9 @@ K3_TOL = 1e-5
 # fast exp: |F - F_ref| relative to each head's largest entry. Dropping one
 # q tile of 64 rows from a key's column moves it by far more (PERF.md)
 K4_TOL = 1e-4
+# K2's row statistics: |m - m_ref| and |l / l_ref - 1| on rows that see a
+# key; the same f32 logits summed in another order, base-2 exponentials
+STATS_TOL = 1e-4
 # main-path decode shapes at 32k (budget 0.2 / recent 0.5 / sink 32)
 N_TAIL, N_CAND, TOPK = 33024, 25570, 3273
 SELF_LAYERS = 2   # depth of the kernels-vs-plain end-to-end check
@@ -181,52 +184,113 @@ def environment() -> None:
 # ---------------------------------------------------------------------------
 # K2 against its plain version
 
+def _qkv(dev, g, L: int, T: int):
+    """L layers of bf16 q [32, T, 128], k and v [8, T, 128] at Llama-3.1-8B
+    widths."""
+    m = config.LLAMA31_8B
+    return [torch.randn((L, h, T, m.head_dim), generator=g,
+                        device=dev).bfloat16()
+            for h in (m.num_heads, m.num_kv_heads, m.num_kv_heads)]
+
+
+def _stats_err(got, ref) -> tuple[float, float, bool]:
+    """K2's row statistics against chunked_attention(return_stats=True):
+    the largest |m - m_ref| and |l / l_ref - 1| over rows that see a key,
+    and whether every other row is exactly (-1e30, 0)."""
+    (m, l), (m_ref, l_ref) = got, ref
+    seen = l_ref > 0
+    none_ok = bool((m[~seen] == -1e30).all() and (l[~seen] == 0).all())
+    return ((m - m_ref)[seen].abs().max().item(),
+            (l / l_ref - 1)[seen].abs().max().item(), none_ok)
+
+
 def k2_phase(dev) -> dict:
+    """K2 held row by row against its plain version at T 2048 (pad 48), at
+    T 2100 (pad 77: ragged against the 128-row tiles) and at the main
+    prefill shape T 32768 (pad 768), with and without its row statistics,
+    which are held against chunked_attention(return_stats=True). At 32768
+    the device time comes from CUDA-graph replay cycling over 2 layers of
+    inputs (768 MB, far above the 50 MB L2). The library yardstick is one
+    SDPA call with is_causal on the valid slice [pad:] with GQA-expanded K/V
+    (pad rows see no key and are 0; valid rows see only keys >= pad), which
+    takes the flash backend; the boolean-mask SDPA of earlier PRs (the
+    memory-efficient backend) is printed beside it."""
     m = config.LLAMA31_8B
     H, H_kv, D = m.num_heads, m.num_kv_heads, m.head_dim
     g = torch.Generator(device=dev).manual_seed(SEED)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     entry = None
-    for T, pad in ((2048, 48), (32768, 768)):
-        q = torch.randn((H, T, D), generator=g, device=dev).bfloat16()
-        k = torch.randn((H_kv, T, D), generator=g, device=dev).bfloat16()
-        v = torch.randn((H_kv, T, D), generator=g, device=dev).bfloat16()
-        out = flash_attention(q, k, v, valid_lo=pad)
+    for T, pad in ((2048, 48), (2100, 77), (32768, 768)):
+        L = 2 if T == 32768 else 1
+        q, k, v = _qkv(dev, g, L, T)
+        out, ms_, ls_ = flash_attention(q[0], k[0], v[0], valid_lo=pad,
+                                        return_stats=True)
+        alone = flash_attention(q[0], k[0], v[0], valid_lo=pad)
         torch.cuda.synchronize()
-        ref = chunked_attention(q, k, v, valid_lo=pad)
+        ref, m_ref, l_ref = chunked_attention(q[0], k[0], v[0], valid_lo=pad,
+                                              return_stats=True)
         err = (out.float() - ref.float()).abs().max().item()
         rel = row_rel_err(out, ref)
         deep = row_rel_err(out[:, T // 2:], ref[:, T // 2:])
         finite = bool(torch.isfinite(out).all())
+        m_err, l_err, none_ok = _stats_err((ms_, ls_), (m_ref, l_ref))
+        same = torch.equal(out, alone)
         log(f"K2 T={T} pad={pad}: max_abs_err {err:.3e}, worst row "
             f"||err||/||ref|| {rel:.3e} (tol {K2_TOL}), over the rows "
-            f"past T/2 {deep:.3e}; finite {finite}")
-        if not finite or not rel <= K2_TOL:
+            f"past T/2 {deep:.3e}; finite {finite}; row stats |m err| "
+            f"{m_err:.3e} (tol {STATS_TOL}), |l/l_ref - 1| {l_err:.3e} (tol "
+            f"{STATS_TOL}), rows that see no key (-1e30, 0): {none_ok}; "
+            f"output with stats identical to without: {same}")
+        if (not finite or not rel <= K2_TOL or not m_err <= STATS_TOL
+                or not l_err <= STATS_TOL or not none_ok or not same):
             raise SystemExit(f"K2 disagrees with its plain version at T={T}")
         if T < 32768:
             continue
-        ms = cuda_ms(lambda: flash_attention(q, k, v, valid_lo=pad), 5)
-        plain_ms = cuda_ms(lambda: chunked_attention(q, k, v, valid_lo=pad),
-                           1, warmup=0)
+        layer = iter(range(10 ** 9))
+
+        def call(stats=False):
+            i = next(layer) % L
+            return flash_attention(q[i], k[i], v[i], valid_lo=pad,
+                                   return_stats=stats)
+        ms = graph_ms(call, 2 * L)
+        stats_ms = graph_ms(lambda: call(True), 2 * L)
+        call_ms = cuda_ms(call, 3, warmup=1)
+        plain_ms = cuda_ms(lambda: chunked_attention(q[1], k[1], v[1],
+                                                     valid_lo=pad), 1,
+                           warmup=0)
         n = T - pad                                    # valid rows and keys
         ops = 4.0 * H * D * n * (n + 1) / 2            # QK^T and PV, causal
         nbytes = 2 * (2 * H * T * D + 2 * H_kv * T * D)
         bound_ms = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
-        # one PyTorch call for the same function (yardstick only): SDPA with
-        # a boolean mask over GQA-expanded K/V
+        # one PyTorch call for the same function (yardstick only)
+        qv = q[:, :, pad:].contiguous()
+        kr, vr = (x[:, :, pad:].repeat_interleave(H // H_kv, 1).contiguous()
+                  for x in (k, v))
+
+        def lib(i=None):
+            i = next(layer) % L if i is None else i
+            return sdpa(qv[i][None], kr[i][None], vr[i][None],
+                        is_causal=True)[0]
+        lib_rel = row_rel_err(out[:, pad:], lib(0))
+        lib_ms = cuda_ms(lib, 4)
+        del qv, kr, vr
         kpos = torch.arange(T, device=dev)
         mask = (kpos[None, :] <= kpos[:, None]) & (kpos[None, :] >= pad)
-        kr = k.repeat_interleave(H // H_kv, 0)
-        vr = v.repeat_interleave(H // H_kv, 0)
-        lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q[None], kr[None], vr[None], attn_mask=mask), 3)
-        log(f"K2 T={T}: kernel {ms:.3f} ms, {ops / ms / 1e9:.1f} TFLOP/s; "
-            f"plain {plain_ms:.1f} ms; SDPA(bool mask) {lib_ms:.3f} ms; "
-            f"bound {bound_ms:.3f} ms (operations)")
+        kr, vr = (x[1].repeat_interleave(H // H_kv, 0) for x in (k, v))
+        mask_ms = cuda_ms(lambda: sdpa(q[1][None], kr[None], vr[None],
+                                       attn_mask=mask), 2)
+        log(f"K2 T={T}: kernel {ms:.3f} ms of device time "
+            f"({ops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of its "
+            f"bound), {stats_ms:.3f} ms with the row statistics, "
+            f"{call_ms:.3f} ms per call from Python; plain {plain_ms:.1f} "
+            f"ms; SDPA is_causal on the valid slice {lib_ms:.3f} ms (worst "
+            f"row against the kernel {lib_rel:.3e}); SDPA with a boolean "
+            f"mask {mask_ms:.3f} ms; bound {bound_ms:.3f} ms (operations)")
         entry = dict(name="flash_attention", route="cuda",
                      source="pqcache_tpu_torch/csrc/flash_attention.cu",
                      replaces="pqcache_tpu/ops/flash_attention.py:167",
                      max_abs_err=err, max_row_rel_err=rel, ms=ms,
-                     call_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by="operations", library_ms=lib_ms)
         del q, k, v, out, ref, mask, kr, vr
     return entry
@@ -244,30 +308,41 @@ def head_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
 
 def k4_phase(dev) -> dict:
     """K4 at the main prefill shapes: q [32, 32768, 128], k [8, 32768, 128]
-    bf16, pad 768 (32000 valid rows), "sum" and "max". Held per head at
-    K4_TOL of the head's largest entry; pad columns exactly 0. Device time
+    bf16, pad 768 (32000 valid rows), "sum" and "max", in both forms: fed
+    with K2's row statistics (the main path's form: the dispatcher runs K2
+    with its statistics, then K4's column pass) and standalone (K2's
+    stats-only sweep, then the column pass). Each is held per head at
+    K4_TOL of the head's largest entry, pad columns exactly 0. Device time
     by CUDA-graph replay cycling over 2 layers of inputs (each call reads
-    335 MB, far above the 50 MB L2); the per-call time from Python and the
-    plain version's time beside it."""
+    335 MB, far above the 50 MB L2). The kernels line reports the fed form
+    against the bound of one causal sweep; the standalone form is printed
+    against two sweeps, and the h2o / infllm prefill pair (K2 with its row
+    statistics, then the fed K4) against the pair's bound."""
     m = config.LLAMA31_8B
     H, H_kv, D, T, pad, L = (m.num_heads, m.num_kv_heads, m.head_dim, 32768,
                              768, 2)
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    q = torch.randn((L, H, T, D), generator=g, device=dev).bfloat16()
-    k = torch.randn((L, H_kv, T, D), generator=g, device=dev).bfloat16()
+    q, k, v = _qkv(dev, g, L, T)
+    stats = [flash_attention(q[i], k[i], v[i], valid_lo=pad,
+                             return_stats=True)[1:] for i in range(L)]
     n = T - pad
-    ops = 2.0 * H * D * n * (n + 1)         # two causal QK^T sweeps
-    exps = float(H) * n * (n + 1)            # one exp per pair and sweep
-    nbytes = 2 * (H + H_kv) * T * D + 4 * H * T
-    bound_ms = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    sweep = 2.0 * H * D * n * (n + 1) / 2    # one causal QK^T sweep
+    exps = float(H) * n * (n + 1) / 2         # one exp per pair and sweep
+    nbytes = 2 * (H + H_kv) * T * D + 3 * 4 * H * T   # q, k; m, l, F
+    bound_ms = max(sweep / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    alone_bound = max(2 * sweep / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+    pair_bound = max(3 * sweep / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
     entry = None
     for mode in ("sum", "max"):
         layer = iter(range(10 ** 9))
 
-        def call(i=None, mode=mode):
-            i = next(layer) % L if i is None else i
-            return flash_scores(q[i], k[i], valid_lo=pad, score_mode=mode)
-        got = call(1)
+        def call(fed=True, mode=mode):
+            i = next(layer) % L
+            return flash_scores(q[i], k[i], valid_lo=pad, score_mode=mode,
+                                row_stats=stats[i] if fed else None)
+        got = flash_scores(q[1], k[1], valid_lo=pad, score_mode=mode,
+                           row_stats=stats[1])
+        alone = flash_scores(q[1], k[1], valid_lo=pad, score_mode=mode)
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         ref = flash_scores_ref(q[1], k[1], pad, score_mode=mode)
@@ -276,20 +351,36 @@ def k4_phase(dev) -> dict:
         plain_ms = a.elapsed_time(b)
         err = (got - ref).abs().max().item()
         rel = head_rel_err(got, ref)
-        ok = bool(torch.isfinite(got).all() and (got[:, :pad] == 0).all())
-        log(f"K4 {mode} T={T} pad={pad}: max_abs_err {err:.3e}, largest "
-            f"|err| per head over its largest entry {rel:.3e} (tol "
+        rel_alone = head_rel_err(alone, ref)
+        ok = all(bool(torch.isfinite(x).all() and (x[:, :pad] == 0).all())
+                 for x in (got, alone))
+        log(f"K4 {mode} T={T} pad={pad}: fed with K2's row statistics "
+            f"max_abs_err {err:.3e}, largest |err| per head over its "
+            f"largest entry {rel:.3e}; standalone {rel_alone:.3e} (tol "
             f"{K4_TOL}); finite, pad columns 0: {ok}")
-        if not ok or not rel <= K4_TOL:
+        if not ok or not rel <= K4_TOL or not rel_alone <= K4_TOL:
             raise SystemExit(f"K4 ({mode}) disagrees with its plain version")
         ms = graph_ms(call, 2 * L)
+        alone_ms = graph_ms(lambda: call(False), 2 * L)
         call_ms = cuda_ms(call, 3, warmup=1)
-        log(f"K4 {mode}: kernel {ms:.3f} ms of device time per call "
-            f"({ops / ms / 1e9:.1f} TFLOP/s of QK^T, {exps / ms / 1e9:.2f} "
-            f"T exp/s), {call_ms:.3f} ms per call from Python; plain "
-            f"{plain_ms:.1f} ms; bound {bound_ms:.3f} ms (operations); "
-            f"library call: none")
+        log(f"K4 {mode}: fed {ms:.3f} ms of device time per call "
+            f"({sweep / ms / 1e9:.1f} TFLOP/s of QK^T, {exps / ms / 1e9:.2f} "
+            f"T exp/s, {bound_ms / ms:.1%} of its one-sweep bound "
+            f"{bound_ms:.3f} ms), {call_ms:.3f} ms per call from Python; "
+            f"standalone {alone_ms:.3f} ms ({alone_bound / alone_ms:.1%} of "
+            f"its two-sweep bound {alone_bound:.3f} ms); plain "
+            f"{plain_ms:.1f} ms; library call: none")
         if mode == "sum":
+            def pair():
+                i = next(layer) % L
+                _, mi, li = flash_attention(q[i], k[i], v[i], valid_lo=pad,
+                                            return_stats=True)
+                return flash_scores(q[i], k[i], valid_lo=pad,
+                                    row_stats=(mi, li))
+            pair_ms = graph_ms(pair, 2 * L)
+            log(f"h2o / infllm prefill pair (K2 with row statistics + fed "
+                f"K4 \"sum\"): {pair_ms:.3f} ms of device time per layer, "
+                f"bound {pair_bound:.3f} ms ({pair_bound / pair_ms:.1%})")
             entry = dict(name="flash_scores", route="cuda",
                          source="pqcache_tpu_torch/csrc/flash_scores.cu",
                          replaces="pqcache_tpu/ops/flash_attention.py:379",
@@ -297,7 +388,7 @@ def k4_phase(dev) -> dict:
                          call_ms=call_ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by="operations",
                          library_ms=None)
-        del got, ref
+        del got, alone, ref
     return entry
 
 

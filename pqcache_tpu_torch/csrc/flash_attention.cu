@@ -1,4 +1,5 @@
-// K2: causal GQA flash attention for prefill, hand-written for Hopper (sm_90a).
+// K2: causal GQA flash attention for prefill, hand-written for Hopper (sm_90a)
+// with wgmma, TMA and warp specialisation.
 //
 // Replaces pqcache_tpu/ops/flash_attention.py::flash_attention (the Pallas
 // TPU kernels _flash_kernel_tri, packed causal grid, and _flash_kernel,
@@ -6,248 +7,392 @@
 // bf16, f32 accumulation, logits x 1/sqrt(D); keys outside
 // [valid_lo, valid_hi) are masked (left-padded prompts) and, when causal, a
 // key at index > q_offset + q row is masked. Output is bf16. A row that sees
-// no valid key writes 0 (finite NEG_INF, masked p = 0, acc / max(l, 1e-30)),
-// as the TPU kernel does: a NaN there would poison the next layer.
+// no valid key writes 0 (acc / max(l, 1e-30) with l = 0), as the TPU kernel
+// does: a NaN there would poison the next layer.
 //
-// What bounds it: at prefill lengths the work is 2 * H * Tq * Tk_causal * D
-// * 2 FLOPs on bf16 tensor cores (about 8.8 TFLOP per layer at 32k, 8.9 ms at
-// 989 TFLOP/s), against 2 * (H + 2 * H_kv) * T * D bytes of input: far above
-// the card's ~295 FLOP/byte ridge, so it is bound by tensor-core operations.
+// Row statistics (optional, m and l [H, Tq] f32): m is the row max of the
+// scaled logit s / sqrt(D) in natural units, l = sum exp(s / sqrt(D) - m)
+// over the row's valid keys; a row that sees no key, and every row whose
+// position q_offset + row lies outside [valid_lo, valid_hi), is written as
+// m = -1e30, l = 0. K4 (flash_scores.cu) reads them. Without v the kernel
+// runs in stats-only mode: no P V, no output.
 //
-// Design (FlashAttention-2 shape, simple and right first): one CTA of four
-// warps per (q head, 64-row q tile); each warp owns 16 q rows. The CTA walks
-// the 64-key tiles from valid_lo up to the causal frontier (the loop replaces
-// the TPU's packed pair list: unreachable tiles get no iteration), with
-// cp.async double buffering of the K and V tiles in shared memory. QK^T and PV
-// run as mma.sync m16n8k16 bf16 products with f32 accumulators; the online
-// softmax (m, l, corr) lives in registers, and the S accumulator is repacked
-// in registers as the A operand of PV. Heavy (late) q tiles launch first.
-// wgmma / TMA are later work.
-
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// What bounds it: the work is 2 * H * D * n (n + 1) / 2 * 2 FLOPs on bf16
+// tensor cores for n valid causal rows (8.39 TFLOP per layer at H 32, D 128,
+// n 32000: 8.48 ms at 989 TFLOP/s), against 2 * (2 H + 2 H_kv) * T * D bytes
+// of input and output: far above the card's ~295 FLOP/byte ridge, so it is
+// bound by tensor-core operations. Next come the exponentials, H n^2 / 2 =
+// 1.6e10 per layer: about 4 ms at the ~3.9e12/s of the special-function
+// units, so they must overlap the matrix products.
+//
+// Design (FlashAttention-3 shape):
+//  * One CTA of three warpgroups per (q head, 128-row q tile); heavy (late)
+//    tiles launch first, every head's at once. Warpgroups 0 and 1 are the
+//    consumers, each owning 64 q rows; their work interleaves on the SM, so
+//    one warpgroup's softmax overlaps the other's wgmma. Warpgroup 2 is the
+//    producer: one thread issues the TMA loads, Q once, then the K and V
+//    tiles of 128 keys through a ring of STAGES stages with full and empty
+//    mbarriers (K and V separately, so Q K^T starts while V is in flight).
+//    The producer drops to 40 registers (setmaxnreg.dec) and the consumers
+//    ask for 232 (setmaxnreg.inc), but ptxas still allocates the consumer
+//    code within the 168 a thread of a 12-warp CTA gets at launch (its
+//    SASS names no register above R165), so a consumer holds one S tile
+//    (64 f32), O (64 f32) and P (32 bf16 pairs) at a time:
+//    FlashAttention-3's intra-warpgroup overlap (the next tile's Q K^T in
+//    flight during this tile's softmax) needs more and spilled.
+//  * S = Q K^T by wgmma m64n128k16 with both operands in shared memory
+//    (128-byte swizzle, two 64-column boxes for D = 128).
+//  * Online softmax in registers in base 2 (scale * log2 e folded into one
+//    FFMA per element, MUFU.EX2). The element mask is applied only on tiles
+//    that straddle valid_lo, valid_hi / Tk or the causal frontier; interior
+//    tiles take no per-element test (the counterpart of the TPU kernel's
+//    `msk` pairs).
+//  * O += P V by wgmma with P packed to bf16 in registers as the A operand
+//    and V read MN-major from its row-major [keys, D] tile through the
+//    transpose-B immediate: no transpose copy.
+//  * Epilogue: O / max(l, 1e-30) in bf16, stored from registers; optionally
+//    (m, l).
+// The shared-memory attribute is set once per process, so a launch inside a
+// CUDA-graph capture makes no attribute call. Tried on the H100 at T 32768
+// and slower than this loop: ping-pong turns of the two consumers at the
+// tensor cores (which K4 takes), P V of tile j - 1 issued with S of tile j,
+// and a ring of 3 stages. A persistent tile scheduler is later work.
 
 #include "mma_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // q rows per CTA
-constexpr int BN = 64;        // keys per tile
-constexpr int NTHREADS = 128; // 4 warps x 16 q rows
-constexpr float NEG_INF = -1e30f;
+constexpr int BM = 128;        // q rows per CTA: two consumer warpgroups x 64
+constexpr int BN = 128;        // keys per K / V tile
+constexpr int NTHREADS = 384;  // two consumer warpgroups + the producer
+constexpr float NO_KEY_M = -1e30f;
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                 const uint16_t* __restrict__ v, uint16_t* __restrict__ out,
-                 int group, int Tq, int Tk, int valid_lo, int valid_hi,
-                 int q_offset, int causal, float scale) {
-  constexpr int LD = D + 8;  // padded smem row: conflict-free fragment loads
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sQ = smem;               // [BM][LD]
-  uint16_t* sK = sQ + BM * LD;       // [2][BN][LD]
-  uint16_t* sV = sK + 2 * BN * LD;   // [2][BN][LD]
+struct Cfg {
+  static constexpr int STAGES = 2;
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;
+  // 1024 bytes of slack to align the base, Q, the K and V rings, barriers
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 256;
+};
 
-  const int nqb = (Tq + BM - 1) / BM;
-  const int m0 = (nqb - 1 - blockIdx.x) * BM;
-  const int h = blockIdx.y;
-  const int hk = h / group;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r0 = lane >> 2;        // fragment row within 8
-  const int c0 = (lane & 3) * 2;   // fragment column pair
-
-  const uint16_t* qh = q + (size_t)h * Tq * D;
-  const uint16_t* kh = k + (size_t)hk * Tk * D;
-  const uint16_t* vh = v + (size_t)hk * Tk * D;
-
-  // keys [key_lo, key_hi) can be valid for some row of this tile
-  const int key_lo = valid_lo;
-  int key_hi = valid_hi;
-  if (causal) key_hi = min(key_hi, q_offset + m0 + BM);
-  const int j_lo = key_lo / BN;
-  const int j_hi = key_lo < key_hi ? (key_hi + BN - 1) / BN : j_lo;
-
-  for (int c = tid; c < BM * CH; c += NTHREADS) {
-    const int r = c / CH, cc = c % CH, gr = m0 + r;
-    const bool ok = gr < Tq;
-    cp_async16(sQ + r * LD + cc * 8, qh + (size_t)(ok ? gr : 0) * D + cc * 8,
-               ok);
+// Shared-memory layout of one CTA: Q, the K and V rings, the mbarriers.
+template <int D>
+struct Smem {
+  static constexpr int S = Cfg<D>::STAGES;
+  uint32_t q, k, v, bar;
+  Smem() = default;
+  __device__ explicit Smem(uint32_t base)
+      : q(base), k(base + Cfg<D>::Q_BYTES),
+        v(k + S * Cfg<D>::KV_BYTES), bar(v + S * Cfg<D>::KV_BYTES) {}
+  __device__ uint32_t k_tile(int s) const { return k + s * Cfg<D>::KV_BYTES; }
+  __device__ uint32_t v_tile(int s) const { return v + s * Cfg<D>::KV_BYTES; }
+  __device__ uint32_t q_full() const { return bar; }
+  __device__ uint32_t k_full(int s) const { return bar + 8 * (1 + s); }
+  __device__ uint32_t k_empty(int s) const { return bar + 8 * (1 + S + s); }
+  __device__ uint32_t v_full(int s) const { return bar + 8 * (1 + 2 * S + s); }
+  __device__ uint32_t v_empty(int s) const {
+    return bar + 8 * (1 + 3 * S + s);
   }
-  auto load_kv = [&](int j, int stage) {
-    uint16_t* dk = sK + stage * BN * LD;
-    uint16_t* dv = sV + stage * BN * LD;
-    for (int c = tid; c < BN * CH; c += NTHREADS) {
-      const int r = c / CH, cc = c % CH, gr = j * BN + r;
-      const bool ok = gr < Tk;
-      const size_t off = (size_t)(ok ? gr : 0) * D + cc * 8;
-      cp_async16(dk + r * LD + cc * 8, kh + off, ok);
-      cp_async16(dv + r * LD + cc * 8, vh + off, ok);
-    }
-  };
-  if (j_lo < j_hi) load_kv(j_lo, 0);
-  cp_async_commit();
+};
 
-  const int wr = warp * 16;                   // warp's first row in the tile
-  const int qrow[2] = {m0 + wr + r0, m0 + wr + r0 + 8};
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m_r[2] = {NEG_INF, NEG_INF};
-  float l_r[2] = {0.f, 0.f};  // per-thread partial row sums
-  uint32_t qf[D / 16][4];
+// One consumer warpgroup's state (64 q rows): the O accumulator, the S / P
+// tile, P in bf16 as the register A operand of P V, and the online-softmax
+// running max and sum. Thread (warp w, lane) holds rows r and r + 8.
+template <int D>
+struct Consumer {
+  static constexpr int S = Cfg<D>::STAGES;
+  Smem<D> sm;
+  int cw, t, r, c0, pos_lo, j_lo, valid_lo, valid_hi, q_offset, causal;
+  float sl2;
+  float o[D / 2];
+  float sc[BN / 2];
+  uint32_t pa[BN / 16][4];
+  float m_r[2], l_r[2], corr[2];
 
-  for (int j = j_lo; j < j_hi; ++j) {
-    const int stage = (j - j_lo) & 1;
-    if (j + 1 < j_hi) load_kv(j + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (j == j_lo) {
+  // S = Q K^T of key tile `it` into sc (issued, not waited for)
+  __device__ __forceinline__ void issue_s(int it) {
+    const int s = it % S;
+    mbar_wait(sm.k_full(s), (it / S) & 1);
+    wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc)
-        ld_frag_a(qf[kc], sQ + (wr + r0) * LD + kc * 16 + c0, LD);
-    }
-    const uint16_t* cK = sK + stage * BN * LD;
-    const uint16_t* cV = sV + stage * BN * LD;
-
-    float s[BN / 8][4];
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(sc, desc_kmajor<BM>(sm.q, 64 * cw, kk),
+                    desc_kmajor<BN>(sm.k_tile(s), 0, kk), kk > 0);
+    wgmma_commit();
+  }
+  // O += P V of key tile `it` from pa (issued, not waited for)
+  __device__ __forceinline__ void issue_pv(int it) {
+    const int s = it % S;
+    mbar_wait(sm.v_full(s), (it / S) & 1);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs_tb<D>(o, pa[kk], desc_mnmajor<BN>(sm.v_tile(s), kk));
+    wgmma_commit();
+  }
+  // once S of key tile `it` has landed: release its K stage, mask, update
+  // the running max and sum, and turn sc into P (f32)
+  __device__ __forceinline__ void softmax(int it) {
+    fence_regs(sc);
+    if (t == 0) mbar_arrive(sm.k_empty(it % S));
+    const int kb = (j_lo + it) * BN;
+    if (kb < valid_lo || kb + BN > valid_hi ||
+        (causal && kb + BN - 1 > pos_lo)) {
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
+      for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const uint16_t* kb = cK + (nt * 8 + r0) * LD + kc * 16 + c0;
-        uint32_t b[2] = {ld_u32(kb), ld_u32(kb + 8)};
-        mma_bf16(s[nt], qf[kc], b);
+        for (int e = 0; e < 4; ++e) {
+          const int col = kb + 8 * j + c0 + (e & 1);
+          const int pos = q_offset + r + 8 * (e >> 1);
+          if (col < valid_lo || col >= valid_hi || (causal && col > pos))
+            sc[4 * j + e] = NEG_INF;
+        }
       }
     }
-
-    // scale + mask, running max
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
+    for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * BN + nt * 8 + c0 + (e & 1);
-        const int row = qrow[e >> 1];
-        const bool ok = col >= valid_lo && col < valid_hi &&
-                        (!causal || col <= q_offset + row);
-        s[nt][e] = ok ? s[nt][e] * scale : NEG_INF;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
+      for (int e = 0; e < 4; ++e)
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
     }
+    float ms[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    }
-    float corr[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      corr[i] = __expf(m_r[i] - mx[i]);
+      // a row with no key so far keeps max -inf: subtract 0, p = 0
+      ms[i] = mx[i] == NEG_INF ? 0.f : mx[i] * sl2;
+      corr[i] = ex2(m_r[i] * sl2 - ms[i]);
       m_r[i] = mx[i];
       l_r[i] *= corr[i];
     }
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
+    for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        // masked logits sit at NEG_INF; real ones are far above NEG_INF / 2
-        const float p = s[nt][e] > 0.5f * NEG_INF
-                            ? __expf(s[nt][e] - m_r[e >> 1]) : 0.f;
-        s[nt][e] = p;
+        const float p = ex2(fmaf(sc[4 * j + e], sl2, -ms[e >> 1]));
+        sc[4 * j + e] = p;
         l_r[e >> 1] += p;
       }
     }
+  }
+  // rescale O by the new max, pack P to bf16
+  __device__ __forceinline__ void rescale_pack() {
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      o[dt][0] *= corr[0];
-      o[dt][1] *= corr[0];
-      o[dt][2] *= corr[1];
-      o[dt][3] *= corr[1];
+    for (int i = 0; i < D / 8; ++i) {
+      o[4 * i] *= corr[0];
+      o[4 * i + 1] *= corr[0];
+      o[4 * i + 2] *= corr[1];
+      o[4 * i + 3] *= corr[1];
     }
+    // keys [16kk, 16kk + 16) are the accumulator's n8 blocks 2kk, 2kk + 1
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+  }
+  // wait for P V of key tile `it`, then release its V stage
+  __device__ __forceinline__ void pv_done(int it) {
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    if (t == 0) mbar_arrive(sm.v_empty(it % S));
+  }
+};
 
-    // O += P V: the S accumulators of two n8 tiles form one A fragment
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      uint32_t a[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                       pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                       pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                       pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-      const uint16_t* vb = cV + (kc * 16 + c0) * LD + r0;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const uint16_t* vp = vb + dt * 8;
-        uint32_t b[2] = {
-            (uint32_t)vp[0] | ((uint32_t)vp[LD] << 16),
-            (uint32_t)vp[8 * LD] | ((uint32_t)vp[9 * LD] << 16)};
-        mma_bf16(o[dt], a, b);
+template <int D, bool PV>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 uint16_t* __restrict__ out, float* __restrict__ m_out,
+                 float* __restrict__ l_out, int group, int Tq, int valid_lo,
+                 int valid_hi, int q_offset, int causal, float scale) {
+  using C = Cfg<D>;
+  constexpr int S = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const Smem<D> sm((smem_u32(smem_raw) + 1023) & ~1023u);
+
+  const int h = blockIdx.x, hk = h / group;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  // keys [valid_lo, key_hi) can be valid for some row of this tile; in
+  // stats-only mode a tile whose rows all lie outside [valid_lo, valid_hi)
+  // has nothing to compute
+  int key_hi = valid_hi;
+  if (causal) key_hi = min(key_hi, q_offset + m0 + BM);
+  const bool rows =
+      PV || (q_offset + m0 + BM > valid_lo && q_offset + m0 < valid_hi);
+  const int j_lo = valid_lo / BN;
+  const int n = rows && valid_lo < key_hi ? (key_hi + BN - 1) / BN - j_lo : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm.q_full(), 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(sm.k_full(s), 1);
+      mbar_init(sm.k_empty(s), 2);   // one arrival per consumer warpgroup
+      mbar_init(sm.v_full(s), 1);
+      mbar_init(sm.v_empty(s), 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;  // 0, 1: consumers; 2: the producer
+  const int t = threadIdx.x % 128;
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (t == 0 && n > 0) {
+      mbar_expect_tx(sm.q_full(), C::Q_BYTES);
+      tma_tile<D, BM>(sm.q, &tm_q, sm.q_full(), m0, h);
+      for (int it = 0; it < n; ++it) {
+        const int s = it % S;
+        const uint32_t ph = (it / S) & 1;
+        const int row = (j_lo + it) * BN;
+        mbar_wait(sm.k_empty(s), ph ^ 1);
+        mbar_expect_tx(sm.k_full(s), C::KV_BYTES);
+        tma_tile<D, BN>(sm.k_tile(s), &tm_k, sm.k_full(s), row, hk);
+        if constexpr (PV) {
+          mbar_wait(sm.v_empty(s), ph ^ 1);
+          mbar_expect_tx(sm.v_full(s), C::KV_BYTES);
+          tma_tile<D, BN>(sm.v_tile(s), &tm_v, sm.v_full(s), row, hk);
+        }
       }
     }
-    __syncthreads();  // the next iteration's loads overwrite this stage
-  }
-  cp_async_wait<0>();
+  } else {
+    // ---------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int lane = t % 32;
+    Consumer<D> c;
+    c.sm = sm;
+    c.cw = wg;                               // which 64 rows of the tile
+    c.t = t;
+    c.r = m0 + 64 * c.cw + 16 * (t / 32) + lane / 4;
+    c.c0 = 2 * (lane % 4);
+    c.pos_lo = q_offset + m0 + 64 * c.cw;        // first row position here
+    c.j_lo = j_lo;
+    c.valid_lo = valid_lo;
+    c.valid_hi = valid_hi;
+    c.q_offset = q_offset;
+    c.causal = causal;
+    c.sl2 = scale * LOG2E;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) c.o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      c.m_r[i] = NEG_INF;   // running max of raw logits
+      c.l_r[i] = 0.f;       // per-thread partial row sums
+    }
+    if (n > 0) mbar_wait(sm.q_full(), 0);
 
-  float inv[2];
+    for (int it = 0; it < n; ++it) {
+      c.issue_s(it);
+      wgmma_wait<0>();
+      c.softmax(it);
+      if constexpr (PV) {
+        c.rescale_pack();
+        c.issue_pv(it);
+        c.pv_done(it);
+      }
+    }
+
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_r[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[i] = 1.f / fmaxf(l, 1e-30f);
-  }
+    for (int i = 0; i < 2; ++i) {
+      c.l_r[i] += __shfl_xor_sync(0xffffffffu, c.l_r[i], 1);
+      c.l_r[i] += __shfl_xor_sync(0xffffffffu, c.l_r[i], 2);
+    }
+    if constexpr (PV) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (qrow[i] >= Tq) continue;
-    uint16_t* orow = out + ((size_t)h * Tq + qrow[i]) * D;
+      for (int i = 0; i < 2; ++i) {
+        const int row = c.r + 8 * i;
+        if (row >= Tq) continue;
+        const float inv = 1.f / fmaxf(c.l_r[i], 1e-30f);
+        uint16_t* orow = out + ((size_t)h * Tq + row) * D + c.c0;
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + c0) =
-          pack_bf16(o[dt][2 * i] * inv[i], o[dt][2 * i + 1] * inv[i]);
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack_bf16(
+              c.o[4 * j + 2 * i] * inv, c.o[4 * j + 2 * i + 1] * inv);
+      }
+    }
+    if (m_out != nullptr && (lane & 3) == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = c.r + 8 * i, pos = q_offset + row;
+        if (row >= Tq) continue;
+        const bool seen =
+            pos >= valid_lo && pos < valid_hi && c.m_r[i] != NEG_INF;
+        m_out[(size_t)h * Tq + row] = seen ? c.m_r[i] * scale : NO_KEY_M;
+        l_out[(size_t)h * Tq + row] = seen ? c.l_r[i] : 0.f;
+      }
     }
   }
 }
 
-template <int D>
+template <int D, bool PV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int H, int H_kv, int Tq, int Tk, int valid_lo,
-                   int valid_hi, int q_offset, int causal,
+                   float* m, float* l, int H, int H_kv, int Tq, int Tk,
+                   int valid_lo, int valid_hi, int q_offset, int causal,
                    cudaStream_t stream) {
-  constexpr int LD = D + 8;
-  const size_t smem = (size_t)(BM + 4 * BN) * LD * sizeof(uint16_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tq + BM - 1) / BM, H);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out),
-      H / H_kv, Tq, Tk, valid_lo, valid_hi, q_offset, causal,
-      1.0f / sqrtf((float)D));
+  using C = Cfg<D>;
+  // once per process, so that a launch inside a CUDA-graph capture makes
+  // no attribute call
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel<D, PV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = make_tmap(&tq, q, H, Tq, D, BM);
+  if (e == cudaSuccess) e = make_tmap(&tk, k, H_kv, Tk, D, BN);
+  if (e == cudaSuccess) e = PV ? make_tmap(&tv, v, H_kv, Tk, D, BN) : e;
+  if (e != cudaSuccess) return e;
+  if (!PV) tv = tk;  // not read
+  const dim3 grid(H, (Tq + BM - 1) / BM);
+  flash_fwd_kernel<D, PV><<<grid, NTHREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<uint16_t*>(out), m, l, H / H_kv, Tq, valid_lo,
+      valid_hi, q_offset, causal, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
+                     float* m, float* l, int H, int H_kv, int Tq, int Tk,
+                     int valid_lo, int valid_hi, int q_offset, int causal,
+                     cudaStream_t s) {
+  return v ? launch<D, true>(q, k, v, out, m, l, H, H_kv, Tq, Tk, valid_lo,
+                             valid_hi, q_offset, causal, s)
+           : launch<D, false>(q, k, v, out, m, l, H, H_kv, Tq, Tk, valid_lo,
+                              valid_hi, q_offset, causal, s);
 }
 
 }  // namespace
 
-// q [H, Tq, D], k/v [H_kv, Tk, D], out [H, Tq, D]: contiguous bf16.
-// 0 <= valid_lo, valid_hi <= Tk. Returns a cudaError_t (0 = launched).
+// q [H, Tq, D], k/v [H_kv, Tk, D], out [H, Tq, D]: contiguous bf16, 16-byte
+// aligned; m, l [H, Tq] f32 or both null. v = null runs the stats-only mode
+// (out unused, m and l required). 0 <= valid_lo, valid_hi <= Tk, Tk >= 1.
+// Returns a cudaError_t (0 = launched).
 extern "C" int pq_flash_attention(const void* q, const void* k, const void* v,
-                                  void* out, int H, int H_kv, int Tq, int Tk,
-                                  int D, int valid_lo, int valid_hi,
-                                  int q_offset, int causal, void* stream) {
+                                  void* out, void* m, void* l, int H, int H_kv,
+                                  int Tq, int Tk, int D, int valid_lo,
+                                  int valid_hi, int q_offset, int causal,
+                                  void* stream) {
   if (Tq <= 0) return cudaSuccess;
+  if (Tk <= 0 || (m == nullptr) != (l == nullptr) || (!v && !m))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, out, H, H_kv, Tq, Tk, valid_lo, valid_hi,
-                        q_offset, causal, s);
+      return dispatch<64>(q, k, v, out, mf, lf, H, H_kv, Tq, Tk, valid_lo,
+                          valid_hi, q_offset, causal, s);
     case 128:
-      return launch<128>(q, k, v, out, H, H_kv, Tq, Tk, valid_lo, valid_hi,
-                         q_offset, causal, s);
+      return dispatch<128>(q, k, v, out, mf, lf, H, H_kv, Tq, Tk, valid_lo,
+                           valid_hi, q_offset, causal, s);
     default:
       return cudaErrorInvalidValue;
   }

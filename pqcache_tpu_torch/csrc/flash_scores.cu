@@ -1,5 +1,5 @@
 // K4: per-key columns of the causal softmax for prefill, hand-written for
-// Hopper (sm_90a).
+// Hopper (sm_90a) with wgmma, TMA and warp specialisation.
 //
 // Replaces pqcache_tpu/ops/flash_attention.py::flash_scores (the Pallas TPU
 // kernel _score_kernel). Same function: q [H, T, D] and k [H_kv, T, D] in
@@ -8,334 +8,303 @@
 // max(l_q, 1e-30) with (m_q, l_q) the row's softmax max and sum. "sum" writes
 // F[h, t] = sum over q of p(q, t); "max" writes max_q p(q, t) over pairs with
 // t <= q - recent_cnt. F is [H, T] f32; a column that no pair reaches is 0.
-// Rows that see no key keep m = NEG_INF and l = 0, and none of their pairs is
-// evaluated, so no NaN can reach F.
 //
-// What bounds it: two causal QK^T sweeps, 2 * (2 * H * n^2 / 2 * D) FLOPs on
-// bf16 tensor cores for n valid rows (8.4 TFLOP at H 32, D 128, n 32000:
-// 8.5 ms at 989 TFLOP/s), and one exponential per pair and sweep, H * n^2
-// in all (3.3e10 at those shapes). Bytes (q and k read, F written) are
-// negligible, so it is bound by operations.
+// This file is the column pass. The row statistics (m, l) [H, T] come from
+// K2 (flash_attention.cu): on the score-reading prefill path K2 writes them
+// at the end of the same layer's attention, and a standalone call runs K2's
+// stats-only mode first. A row's pairs are only evaluated where the row is
+// valid, so a row written as one that sees no key (m = -1e30, l = 0) never
+// reaches F.
 //
-// Design: two kernels, deterministic, no atomics.
-//  * Pass 1 (row stats) is K2's loop without PV: one CTA of four warps per
-//    (q head, 64-row q tile), each warp owning 16 rows, walks the 64-key
-//    tiles from valid_lo to the causal frontier with mma.sync m16n8k16 and
-//    keeps the online (m, l) in registers; it writes m and l [H, T] f32.
-//    Heavy (late) q tiles launch first.
-//  * Pass 2 (columns) turns the TPU grid around: on the TPU, F[h, key
-//    block] was carried across the q blocks of a sequential grid in the
-//    output block (and revisited non-consecutively, which Pallas does not
-//    read back on a TPU). Here one CTA owns one (q head, 64-key tile) and
-//    writes its F columns once. It computes S^T = K Q^T: each warp holds the
-//    A fragments of its 16 keys in registers for the whole walk and takes
-//    the q tiles, from the key tile's diagonal to valid_hi, as B operands
-//    from shared memory (cp.async double buffering, the tile's m and 1/l
-//    staged beside it). A key is then an accumulator row, so the running
-//    column sum (or max) stays in two registers per thread across q tiles;
-//    one quad shuffle at the end finishes it. Early key tiles see the most
-//    q tiles and launch first. A pass 2 per q tile would need atomicAdd
-//    into F (nondeterministic) and a float atomic max.
-// One template parameter selects "sum" or "max". wgmma/TMA, and fusing pass
-// 1 into K2 by having K2 emit its row log-sum-exp, are later work.
-
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// What bounds it: one causal K Q^T sweep, 2 * H * D * n (n + 1) / 2 FLOPs on
+// bf16 tensor cores for n valid rows (4.19 TFLOP at H 32, D 128, n 32000:
+// 4.24 ms at 989 TFLOP/s), and one exponential per pair, H n^2 / 2 = 1.6e10
+// (about 4.2 ms at the special-function units' ~3.9e12/s): two co-bounds of
+// the same size, so the exponentials of one warpgroup must run while the
+// other's wgmma does, and nothing else may take the special-function units:
+// a prep kernel folds each row's (m, l) into one base-2 log-sum-exp,
+// lse2 = m log2 e + log2 max(l, 1e-30), so p = 2^(s log2 e / sqrt(D) -
+// lse2) is one FFMA and one MUFU.EX2 per pair (no division, no second
+// multiply). Bytes (q and k read, F written) are negligible.
+//
+// Design: the TPU grid turned around, deterministic, no atomics. One CTA
+// of three warpgroups (two consumers and a producer, as in K2) owns one
+// (q head, 128-key tile) and writes its F columns once; early key tiles see
+// the most q tiles and launch first.
+//  * The producer warpgroup (setmaxnreg.dec) has one thread load the K
+//    tile once by TMA, then stream the q tiles of 128 rows, from the key
+//    tile's diagonal to valid_hi, through a ring of STAGES stages with full
+//    and empty mbarriers.
+//  * The two consumer warpgroups each own 64 keys: the K tile is
+//    the A operand, so S^T = K Q^T (wgmma m64n128k16, both operands in
+//    shared memory) makes each key an accumulator row, and each key's
+//    running column sum (or max) stays in two registers per thread across
+//    the q tiles; one quad shuffle at the end finishes it. The q tile's
+//    lse2 row (512 bytes) comes with it by a bulk copy on the same barrier.
+//    The two warpgroups take turns at the tensor cores (ping-pong on two
+//    named barriers), so one's exponentials run while the other's wgmma
+//    does. (Two q tiles in flight within a warpgroup measured slower.)
+//  * Masks (both ends in [valid_lo, valid_hi), key <= q, key <= q -
+//    recent_cnt for "max") apply only on tiles that straddle a boundary.
+// One template parameter selects "sum" or "max".
 
 #include "mma_sm90.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // q rows per tile
-constexpr int BN = 64;        // keys per tile
-constexpr int NTHREADS = 128; // 4 warps x 16 rows (pass 1) or keys (pass 2)
-constexpr float NEG_INF = -1e30f;
+constexpr int BKEY = 128;      // keys per CTA: two consumer warpgroups x 64
+constexpr int BQ = 128;        // q rows per streamed tile
+constexpr int NTHREADS = 384;  // two consumer warpgroups + the producer
 
-// Copy rows [r0, r0 + 64) of a [T, D] bf16 matrix into a [64][LD] shared
-// tile with cp.async; rows at or past T are zero-filled.
 template <int D>
-__device__ __forceinline__ void load_tile(uint16_t* dst, const uint16_t* src,
-                                          int r0, int T, int tid) {
-  constexpr int LD = D + 8, CH = D / 8;
-  for (int c = tid; c < 64 * CH; c += NTHREADS) {
-    const int r = c / CH, cc = c % CH, gr = r0 + r;
-    const bool ok = gr < T;
-    cp_async16(dst + r * LD + cc * 8, src + (size_t)(ok ? gr : 0) * D + cc * 8,
-               ok);
+struct Cfg {
+  static constexpr int STAGES = 4;
+  static constexpr int K_BYTES = BKEY * D * 2;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int L_BYTES = BQ * 4;   // the q tile's lse2
+  static constexpr int SMEM =
+      1024 + K_BYTES + STAGES * (Q_BYTES + L_BYTES) + 256;
+};
+
+// lse2[h, i] = m log2 e + log2 max(l, 1e-30) for i < T, 0 up to the padded
+// row length ld (a multiple of BQ, so a q tile's reads stay in the row)
+__global__ void lse2_kernel(const float* __restrict__ m,
+                            const float* __restrict__ l,
+                            float* __restrict__ lse2, int T, int ld) {
+  const int h = blockIdx.y;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < ld;
+       i += gridDim.x * blockDim.x) {
+    const size_t r = (size_t)h * T + i;
+    lse2[(size_t)h * ld + i] =
+        i < T ? m[r] * LOG2E + log2f(fmaxf(l[r], 1e-30f)) : 0.f;
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-row_stats_kernel(const uint16_t* __restrict__ q,
-                 const uint16_t* __restrict__ k, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int group, int T, int valid_lo,
-                 int valid_hi, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sQ = smem;               // [BM][LD]
-  uint16_t* sK = sQ + BM * LD;       // [2][BN][LD]
+// One consumer warpgroup's state (64 keys): thread (warp w, lane) holds the
+// running column sums (or maxima) of keys key[0] and key[1] = key[0] + 8.
+template <int D, bool MAX>
+struct Consumer {
+  static constexpr int S = Cfg<D>::STAGES;
+  uint32_t sK, sQ, sL, bar;   // K tile, q ring, lse2 ring, mbarriers
+  const float* lse;           // the lse2 ring (generic address)
+  int cw, t, c0, kw0, i_lo, shift, valid_lo, valid_hi;
+  int key[2];
+  bool kok[2], key_edge;
+  float sl2;
+  float acc[2];
 
-  const int nqb = (T + BM - 1) / BM;
-  const int m0 = (nqb - 1 - blockIdx.x) * BM;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r0 = lane >> 2, c0 = (lane & 3) * 2;
-  const uint16_t* qh = q + (size_t)h * T * D;
-  const uint16_t* kh = k + (size_t)(h / group) * T * D;
+  __device__ uint32_t q_full(int s) const { return bar + 8 * (1 + s); }
+  __device__ uint32_t q_empty(int s) const { return bar + 8 * (1 + S + s); }
 
-  // keys [valid_lo, key_hi) can pair with a valid row of this tile
-  const int key_hi = min(valid_hi, m0 + BM);
-  const bool rows = m0 + BM > valid_lo && m0 < valid_hi;
-  const int j_lo = valid_lo / BN;
-  const int j_hi = rows && valid_lo < key_hi ? (key_hi + BN - 1) / BN : j_lo;
-
-  load_tile<D>(sQ, qh, m0, T, tid);
-  if (j_lo < j_hi) load_tile<D>(sK, kh, j_lo * BN, T, tid);
-  cp_async_commit();
-
-  const int wr = warp * 16;
-  const int qrow[2] = {m0 + wr + r0, m0 + wr + r0 + 8};
-  const bool qok[2] = {qrow[0] >= valid_lo && qrow[0] < valid_hi,
-                       qrow[1] >= valid_lo && qrow[1] < valid_hi};
-  float m_r[2] = {NEG_INF, NEG_INF};
-  float l_r[2] = {0.f, 0.f};  // per-thread partial row sums
-  uint32_t qf[D / 16][4];
-
-  for (int j = j_lo; j < j_hi; ++j) {
-    const int stage = (j - j_lo) & 1;
-    if (j + 1 < j_hi) load_tile<D>(sK + (stage ^ 1) * BN * LD, kh,
-                                   (j + 1) * BN, T, tid);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (j == j_lo) {
+  // S^T of q tile `it` into d (issued, not waited for)
+  __device__ __forceinline__ void issue(float (&d)[BQ / 2], int it) {
+    const int s = it % S;
+    mbar_wait(q_full(s), (it / S) & 1);
+    wgmma_fence();
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc)
-        ld_frag_a(qf[kc], sQ + (wr + r0) * LD + kc * 16 + c0, LD);
-    }
-    const uint16_t* cK = sK + stage * BN * LD;
-
-    float s[BN / 8][4];
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(d, desc_kmajor<BKEY>(sK, 64 * cw, kk),
+                    desc_kmajor<BQ>(sQ + s * Cfg<D>::Q_BYTES, 0, kk), kk > 0);
+    wgmma_commit();
+  }
+  // once S^T of q tile `it` has landed: add its probabilities to the
+  // running column sums (or maxima), then release its stage
+  __device__ __forceinline__ void consume(float (&d)[BQ / 2], int it) {
+    fence_regs(d);
+    const int q0 = (i_lo + it) * BQ;
+    const float* lq = lse + (it % S) * BQ + c0;
+    // a pair fails a test only where the tile straddles valid_lo,
+    // valid_hi, or key + shift > q
+    const bool edge = key_edge || q0 < valid_lo || q0 + BQ > valid_hi ||
+                      kw0 + 63 + shift > q0;
 #pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-      for (int nt = 0; nt < BN / 8; ++nt) {
-        const uint16_t* kb = cK + (nt * 8 + r0) * LD + kc * 16 + c0;
-        uint32_t b[2] = {ld_u32(kb), ld_u32(kb + 8)};
-        mma_bf16(s[nt], qf[kc], b);
-      }
-    }
-
-    float mx[2] = {m_r[0], m_r[1]};
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
+    for (int j = 0; j < BQ / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = j * BN + nt * 8 + c0 + (e & 1);
-        const bool ok = qok[e >> 1] && col >= valid_lo && col < valid_hi &&
-                        col <= qrow[e >> 1];
-        s[nt][e] = ok ? s[nt][e] * scale : NEG_INF;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        const int i = e >> 1;
+        float p = ex2(fmaf(d[4 * j + e], sl2, -lq[8 * j + (e & 1)]));
+        if (edge) {
+          const int q = q0 + 8 * j + c0 + (e & 1);
+          const bool ok = kok[i] && q >= valid_lo && q < valid_hi &&
+                          key[i] + shift <= q;
+          p = ok ? p : 0.f;
+        }
+        acc[i] = MAX ? fmaxf(acc[i], p) : acc[i] + p;
       }
     }
+    __syncwarp();
+    if (t % 32 == 0) mbar_arrive(q_empty(it % S));
+  }
+};
+
+template <int D, bool MAX>
+__global__ void __launch_bounds__(NTHREADS, 1)
+column_kernel(const __grid_constant__ CUtensorMap tm_q,
+              const __grid_constant__ CUtensorMap tm_k,
+              const float* __restrict__ lse2, float* __restrict__ f_out,
+              int group, int T, int ld, int valid_lo, int valid_hi,
+              int recent_cnt, float scale) {
+  using C = Cfg<D>;
+  constexpr int S = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  Consumer<D, MAX> c;     // the consumers fill in the rest
+  c.sK = (smem_u32(smem_raw) + 1023) & ~1023u;
+  c.sQ = c.sK + C::K_BYTES;                    // S tiles
+  c.sL = c.sQ + S * C::Q_BYTES;                // S x BQ floats
+  c.bar = c.sL + S * C::L_BYTES;               // k_full, then the ring's
+  c.lse = reinterpret_cast<const float*>(smem_raw + c.sL -
+                                         smem_u32(smem_raw));
+  const uint32_t k_full = c.bar;
+
+  const int h = blockIdx.x, hk = h / group;
+  const int k0 = blockIdx.y * BKEY;
+  c.shift = MAX ? recent_cnt : 0;
+  // q rows that can pair with a key of this tile: [q_first, valid_hi)
+  const bool keys = k0 + BKEY > valid_lo && k0 < valid_hi;
+  const int q_first = max(k0 + c.shift, valid_lo);
+  c.i_lo = q_first / BQ;
+  const int n =
+      keys && q_first < valid_hi ? (valid_hi + BQ - 1) / BQ - c.i_lo : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(k_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(c.q_full(s), 1);
+      mbar_init(c.q_empty(s), 8);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;  // 0, 1: consumers; 2: the producer
+  const int t = threadIdx.x % 128;
+  if (wg == 2) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<40>();
+    if (t == 0 && n > 0) {
+      mbar_expect_tx(k_full, C::K_BYTES);
+      tma_tile<D, BKEY>(c.sK, &tm_k, k_full, k0, hk);
+      for (int it = 0; it < n; ++it) {
+        const int s = it % S;
+        const uint32_t ph = (it / S) & 1;
+        const int q0 = (c.i_lo + it) * BQ;
+        mbar_wait(c.q_empty(s), ph ^ 1);
+        mbar_expect_tx(c.q_full(s), C::Q_BYTES + C::L_BYTES);
+        tma_tile<D, BQ>(c.sQ + s * C::Q_BYTES, &tm_q, c.q_full(s), q0, h);
+        bulk_load(c.sL + s * C::L_BYTES, lse2 + (size_t)h * ld + q0,
+                  C::L_BYTES, c.q_full(s));
+      }
+    }
+  } else {
+    // ---------------------------------------------------------- consumers
+    setmaxnreg_inc<232>();
+    const int lane = t % 32;
+    c.cw = wg;                               // which 64 keys of the tile
+    c.t = t;
+    c.c0 = 2 * (lane % 4);
+    c.kw0 = k0 + 64 * c.cw;                      // first key here
+    c.valid_lo = valid_lo;
+    c.valid_hi = valid_hi;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      l_r[i] *= __expf(m_r[i] - mx[i]);
-      m_r[i] = mx[i];
+      c.key[i] = c.kw0 + 16 * (t / 32) + lane / 4 + 8 * i;
+      c.kok[i] = c.key[i] >= valid_lo && c.key[i] < valid_hi;
+      c.acc[i] = 0.f;
     }
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        // masked logits sit at NEG_INF; real ones are far above NEG_INF / 2
-        if (s[nt][e] > 0.5f * NEG_INF) l_r[e >> 1] += __expf(s[nt][e] - m_r[e >> 1]);
-      }
+    c.key_edge = c.kw0 < valid_lo || c.kw0 + 64 > valid_hi;
+    c.sl2 = scale * LOG2E;
+    if (n > 0) mbar_wait(k_full, 0);
+
+    // Ping-pong, as in K2: the warpgroups take turns to issue their
+    // products (named barriers 1 and 2), so one's exponentials run while
+    // the other's wgmma does; every bar.sync meets exactly one arrival.
+    float sc[BQ / 2];
+    if (n > 0 && c.cw == 1) named_bar_arrive(1, 256);
+    for (int it = 0; it < n; ++it) {
+      named_bar_sync(1 + c.cw, 256);
+      c.issue(sc, it);
+      if (!(it == n - 1 && c.cw == 1)) named_bar_arrive(2 - c.cw, 256);
+      wgmma_wait<0>();
+      c.consume(sc, it);
     }
-    __syncthreads();  // the next iteration's loads overwrite this stage
-  }
-  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_r[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    if ((lane & 3) == 0 && qrow[i] < T) {
-      m_out[(size_t)h * T + qrow[i]] = m_r[i];
-      l_out[(size_t)h * T + qrow[i]] = l;
+    for (int i = 0; i < 2; ++i) {
+      float a = c.acc[i];
+      const float a1 = __shfl_xor_sync(0xffffffffu, a, 1);
+      a = MAX ? fmaxf(a, a1) : a + a1;
+      const float a2 = __shfl_xor_sync(0xffffffffu, a, 2);
+      a = MAX ? fmaxf(a, a2) : a + a2;
+      if ((lane & 3) == 0 && c.key[i] < T)
+        f_out[(size_t)h * T + c.key[i]] = a;
     }
   }
 }
 
 template <int D, bool MAX>
-__global__ void __launch_bounds__(NTHREADS)
-column_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-              const float* __restrict__ m_in, const float* __restrict__ l_in,
-              float* __restrict__ f_out, int group, int T, int valid_lo,
-              int valid_hi, int recent_cnt, float scale) {
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* sK = smem;                        // [BN][LD]
-  uint16_t* sQ = sK + BN * LD;                // [2][BM][LD]
-  float* sM = reinterpret_cast<float*>(sQ + 2 * BM * LD);  // [2][BM]
-  float* sI = sM + 2 * BM;                    // [2][BM]: 1 / max(l, 1e-30)
-
-  const int k0 = blockIdx.x * BN;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r0 = lane >> 2, c0 = (lane & 3) * 2;
-  const uint16_t* qh = q + (size_t)h * T * D;
-  const uint16_t* kh = k + (size_t)(h / group) * T * D;
-  const float* mh = m_in + (size_t)h * T;
-  const float* lh = l_in + (size_t)h * T;
-
-  // q rows that can pair with a key of this tile: [q_first, valid_hi)
-  const bool keys = k0 + BN > valid_lo && k0 < valid_hi;
-  const int q_first = max(MAX ? k0 + recent_cnt : k0, valid_lo);
-  const int i_lo = q_first / BM;
-  const int i_hi = keys && q_first < valid_hi ? (valid_hi + BM - 1) / BM : i_lo;
-
-  auto load_q = [&](int i, int stage) {
-    load_tile<D>(sQ + stage * BM * LD, qh, i * BM, T, tid);
-    if (tid < BM) {
-      const int row = i * BM + tid;
-      sM[stage * BM + tid] = row < T ? mh[row] : NEG_INF;
-      sI[stage * BM + tid] = row < T ? 1.f / fmaxf(lh[row], 1e-30f) : 0.f;
-    }
-  };
-  if (i_lo < i_hi) {
-    load_tile<D>(sK, kh, k0, T, tid);
-    load_q(i_lo, 0);
-  }
-  cp_async_commit();
-
-  const int wr = warp * 16;                   // warp's first key in the tile
-  const int key[2] = {k0 + wr + r0, k0 + wr + r0 + 8};
-  const bool kok[2] = {key[0] >= valid_lo && key[0] < valid_hi,
-                       key[1] >= valid_lo && key[1] < valid_hi};
-  const int reach[2] = {MAX ? key[0] + recent_cnt : key[0],
-                        MAX ? key[1] + recent_cnt : key[1]};
-  float acc[2] = {0.f, 0.f};
-  uint32_t kf[D / 16][4];
-
-  for (int i = i_lo; i < i_hi; ++i) {
-    const int stage = (i - i_lo) & 1;
-    if (i + 1 < i_hi) load_q(i + 1, stage ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (i == i_lo) {
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc)
-        ld_frag_a(kf[kc], sK + (wr + r0) * LD + kc * 16 + c0, LD);
-    }
-    const uint16_t* cQ = sQ + stage * BM * LD;
-    const float* cM = sM + stage * BM;
-    const float* cI = sI + stage * BM;
-
-    // S^T tile: rows = this warp's 16 keys, columns = the 64 q rows
-    float s[BM / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-      for (int nt = 0; nt < BM / 8; ++nt) {
-        const uint16_t* qb = cQ + (nt * 8 + r0) * LD + kc * 16 + c0;
-        uint32_t b[2] = {ld_u32(qb), ld_u32(qb + 8)};
-        mma_bf16(s[nt], kf[kc], b);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < BM / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = nt * 8 + c0 + (e & 1);
-        const int qr = i * BM + ql;
-        const int r = e >> 1;
-        // a pair counts with both ends in [valid_lo, valid_hi) and
-        // key <= q (key <= q - recent_cnt for "max")
-        if (kok[r] && qr < valid_hi && qr >= valid_lo && reach[r] <= qr) {
-          const float p = __expf(s[nt][e] * scale - cM[ql]) * cI[ql];
-          acc[r] = MAX ? fmaxf(acc[r], p) : acc[r] + p;
-        }
-      }
-    }
-    __syncthreads();  // the next iteration's loads overwrite this stage
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float a = acc[r];
-    const float a1 = __shfl_xor_sync(0xffffffffu, a, 1);
-    a = MAX ? fmaxf(a, a1) : a + a1;
-    const float a2 = __shfl_xor_sync(0xffffffffu, a, 2);
-    a = MAX ? fmaxf(a, a2) : a + a2;
-    if ((lane & 3) == 0 && key[r] < T) f_out[(size_t)h * T + key[r]] = a;
-  }
+cudaError_t launch(const void* q, const void* k, const float* m,
+                   const float* l, float* lse2, float* f, int H, int H_kv,
+                   int T, int valid_lo, int valid_hi, int recent_cnt,
+                   cudaStream_t stream) {
+  using C = Cfg<D>;
+  // once per process, so that a launch inside a CUDA-graph capture makes
+  // no attribute call
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      column_kernel<D, MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tq, tk;
+  cudaError_t e = make_tmap(&tq, q, H, T, D, BQ);
+  if (e == cudaSuccess) e = make_tmap(&tk, k, H_kv, T, D, BKEY);
+  if (e != cudaSuccess) return e;
+  const int ld = (T + BQ - 1) / BQ * BQ;
+  lse2_kernel<<<dim3((ld + 255) / 256, H), 256, 0, stream>>>(m, l, lse2, T,
+                                                              ld);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 grid(H, (T + BKEY - 1) / BKEY);
+  column_kernel<D, MAX><<<grid, NTHREADS, C::SMEM, stream>>>(
+      tq, tk, lse2, f, H / H_kv, T, ld, valid_lo, valid_hi, recent_cnt,
+      1.0f / sqrtf((float)D));
+  return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, void* f, void* m, void* l,
-                   int H, int H_kv, int T, int valid_lo, int valid_hi,
-                   int max_mode, int recent_cnt, cudaStream_t stream) {
-  constexpr int LD = D + 8;
-  const size_t smem1 = (size_t)(BM + 2 * BN) * LD * sizeof(uint16_t);
-  const size_t smem2 = (size_t)(BN + 2 * BM) * LD * sizeof(uint16_t) +
-                       4 * BM * sizeof(float);
-  auto col = max_mode ? &column_kernel<D, true> : &column_kernel<D, false>;
-  // once per process, so that a launch inside a CUDA-graph capture makes
-  // no attribute call
-  static const cudaError_t attr = [&] {
-    const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-    cudaError_t e = cudaFuncSetAttribute(row_stats_kernel<D>, a, (int)smem1);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(column_kernel<D, false>, a, (int)smem2);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(column_kernel<D, true>, a, (int)smem2);
-    return e;
-  }();
-  if (attr != cudaSuccess) return attr;
-  const int group = H / H_kv;
-  const float scale = 1.0f / sqrtf((float)D);
-  const uint16_t* qp = static_cast<const uint16_t*>(q);
-  const uint16_t* kp = static_cast<const uint16_t*>(k);
-  row_stats_kernel<D><<<dim3((T + BM - 1) / BM, H), NTHREADS, smem1, stream>>>(
-      qp, kp, static_cast<float*>(m), static_cast<float*>(l), group, T,
-      valid_lo, valid_hi, scale);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  col<<<dim3((T + BN - 1) / BN, H), NTHREADS, smem2, stream>>>(
-      qp, kp, static_cast<const float*>(m), static_cast<const float*>(l),
-      static_cast<float*>(f), group, T, valid_lo, valid_hi, recent_cnt, scale);
-  return cudaGetLastError();
+cudaError_t dispatch(const void* q, const void* k, const float* m,
+                     const float* l, float* lse2, float* f, int H, int H_kv,
+                     int T, int valid_lo, int valid_hi, int max_mode,
+                     int recent_cnt, cudaStream_t s) {
+  return max_mode ? launch<D, true>(q, k, m, l, lse2, f, H, H_kv, T,
+                                    valid_lo, valid_hi, recent_cnt, s)
+                  : launch<D, false>(q, k, m, l, lse2, f, H, H_kv, T,
+                                     valid_lo, valid_hi, recent_cnt, s);
 }
 
 }  // namespace
 
-// q [H, T, D], k [H_kv, T, D]: contiguous bf16; f (the output) and the
-// row-stat scratch m, l: [H, T] f32. 0 <= valid_lo, valid_hi <= T;
-// max_mode 0 = "sum", 1 = "max". Returns a cudaError_t (0 = launched).
-extern "C" int pq_flash_scores(const void* q, const void* k, void* f, void* m,
-                               void* l, int H, int H_kv, int T, int D,
-                               int valid_lo, int valid_hi, int max_mode,
-                               int recent_cnt, void* stream) {
+// q [H, T, D], k [H_kv, T, D]: contiguous bf16, 16-byte aligned; the row
+// statistics m, l [H, T] f32 (K2's contract); lse2, scratch of H *
+// round_up(T, 128) f32, 8-byte aligned; f, the output, [H, T] f32.
+// 0 <= valid_lo, valid_hi <= T; max_mode 0 = "sum", 1 = "max". Returns a
+// cudaError_t (0 = launched).
+extern "C" int pq_flash_scores(const void* q, const void* k, const void* m,
+                               const void* l, void* lse2, void* f, int H,
+                               int H_kv, int T, int D, int valid_lo,
+                               int valid_hi, int max_mode, int recent_cnt,
+                               void* stream) {
   if (T <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* mf = static_cast<const float*>(m);
+  const float* lf = static_cast<const float*>(l);
+  float* sf = static_cast<float*>(lse2);
+  float* ff = static_cast<float*>(f);
   switch (D) {
     case 64:
-      return launch<64>(q, k, f, m, l, H, H_kv, T, valid_lo, valid_hi,
-                        max_mode, recent_cnt, s);
+      return dispatch<64>(q, k, mf, lf, sf, ff, H, H_kv, T, valid_lo,
+                          valid_hi, max_mode, recent_cnt, s);
     case 128:
-      return launch<128>(q, k, f, m, l, H, H_kv, T, valid_lo, valid_hi,
-                         max_mode, recent_cnt, s);
+      return dispatch<128>(q, k, mf, lf, sf, ff, H, H_kv, T, valid_lo,
+                           valid_hi, max_mode, recent_cnt, s);
     default:
       return cudaErrorInvalidValue;
   }

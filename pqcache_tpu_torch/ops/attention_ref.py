@@ -49,9 +49,25 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(H, Tq, D).to(q.dtype)
 
 
+def check_row_stats(row_stats, shape, what: str) -> None:
+    """Raise ValueError unless ``row_stats`` is None or a pair (m, l) of
+    tensors of ``shape`` ([H, T])."""
+    if row_stats is None:
+        return
+    shape = tuple(shape)
+    if (not isinstance(row_stats, (tuple, list)) or len(row_stats) != 2
+            or any(not isinstance(x, torch.Tensor) or tuple(x.shape) != shape
+                   for x in row_stats)):
+        got = ([tuple(getattr(x, "shape", ())) for x in row_stats]
+               if isinstance(row_stats, (tuple, list)) else type(row_stats))
+        raise ValueError(f"{what}: row_stats must be (m, l) of shape {shape}, "
+                         f"got {got}")
+
+
 def flash_scores_ref(q: torch.Tensor, k: torch.Tensor, valid_lo=0,
                      valid_len=None, *, score_mode: str = "sum",
-                     recent_cnt: int = 32, block: int = 512) -> torch.Tensor:
+                     recent_cnt: int = 32, block: int = 512,
+                     row_stats=None) -> torch.Tensor:
     """Per-key columns of the causal softmax, the plain version of K4.
 
     q [H, T, D], k [H_kv, T, D] -> F [H, T] float32. A pair (q row, key)
@@ -62,10 +78,12 @@ def flash_scores_ref(q: torch.Tensor, k: torch.Tensor, valid_lo=0,
     block, as ``pqcache_tpu/ops/attention_xla.py::chunked_attention``
     (with_scores=True): the first finds each row's (m, l), the second
     adds up the normalised columns; nothing larger than block x block is
-    built."""
+    built. ``row_stats`` (m, l) [H, T], as ``chunked_attention(...,
+    return_stats=True)`` gives them, replaces the first sweep."""
     if score_mode not in ("sum", "max"):
         raise ValueError(f"score_mode must be 'sum' or 'max', got "
                          f"{score_mode!r}")
+    check_row_stats(row_stats, q.shape[:2], "flash_scores_ref")
     H, T, D = q.shape
     H_kv = k.shape[0]
     group = H // H_kv
@@ -92,13 +110,17 @@ def flash_scores_ref(q: torch.Tensor, k: torch.Tensor, valid_lo=0,
                                   kf[:, j0:j0 + kpos.numel()])
                 yield j0, kpos, mask, torch.where(mask, lg, NEG_INF)
 
-        m = torch.full((H_kv, group, i1 - i0), NEG_INF, device=q.device)
-        l = torch.zeros((H_kv, group, i1 - i0), device=q.device)
-        for _, _, mask, lg in tiles():
-            m_new = torch.maximum(m, lg.amax(-1))
-            p = torch.where(mask, torch.exp(lg - m_new[..., None]), 0.0)
-            l = l * torch.exp(m - m_new) + p.sum(-1)
-            m = m_new
+        if row_stats is None:
+            m = torch.full((H_kv, group, i1 - i0), NEG_INF, device=q.device)
+            l = torch.zeros((H_kv, group, i1 - i0), device=q.device)
+            for _, _, mask, lg in tiles():
+                m_new = torch.maximum(m, lg.amax(-1))
+                p = torch.where(mask, torch.exp(lg - m_new[..., None]), 0.0)
+                l = l * torch.exp(m - m_new) + p.sum(-1)
+                m = m_new
+        else:
+            m, l = (x.float().reshape(H_kv, group, T)[:, :, i0:i1]
+                    for x in row_stats)
         l = torch.clamp(l, min=1e-30)[..., None]
         for j0, kpos, mask, lg in tiles():
             if score_mode == "max":
@@ -114,12 +136,17 @@ def flash_scores_ref(q: torch.Tensor, k: torch.Tensor, valid_lo=0,
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       valid_len=None, valid_lo=None, *, causal: bool = True,
-                      q_offset: int = 0, block: int = 512) -> torch.Tensor:
+                      q_offset: int = 0, block: int = 512,
+                      return_stats: bool = False):
     """Online-softmax attention with q-block x k-block tiling in float32.
 
     Keys outside [valid_lo, valid_len) are masked (left-padded prompts);
     with ``causal`` a key at index > q_offset + q row is masked too.
-    Returns out [H, Tq, D] in q.dtype.
+    Returns out [H, Tq, D] in q.dtype; with ``return_stats`` (out, m, l),
+    K2's row statistics [H, Tq] f32: m the row max of the scaled logit, l
+    the sum of exp(logit - m) over the row's valid keys, and m = NEG_INF,
+    l = 0 for a row that sees no key or whose position q_offset + row lies
+    outside [valid_lo, valid_len).
 
     Masked probabilities are zeroed, as in the Pallas kernel
     (``pqcache_tpu/ops/flash_attention.py``): a query row that sees no key
@@ -136,6 +163,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     out = torch.zeros((H_kv, group, Tq, D), dtype=torch.float32,
                       device=q.device)
+    m_all = torch.full((H_kv, group, Tq), NEG_INF, device=q.device)
+    l_all = torch.zeros((H_kv, group, Tq), device=q.device)
     kf, vf = k.float(), v.float()
     qg = q.reshape(H_kv, group, Tq, D).float() * scale
     koffs = torch.arange(block, device=q.device)
@@ -164,7 +193,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 "hgqk,hkd->hgqd", p, vf[:, j0:j1])
             m = m_new
         out[:, :, i0:i1] = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(H, Tq, D).to(q.dtype)
+        seen = (qpos >= lo) & (qpos < hi)
+        m_all[:, :, i0:i1] = torch.where(seen, m, NEG_INF)
+        l_all[:, :, i0:i1] = torch.where(seen, l, 0.0)
+    out = out.reshape(H, Tq, D).to(q.dtype)
+    if return_stats:
+        return out, m_all.reshape(H, Tq), l_all.reshape(H, Tq)
+    return out
 
 
 def segment_partial(qg: torch.Tensor, k_seg: torch.Tensor,

@@ -25,12 +25,16 @@ def dense_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     ``pad_len`` are masked). Returns (out [H, T, D], scores [H, T] f32 or
     None): with ``with_scores`` the per-key softmax columns of
     ``score_mode`` "sum" or "max" (K4, with its default recent window of
-    32, as JAX's dispatch leaves it).
+    32, as JAX's dispatch leaves it). K2 then hands its row statistics to
+    K4, which runs its column pass only.
 
-    use_kernel=False runs the plain versions (RuntimeConfig.kernels="xla")."""
+    use_kernel=False runs the plain versions (RuntimeConfig.kernels="xla"),
+    with the same hand-off."""
     attn = flash_attention if use_kernel else chunked_attention
-    out = attn(q, k, v, valid_lo=pad_len, causal=True)
     if not with_scores:
-        return out, None
+        return attn(q, k, v, valid_lo=pad_len, causal=True), None
+    out, m, l = attn(q, k, v, valid_lo=pad_len, causal=True,
+                     return_stats=True)
     scores = flash_scores if use_kernel else flash_scores_ref
-    return out, scores(q, k, valid_lo=pad_len, score_mode=score_mode)
+    return out, scores(q, k, valid_lo=pad_len, score_mode=score_mode,
+                       row_stats=(m, l))

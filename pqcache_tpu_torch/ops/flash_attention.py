@@ -1,4 +1,4 @@
-"""K2: causal flash attention for prefill.
+"""K2: causal flash attention for prefill, and the row statistics K4 reads.
 
 The CUDA kernel ``csrc/flash_attention.cu`` replaces the Pallas TPU kernel
 ``pqcache_tpu/ops/flash_attention.py::flash_attention`` (``_flash_kernel_tri``
@@ -17,44 +17,88 @@ from pqcache_tpu_torch.ops.attention_ref import _as_int, chunked_attention
 SUPPORTED_HEAD_DIMS = (64, 128)
 
 
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor | None,
+           what: str) -> None:
+    """Raise on what the kernel does not take (CUDA tensors only)."""
+    H, _, D = q.shape
+    H_kv, Tk, Dk = k.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    if k.device != q.device or (v is not None and v.device != q.device):
+        raise ValueError(f"{what}: q, k, v on different devices")
+    dtypes = (q.dtype, k.dtype) + (() if v is None else (v.dtype,))
+    if any(dt != torch.bfloat16 for dt in dtypes):
+        raise TypeError(f"{what} kernel takes bf16, got {dtypes}")
+    if (D not in SUPPORTED_HEAD_DIMS or Dk != D or Tk < 1
+            or (v is not None and v.shape != k.shape)):
+        raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)}"
+                         + ("" if v is None else f" v {tuple(v.shape)}"))
+    if H % H_kv:
+        raise ValueError(f"{what}: H={H} not a multiple of H_kv={H_kv}")
+
+
+def _launch(q, k, v, out, m, l, lo: int, hi: int, q_offset: int,
+            causal: bool, what: str) -> None:
+    """One launch of K2 (v None: its stats-only mode); tensors contiguous,
+    on one card. TMA reads 16-byte aligned rows."""
+    ptrs = [0 if x is None else x.data_ptr() for x in (q, k, v, out, m, l)]
+    if any(p % 16 for p in ptrs[:4]):
+        raise ValueError(f"{what}: q, k, v must be 16-byte aligned")
+    H, Tq, D = q.shape
+    H_kv, Tk, _ = k.shape
+    _build.check(_build.lib("flash_attention").pq_flash_attention(
+        *ptrs, H, H_kv, Tq, Tk, D, lo, hi, int(q_offset), int(causal),
+        _build.stream_ptr(q.device)), what)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_lo=0, valid_len=None, *, causal: bool = True,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, return_stats: bool = False):
     """q [H, Tq, D], k/v [H_kv, Tk, D] -> out [H, Tq, D] (q.dtype).
 
     Keys outside [valid_lo, valid_len) are masked (valid_len defaults to
     Tk); with ``causal`` a key at index > q_offset + q row is masked too.
     Query rows that see no valid key come out 0. The kernel takes bf16 q, k
-    and v with D in SUPPORTED_HEAD_DIMS."""
+    and v with D in SUPPORTED_HEAD_DIMS.
+
+    With ``return_stats`` returns (out, m, l), the row statistics K4 reads
+    ([H, Tq] f32): m the row max of the scaled logit, l the sum of
+    exp(logit - m) over the row's valid keys; a row that sees no key, or
+    whose position q_offset + row is outside [valid_lo, valid_len), has
+    m = -1e30 and l = 0."""
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, valid_len=valid_len,
                                  valid_lo=valid_lo, causal=causal,
-                                 q_offset=q_offset)
-    H, Tq, D = q.shape
-    H_kv, Tk, Dk = k.shape
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention: q, k, v on different devices")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"flash_attention kernel takes bf16, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
-    if D not in SUPPORTED_HEAD_DIMS or Dk != D or v.shape != k.shape:
-        raise ValueError(f"flash_attention: unsupported shapes q {q.shape} "
-                         f"k {k.shape} v {v.shape}")
-    if H % H_kv:
-        raise ValueError(f"flash_attention: H={H} not a multiple of "
-                         f"H_kv={H_kv}")
+                                 q_offset=q_offset, return_stats=return_stats)
+    _check(q, k, v, "flash_attention")
+    H, Tq, _ = q.shape
+    Tk = k.shape[1]
     lo = max(_as_int(valid_lo), 0)
     hi = Tk if valid_len is None else min(_as_int(valid_len), Tk)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    fn = _build.lib("flash_attention").pq_flash_attention
-    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    H, H_kv, Tq, Tk, D, lo, hi, int(q_offset), int(causal),
-                    _build.stream_ptr(q.device)), "flash_attention")
+    m = l = None
+    if return_stats:
+        m, l = torch.empty((2, H, Tq), dtype=torch.float32, device=q.device)
+    _launch(q, k, v, out, m, l, lo, hi, q_offset, causal, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, m, l) if return_stats else out
 
 
 flash_attention.launches = 0
+
+
+def row_stats(q: torch.Tensor, k: torch.Tensor, lo: int, hi: int):
+    """K2's stats-only mode on a CUDA tensor (no P V, no output): the causal
+    row statistics (m, l) [H, T] f32 of q [H, T, D] against k [H_kv, T, D]
+    over keys and rows in [lo, hi), as ``flash_attention(..., causal=True,
+    return_stats=True)`` gives them. K4's wrapper calls it when no row
+    statistics are handed in; it does not count as a flash_attention
+    launch."""
+    _check(q, k, None, "row_stats")
+    H, T, _ = q.shape
+    m, l = torch.empty((2, H, T), dtype=torch.float32, device=q.device)
+    _launch(q.contiguous(), k.contiguous(), None, None, m, l, lo, hi, 0, True,
+            "row_stats")
+    return m, l

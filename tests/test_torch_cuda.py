@@ -6,7 +6,9 @@ machine with an H100 and nvcc with
 ``python -m pytest tests/test_torch_cuda.py --noconftest`` (the repo conftest
 needs jax, which that machine may not have).
 Tolerances: K2 rounds P to bf16 before PV and writes bf16, so it is held at
-bf16 resolution (2e-2) entry by entry and to 1e-2 in each row's norm; K1
+bf16 resolution (2e-2) entry by entry and to 1e-2 in each row's norm; its
+row statistics sum the same f32 logits in another order with base-2
+exponentials (m to 1e-4 absolute, l to 1e-4 relative); K1
 computes in float32 from the same inputs as its
 plain version (1e-4). K5 sums the same float32 LUT entries in the plain
 version's order for S <= 2 (exact) and in its own order above (1e-6
@@ -31,6 +33,7 @@ from pqcache_tpu_torch.ops.attention_ref import (chunked_attention,
 from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
                                               block_topk_attention_ref)
 from pqcache_tpu_torch.ops.flash_attention import flash_attention
+from pqcache_tpu_torch.ops.flash_attention import row_stats as k2_row_stats
 from pqcache_tpu_torch.ops.flash_scores import flash_scores
 from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
 from pqcache_tpu_torch.policies.base import get_policy
@@ -47,25 +50,47 @@ def dev():
     return torch.device("cuda")
 
 
+def _assert_stats_close(got, ref):
+    # (m, l) from the kernel against the plain version: the same logits in
+    # another summation order and base-2 exponentials; rows that see no key
+    # exactly (-1e30, 0)
+    m, l = got
+    m_ref, l_ref = ref
+    assert m.shape == m_ref.shape and l.shape == l_ref.shape
+    assert m.dtype == l.dtype == torch.float32
+    none = l_ref == 0
+    assert (m[none] == -1e30).all() and (l[none] == 0).all()
+    torch.testing.assert_close(m[~none], m_ref[~none], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(l[~none], l_ref[~none], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("stats", [False, True], ids=["out", "stats"])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("T,pad,q_offset,causal", [
-    (300, 77, 0, True), (1024, 0, 0, True), (96, 5, 200, True),
-    (257, 10, 0, False)])
+@pytest.mark.parametrize("T,pad,q_offset,causal,H,H_kv", [
+    (300, 77, 0, True, 8, 2), (1024, 0, 0, True, 8, 2),
+    (96, 5, 200, True, 8, 2), (257, 10, 0, False, 8, 2),
+    (1, 0, 0, True, 8, 1), (63, 5, 0, True, 8, 1), (129, 77, 0, True, 16, 2),
+    (2100, 77, 0, True, 8, 1), (300, 130, 40, True, 4, 4)])
 def test_flash_attention_kernel_matches_plain(dev, D, T, pad, q_offset,
-                                              causal):
+                                              causal, H, H_kv, stats):
+    # T from 1 to past 2048, pads that are not multiples of 64, a q chunk at
+    # q_offset, the rectangular (non-causal) grid, H_kv 1 and GQA group 8
     g = torch.Generator(device=dev).manual_seed(T + D)
-    H, H_kv = 8, 2
     Tk = T + q_offset
     q = torch.randn((H, T, D), generator=g, device=dev).bfloat16()
     k = torch.randn((H_kv, Tk, D), generator=g, device=dev).bfloat16()
     v = torch.randn((H_kv, Tk, D), generator=g, device=dev).bfloat16()
     n0 = flash_attention.launches
-    out = flash_attention(q, k, v, valid_lo=pad, causal=causal,
-                          q_offset=q_offset)
+    got = flash_attention(q, k, v, valid_lo=pad, causal=causal,
+                          q_offset=q_offset, return_stats=stats)
     torch.cuda.synchronize()
     assert flash_attention.launches == n0 + 1
     ref = chunked_attention(q, k, v, valid_lo=pad, causal=causal,
-                            q_offset=q_offset)
+                            q_offset=q_offset, return_stats=stats)
+    if stats:
+        _assert_stats_close(got[1:], ref[1:])
+        got, ref = got[0], ref[0]
+    out = got
     assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
                                atol=2e-2)
@@ -76,28 +101,63 @@ def test_flash_attention_kernel_matches_plain(dev, D, T, pad, q_offset,
     assert (err[nrm > 0] / nrm[nrm > 0]).max() <= 1e-2
 
 
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T,pad,valid_len,H,H_kv", [
+    (1000, 60, None, 8, 4), (2100, 77, 1900, 8, 1), (63, 0, None, 2, 2)])
+def test_row_stats_only_mode_matches_plain(dev, D, T, pad, valid_len, H,
+                                           H_kv):
+    # K2 without v: no P V, no output, only (m, l); rows outside
+    # [pad, valid_len) are written as rows that see no key
+    g = torch.Generator(device=dev).manual_seed(T + 3)
+    q = torch.randn((H, T, D), generator=g, device=dev).bfloat16()
+    k = torch.randn((H_kv, T, D), generator=g, device=dev).bfloat16()
+    hi = T if valid_len is None else valid_len
+    n0 = flash_attention.launches
+    got = k2_row_stats(q, k, pad, hi)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0    # not a flash_attention launch
+    _, m_ref, l_ref = chunked_attention(q, k, k, valid_lo=pad,
+                                        valid_len=valid_len, causal=True,
+                                        return_stats=True)
+    _assert_stats_close(got, (m_ref, l_ref))
+    assert (got[1][:, :pad] == 0).all() and (got[1][:, hi:] == 0).all()
+
+
 @pytest.mark.parametrize("mode", ["sum", "max"])
 @pytest.mark.parametrize("D,T,pad,valid_len,H,H_kv", [
     (128, 1000, 60, None, 8, 4), (64, 777, 0, None, 4, 2),
     (128, 2048, 300, 1900, 4, 1), (64, 200, 150, None, 2, 2),
-    (128, 64, 0, None, 2, 1)])
+    (128, 64, 0, None, 2, 1), (128, 2100, 77, None, 8, 1)])
 def test_flash_scores_kernel_matches_plain(dev, mode, D, T, pad, valid_len,
                                            H, H_kv):
+    # standalone (K2's stats-only mode, then the column pass) and fed with
+    # the row statistics of K2's attention call, each against the plain
+    # version and against each other
     g = torch.Generator(device=dev).manual_seed(T + D)
     q = torch.randn((H, T, D), generator=g, device=dev).bfloat16()
     k = torch.randn((H_kv, T, D), generator=g, device=dev).bfloat16()
-    n0 = flash_scores.launches
+    v = torch.randn((H_kv, T, D), generator=g, device=dev).bfloat16()
+    n0, a0 = flash_scores.launches, flash_attention.launches
     got = flash_scores(q, k, valid_lo=pad, valid_len=valid_len,
                        score_mode=mode)
     torch.cuda.synchronize()
     assert flash_scores.launches == n0 + 1
+    assert flash_attention.launches == a0
+    _, m, l = flash_attention(q, k, v, valid_lo=pad, valid_len=valid_len,
+                              return_stats=True)
+    fed = flash_scores(q, k, valid_lo=pad, valid_len=valid_len,
+                       score_mode=mode, row_stats=(m, l))
+    torch.cuda.synchronize()
+    assert flash_scores.launches == n0 + 2
     ref = flash_scores_ref(q, k, pad, valid_len, score_mode=mode)
-    assert got.shape == (H, T) and torch.isfinite(got).all()
     # per head, relative to the head's largest entry
     scale = ref.abs().amax(-1, keepdim=True)
-    assert ((got - ref).abs() <= K4_TOL * scale).all()
     hi = T if valid_len is None else valid_len
-    assert (got[:, :pad] == 0).all() and (got[:, hi:] == 0).all()
+    for x in (got, fed):
+        assert x.shape == (H, T) and torch.isfinite(x).all()
+        assert ((x - ref).abs() <= K4_TOL * scale).all()
+        assert (x[:, :pad] == 0).all() and (x[:, hi:] == 0).all()
+    assert ((fed - got).abs() <= K4_TOL * scale).all()
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])

@@ -98,6 +98,45 @@ def test_chunked_attention_valid_len_and_rect():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **F32_TOL)
 
 
+@pytest.mark.parametrize("T,Tk,pad,D,H,H_kv,q_offset,valid_len", [
+    (200, 200, 0, 16, 4, 2, 0, None), (300, 300, 60, 128, 4, 1, 0, None),
+    (96, 296, 5, 16, 8, 2, 200, None), (256, 256, 60, 16, 4, 4, 0, 180)])
+def test_chunked_attention_row_stats_match_dense_lse(T, Tk, pad, D, H, H_kv,
+                                                     q_offset, valid_len):
+    # K2's row statistics from the plain version: m the row max of the
+    # scaled logit, l = sum exp(logit - m) over the row's valid keys, both
+    # from one dense masked pass in float64; rows that see no key, or whose
+    # position lies outside [pad, valid_len), are (-1e30, 0)
+    rng = np.random.default_rng(T + pad + D)
+    q, k, v = _rand(rng, H, T, D), _rand(rng, H_kv, Tk, D), _rand(
+        rng, H_kv, Tk, D)
+    hi = Tk if valid_len is None else valid_len
+    g = H // H_kv
+    lg = np.einsum("hgqd,hkd->hgqk", q.reshape(H_kv, g, T, D).astype(
+        np.float64), k.astype(np.float64)) / np.sqrt(D)
+    qpos = q_offset + np.arange(T)[:, None]
+    kpos = np.arange(Tk)[None, :]
+    mask = (kpos >= pad) & (kpos < hi) & (kpos <= qpos)
+    seen = mask.any(-1) & (qpos[:, 0] >= pad) & (qpos[:, 0] < hi)
+    m_ref = np.where(seen, np.where(mask, lg, -np.inf).max(-1), -1e30)
+    m_safe = np.where(seen, m_ref, 0.0)[..., None]
+    l_ref = np.where(seen, (np.exp(lg - m_safe) * mask).sum(-1), 0)
+    args = [torch.from_numpy(x) for x in (q, k, v)]
+    kw = dict(valid_lo=pad, valid_len=valid_len, q_offset=q_offset)
+    out, m, l = attention_ref.chunked_attention(*args, block=64,
+                                                return_stats=True, **kw)
+    np.testing.assert_allclose(m.numpy(), m_ref.reshape(H, T), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(l.numpy(), l_ref.reshape(H, T), rtol=1e-5)
+    assert torch.equal(out, attention_ref.chunked_attention(*args, block=64,
+                                                            **kw))
+    # the wrapper takes the plain version on the CPU, stats included
+    got = flash_attention(*args, return_stats=True, **kw)
+    for a, b in zip(got, attention_ref.chunked_attention(
+            *args, return_stats=True, **kw)):
+        assert torch.equal(a, b)
+
+
 def _tail(rng, kv_int8, *shape):
     if kv_int8:
         return rng.integers(-127, 128, size=shape).astype(np.int8)

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from pqcache_tpu.ops import attention_xla as jattn
+from pqcache_tpu.ops import dispatch as jdispatch
 from pqcache_tpu.ops.flash_attention import flash_scores as jflash_scores
 from pqcache_tpu_torch.ops import attention_ref
 from pqcache_tpu_torch.ops.dispatch import dense_prefill_attention
@@ -67,6 +68,83 @@ def test_flash_scores_match_jax(mode, T, pad, D):
                             interpret=True)
         np.testing.assert_allclose(outs[2].numpy(), np.asarray(pal),
                                    **SCORE_TOL)
+
+
+@pytest.mark.parametrize("mode", ["sum", "max"])
+@pytest.mark.parametrize("T,pad,D", [(256, 60, 128), (200, 0, 16),
+                                     (300, 17, 16)])
+def test_flash_scores_row_stats_match_jax(mode, T, pad, D):
+    # K4 fed with K2's row statistics (the plain versions' hand-off) against
+    # JAX's chunked_attention(with_scores=True) and, at D 128, the Pallas
+    # flash_scores in interpret mode, at the tolerance of the test above
+    rng = np.random.default_rng(T + pad + D + 1)
+    H, H_kv = 4, 2
+    q, k, v = _rand(rng, H, T, D), _rand(rng, H_kv, T, D), _rand(
+        rng, H_kv, T, D)
+    _, ref = jattn.chunked_attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), valid_lo=pad, block=64,
+                                     with_scores=True, score_mode=mode)
+    ref = np.asarray(ref)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    _, m, l = attention_ref.chunked_attention(tq, tk, tv, valid_lo=pad,
+                                              block=64, return_stats=True)
+    outs = [attention_ref.flash_scores_ref(tq, tk, pad, score_mode=mode,
+                                           row_stats=(m, l)),
+            attention_ref.flash_scores_ref(tq, tk, pad, score_mode=mode,
+                                           block=64, row_stats=(m, l)),
+            flash_scores(tq, tk, valid_lo=pad, score_mode=mode,
+                         row_stats=(m, l))]
+    own = attention_ref.flash_scores_ref(tq, tk, pad, score_mode=mode)
+    for got in outs:
+        assert got.shape == (H, T) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), ref, **SCORE_TOL)
+        np.testing.assert_allclose(got.numpy(), own.numpy(), rtol=1e-5,
+                                   atol=1e-7)
+        assert torch.all(got[:, :pad] == 0)
+    if D == 128:
+        pal = jflash_scores(jnp.asarray(q), jnp.asarray(k), valid_lo=pad,
+                            block_q=128, block_k=128, score_mode=mode,
+                            interpret=True)
+        np.testing.assert_allclose(outs[2].numpy(), np.asarray(pal),
+                                   **SCORE_TOL)
+
+
+@pytest.mark.parametrize("mode", ["sum", "max"])
+def test_dense_prefill_with_scores_matches_jax(mode):
+    # the dispatcher on the CPU (K2's plain version with its row statistics,
+    # then K4's column pass) against JAX's dispatcher on its XLA route:
+    # attention on the real rows, scores everywhere
+    rng = np.random.default_rng(7)
+    H, H_kv, D, T, pad = 8, 2, 16, 320, 45
+    q, k, v = _rand(rng, H, T, D), _rand(rng, H_kv, T, D), _rand(
+        rng, H_kv, T, D)
+    ref_out, ref_f = jdispatch.dense_prefill_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pad,
+        with_scores=True, score_mode=mode, use_pallas=False)
+    for use_kernel in (True, False):
+        out, f = dense_prefill_attention(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            pad, with_scores=True, score_mode=mode, use_kernel=use_kernel)
+        np.testing.assert_allclose(out[:, pad:].numpy(),
+                                   np.asarray(ref_out)[:, pad:], **F32_TOL)
+        assert torch.all(out[:, :pad] == 0)
+        np.testing.assert_allclose(f.numpy(), np.asarray(ref_f), **SCORE_TOL)
+
+
+@pytest.mark.parametrize("bad", ["short", "single", "three"])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_row_stats_of_wrong_shape_raise(bad, device):
+    # checked before the device branch: the same ValueError on CPU tensors
+    # and on tensors of a device the kernels never see
+    H, H_kv, D, T = 4, 2, 16, 40
+    q = torch.zeros((H, T, D), device=device)
+    k = torch.zeros((H_kv, T, D), device=device)
+    good = torch.zeros((H, T), device=device)
+    row_stats = {"short": (good, torch.zeros((H, T - 1), device=device)),
+                 "single": good, "three": (good, good, good)}[bad]
+    for fn in (flash_scores, attention_ref.flash_scores_ref):
+        with pytest.raises(ValueError, match="row_stats"):
+            fn(q, k, 0, row_stats=row_stats)
 
 
 def test_flash_scores_valid_len_and_modes():
