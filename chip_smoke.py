@@ -447,7 +447,8 @@ def k1_phase(dev) -> dict:
         ops = 4.0 * (H // H_kv) * D * rows
         bound_ms = max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3
         log(f"K1 {kv_dtype} tail: kernel {ms * 1e3:.2f} us of device time "
-            f"per call ({nbytes / ms / 1e6:.0f} GB/s), {call_ms * 1e3:.2f} us "
+            f"per call ({nbytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%} of "
+            f"its bound), {call_ms * 1e3:.2f} us "
             f"per call from Python; plain {plain_ms:.3f} ms; bound "
             f"{bound_ms * 1e3:.2f} us (bytes); library call: none")
         if kv_dtype == "bf16":
@@ -524,8 +525,11 @@ def k3_phase(dev) -> dict:
     """K3 at the 32k decode shapes with sel_block 256 and n_cand = N_CAND:
     per-q-head block mass [32, 129], held at K3_TOL relative to each row's
     largest entry, and the block top-k of the main path (13 blocks per kv
-    head) must be identical. Timed cycling over 32 layers of codes."""
-    L, bs, D = 32, 256, 128
+    head) must be identical. The timed launches cycle over 128 layers of
+    codes (128 x 528 KB = 67.6 MB per cycle, above the 50 MB L2): in decode
+    a layer's codes come back cold, after ~250 MB of weights and the other
+    layers' KV have passed through L2."""
+    L, bs, D = 128, 256, 128
     g = config.LLAMA31_8B.num_heads // config.LLAMA31_8B.num_kv_heads
     lut, codes = _lut_codes(dev, L)
     got = adc_block_scores(lut, codes[3], N_CAND, sel_block=bs, head_dim=D)
@@ -545,14 +549,15 @@ def k3_phase(dev) -> dict:
     ms = graph_ms(lambda: adc_block_scores(
         lut, codes[next(layer) % L], N_CAND, sel_block=bs, head_dim=D), 4 * L)
     plain_ms = graph_ms(lambda: adc_block_scores_ref(
-        lut, codes[next(layer) % L], N_CAND, sel_block=bs, head_dim=D), L)
+        lut, codes[next(layer) % L], N_CAND, sel_block=bs, head_dim=D), 32)
     call_ms = cuda_ms(lambda: adc_block_scores(
         lut, codes[next(layer) % L], N_CAND, sel_block=bs, head_dim=D), 400,
         warmup=16)
     nbytes = codes[0].numel() + lut.numel() * 4 + got.numel() * 4
     bound_ms = nbytes / PEAK_BYTES * 1e3
-    log(f"K3: kernel {ms * 1e3:.2f} us of device time per call (two "
-        f"launches), {call_ms * 1e3:.2f} us per call from Python; plain "
+    log(f"K3: kernel {ms * 1e3:.2f} us of device time per call, codes "
+        f"cold ({nbytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%} of its "
+        f"bound), {call_ms * 1e3:.2f} us per call from Python; plain "
         f"{plain_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.2f} us (bytes); "
         f"library call: none")
     return dict(name="adc_block_scores", route="cuda",

@@ -32,35 +32,51 @@
 //   == 0), n_cand [B] int32 or one scalar
 //   -> per-q-head normalised block mass [B, H, T / sel_block] f32: ADC
 //      scores x 1/sqrt(head_dim), tokens at or past n_cand masked, softmax
-//      over the row, summed per sel_block block.
-// What bounds K3: it reads the codes once (528 KB at the main shapes,
-// ~0.16 us) and writes a few KB; bytes. Its two dependent launches cost more
-// than that.
+//      over the row, summed per sel_block block; a row with n_cand 0 is all
+//      zeros. Everything is f32; the TPU kernel's bf16 rounding of p before
+//      its indicator matmul is not copied.
+// What bounds K3: it reads the codes once (528 KB at the main shapes: 8 kv
+// heads, S 2, T 33024) and writes a few KB: bytes, 0.17 us at 3.35 TB/s,
+// which is below the cost of one launch. So the goal is one launch whose
+// time approaches an empty kernel's.
 //
 // K3 design: the TPU kernel carries a running max and per-block sums across
-// its sequential grid. Hopper blocks run in no order, so the reduction takes
-// two kernels. Pass 1: one CTA of NWARPS warps per (b, kv head, NWARPS
-// blocks); a warp owns one sel_block block, computes its tokens' scores for
-// the g q heads from the shared-memory LUT as K5 does, and writes the block's
-// max m_b and sum u_b = sum exp(s - m_b) over its unmasked tokens (warp
-// shuffles: deterministic). A block with no unmasked token writes m_b = -1e30,
-// u_b = 0. Pass 2: one CTA per (b, q head) takes M = max m_b and writes
-// u_b exp(m_b - M) / max(sum_b u_b exp(m_b - M), 1e-30), so a row with
-// n_cand = 0 is all zeros. Everything is f32; the TPU kernel's bf16 rounding
-// of p before its indicator matmul is not copied.
+// its sequential grid; here one launch does it all on chip. Each (b, kv
+// head) gets a cluster of up to 8 CTAs (fewer as B * H_kv grows, so the grid
+// about fills the SMs), and CTA i takes an equal contiguous share of the
+// row's blocks. At the main shapes on an H100 (codes cold, CUDA-graph
+// replay) 8 CTAs took 8.86-8.87 us, 16 took 9.09-9.12, 4 13.6 and 1 43.5. A thread takes one chunk of TPI tokens of one block
+// (16 unless a block is longer than 4096 tokens): it issues its 16-byte code
+// loads (16 tokens of one subvector each) before the CTA stages the LUT, so
+// the loads fly while the LUT is copied, then computes the chunk's scores
+// for the g q heads from the shared-memory LUT, once, keeping a running max
+// and exp-sum four tokens at a time. The chunks of a block are folded by
+// shuffles (in groups of up to 32, a power of two), the rest in shared
+// memory, into the block's (m_b, u_b); warp j then takes the CTA's
+// (M, Z) = (max m_b, sum u_b exp(m_b - M)) for q head j. Every CTA sends its
+// (M, Z) to every CTA of the cluster through distributed shared memory;
+// after one cluster barrier each takes the row's from them in rank order and
+// writes u_b exp(m_b - M) / max(Z, 1e-30) for its blocks. A share longer
+// than one round of chunks (256 per CTA) is taken in rounds: a finished
+// round's u_b exp(m_b - M_round) waits in the output, rescaled at the end.
+// No second kernel, no scratch in device memory, no atomics: deterministic.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
+
+#include "mma_sm90.cuh"  // split cluster barriers, the cluster launch
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int NTHREADS = 256;
 constexpr int TOK_CTA = 1024;          // K5 tokens per CTA
-constexpr int NWARPS = 8;              // K3 pass 1: blocks per CTA
-constexpr int MAX_G = 8;               // K3: q heads per kv head
-constexpr float NEG_INF = -1e30f;
 constexpr int MAX_SMEM = 227 * 1024;
+constexpr int K3_THREADS = 256;        // K3: also the chunks of one round
+constexpr int K3_MAX_CTAS = 8;         // K3: CTAs per (b, kv head), at most
+constexpr int MAX_G = 8;               // K3: q heads per kv head
+constexpr int TOK = 16;                // K3: tokens of one 16-byte code load
+constexpr float MASKED = -1e30f;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -119,90 +135,222 @@ adc_scores_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ cod
   }
 }
 
-// K3 pass 1: grid (ceil(NB / NWARPS), H_kv, B), NTHREADS threads
-template <int S>
-__global__ void __launch_bounds__(NTHREADS)
-block_pass1_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
-                   const int* __restrict__ n_cand_vec, int n_cand_scalar,
-                   int H_kv, int g, int C, int T, int bs, int NB, float scale,
-                   float* __restrict__ bm, float* __restrict__ bu) {
-  extern __shared__ float s_lut[];
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t hf = (size_t)b * H_kv + h;
-  stage_lut<false>(s_lut, lut + hf * g * S * C, g * S * C);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int blk = (int)blockIdx.x * NWARPS + warp;
-  if (blk >= NB) return;
-  const int n_cand = n_cand_vec ? n_cand_vec[b] : n_cand_scalar;
-  const int t_lo = blk * bs, t_hi = min(t_lo + bs, n_cand);
-  const uint8_t* codes_h = codes + hf * S * T;
+// byte i of a 16-byte code load: token i of the chunk
+__device__ __forceinline__ int code_at(const uint4& w, int i) {
+  const uint32_t x = i < 4 ? w.x : i < 8 ? w.y : i < 12 ? w.z : w.w;
+  return (x >> (8 * (i & 3))) & 0xff;
+}
 
-  float m[MAX_G], u[MAX_G];
+// the S codes of tokens [t, t + TOK), 16 bytes per subvector; tokens at or
+// past `end` read 0. `vec`: the 16 bytes are in range and aligned
+template <int S>
+__device__ __forceinline__ void load_chunk(uint4 (&c)[S], const uint8_t* codes,
+                                           int T, int t, int end, bool vec) {
 #pragma unroll
-  for (int j = 0; j < MAX_G; ++j) {
-    m[j] = NEG_INF;
-    u[j] = 0.f;
-  }
-  // sweep 1: the block's max per q head; sweep 2: sum of exp(s - max)
-  for (int t = t_lo + lane; t < t_hi; t += 32) {
-    int c[S];
-    load_codes<S>(c, codes_h, T, t, C);
+  for (int s = 0; s < S; ++s) {
+    const uint8_t* p = codes + (size_t)s * T + t;
+    if (vec) {
+      c[s] = *reinterpret_cast<const uint4*>(p);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int j = 0; j < MAX_G; ++j)
-      if (j < g) m[j] = fmaxf(m[j], adc<S>(s_lut + j * S * C, c, C) * scale);
-  }
-#pragma unroll
-  for (int j = 0; j < MAX_G; ++j) m[j] = warp_max(m[j]);
-  for (int t = t_lo + lane; t < t_hi; t += 32) {
-    int c[S];
-    load_codes<S>(c, codes_h, T, t, C);
-#pragma unroll
-    for (int j = 0; j < MAX_G; ++j)
-      if (j < g) u[j] += expf(adc<S>(s_lut + j * S * C, c, C) * scale - m[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < MAX_G; ++j) u[j] = warp_sum(u[j]);
-  if (lane == 0) {
-#pragma unroll
-    for (int j = 0; j < MAX_G; ++j) {
-      if (j >= g) break;
-      const size_t o = (hf * g + j) * NB + blk;   // row b*H + h*g + j
-      bm[o] = m[j];
-      bu[o] = u[j];
+      for (int i = 0; i < TOK; ++i)
+        if (t + i < end) w[i / 4] |= (uint32_t)p[i] << (8 * (i % 4));
+      c[s] = make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
 }
 
-// K3 pass 2: grid (H, B), NTHREADS threads; row = b*H + q head
-__global__ void __launch_bounds__(NTHREADS)
-block_pass2_kernel(const float* __restrict__ bm, const float* __restrict__ bu,
-                   int H, int NB, float* __restrict__ out) {
-  __shared__ float red[NTHREADS / 32];
-  const size_t base = ((size_t)blockIdx.y * H + blockIdx.x) * NB;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  float mx = NEG_INF;
-  for (int i = threadIdx.x; i < NB; i += NTHREADS) mx = fmaxf(mx, bm[base + i]);
-  mx = warp_max(mx);
-  if (lane == 0) red[warp] = mx;
-  __syncthreads();
-  mx = red[0];
+// fold the first n_valid tokens of a chunk into the running (max, exp-sum)
+// of each q head, four tokens (one 32-bit word of codes per subvector) at a
+// time, so that only 4 * S lookup indices are live at once
+template <int S>
+__device__ __forceinline__ void chunk_stats(const uint4 (&c)[S], const float* s_lut,
+                                            int g, int C, int n_valid, float scale,
+                                            float (&m)[MAX_G], float (&u)[MAX_G]) {
 #pragma unroll
-  for (int w = 1; w < NTHREADS / 32; ++w) mx = fmaxf(mx, red[w]);
-  __syncthreads();
-
-  float z = 0.f;
-  for (int i = threadIdx.x; i < NB; i += NTHREADS)
-    z += bu[base + i] * expf(bm[base + i] - mx);
-  z = warp_sum(z);
-  if (lane == 0) red[warp] = z;
-  __syncthreads();
-  z = 0.f;
+  for (int w = 0; w < TOK / 4; ++w) {
+    if (4 * w >= n_valid) break;
+    int idx[S][4];
 #pragma unroll
-  for (int w = 0; w < NTHREADS / 32; ++w) z += red[w];
-  z = fmaxf(z, 1e-30f);
-  for (int i = threadIdx.x; i < NB; i += NTHREADS)
-    out[base + i] = bu[base + i] * expf(bm[base + i] - mx) / z;
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) idx[s][i] = s * C + min(code_at(c[s], 4 * w + i), C - 1);
+#pragma unroll
+    for (int j = 0; j < MAX_G; ++j) {
+      if (j >= g) break;
+      const float* lj = s_lut + j * S * C;
+      float sc[4];
+      float mx = m[j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float a = lj[idx[0][i]];
+#pragma unroll
+        for (int s = 1; s < S; ++s) a += lj[idx[s][i]];
+        sc[i] = a * scale;
+        if (4 * w + i < n_valid) mx = fmaxf(mx, sc[i]);
+      }
+      float add = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (4 * w + i < n_valid) add += __expf(sc[i] - mx);
+      u[j] = u[j] * __expf(m[j] - mx) + add;
+      m[j] = mx;
+    }
+  }
+}
+
+// merge (mo, uo) into the running (max, exp-sum) (m, u); symmetric, so two
+// lanes that merge each other's hold bitwise the same result
+__device__ __forceinline__ void merge_stats(float& m, float& u, float mo, float uo) {
+  const float mx = fmaxf(m, mo);
+  u = u * __expf(m - mx) + uo * __expf(mo - mx);
+  m = mx;
+}
+
+// K3: grid (CTAS, H_kv, B), cluster (CTAS, 1, 1), K3_THREADS threads.
+// Dynamic shared memory (floats): the LUT [g*S*C] (rounded up to 4), the
+// round's chunk stats im, iu [g][K3_THREADS], its block stats bm, bw
+// [g][K3_THREADS], and each round's max rM [g][max_rounds]. A block's
+// chunks are folded in groups of fw lanes by shuffles (fw: the largest
+// power of two <= 32 that divides the chunks per block), then in shared
+// memory.
+template <int S>
+__global__ void __launch_bounds__(K3_THREADS)
+block_scores_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
+                    const int* __restrict__ n_cand_vec, int n_cand_scalar, int H_kv,
+                    int g, int C, int T, int bs, int tpi, int fw, int vec,
+                    int max_rounds, float scale, float* __restrict__ out) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float c_M[MAX_G], c_Z[MAX_G];   // the CTA's max and normaliser
+  __shared__ float r_M[K3_MAX_CTAS][MAX_G], r_Z[K3_MAX_CTAS][MAX_G];   // all CTAs'
+  __shared__ float f_M[MAX_G], f_Z[MAX_G];   // the row's
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), ncta = (int)cluster.num_blocks();
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t hf = (size_t)b * H_kv + h;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int NB = T / bs, cpb = (bs + tpi - 1) / tpi, bpr = K3_THREADS / cpb;
+  const int epb = cpb / fw;                  // entries per block after the shuffles
+  const int k0 = (int)((long long)NB * rank / ncta);
+  const int k1 = (int)((long long)NB * (rank + 1) / ncta);
+  const int nblk = k1 - k0, rounds = (nblk + bpr - 1) / bpr;
+  const int hi = max(0, min(T, n_cand_vec ? n_cand_vec[b] : n_cand_scalar));
+  const int n_lut = g * S * C;
+  float* s_lut = sm;
+  float* im = s_lut + ((n_lut + 3) & ~3);
+  float* iu = im + g * K3_THREADS;
+  float* bm = iu + g * K3_THREADS;
+  float* bw = bm + g * K3_THREADS;
+  float* rM = bw + g * K3_THREADS;
+  const uint8_t* codes_h = codes + hf * S * T;
+  if (tid < MAX_G) {
+    c_M[tid] = MASKED;
+    c_Z[tid] = 0.f;
+  }
+  cluster_arrive_relaxed();   // waited on before the first remote store
+
+  for (int r = 0; r < rounds; ++r) {
+    // this thread's chunk: tokens [t0, t_end) of one block, valid below t_hi
+    const int kr0 = k0 + r * bpr, nb_r = min(bpr, k1 - kr0);
+    const bool active = tid < nb_r * cpb;
+    const int blk = kr0 + tid / cpb;
+    const int t0 = blk * bs + (tid % cpb) * tpi;
+    const int t_end = min(t0 + tpi, (blk + 1) * bs);
+    const int t_hi = min(t_end, hi);
+    uint4 c[S];
+    if (active && t0 < t_hi) load_chunk<S>(c, codes_h, T, t0, t_end, vec);
+    if (r == 0) {   // the LUT, while the first codes are on their way
+      const float* lut_h = lut + hf * n_lut;
+      if ((n_lut & 3) == 0 && (reinterpret_cast<uintptr_t>(lut_h) & 15) == 0)
+        for (int i = tid; i < n_lut / 4; i += K3_THREADS)
+          reinterpret_cast<float4*>(s_lut)[i] = reinterpret_cast<const float4*>(lut_h)[i];
+      else
+        for (int i = tid; i < n_lut; i += K3_THREADS) s_lut[i] = lut_h[i];
+      __syncthreads();
+    }
+    float m[MAX_G], u[MAX_G];
+#pragma unroll
+    for (int j = 0; j < MAX_G; ++j) {
+      m[j] = MASKED;
+      u[j] = 0.f;
+    }
+    if (active) {
+      for (int t = t0; t < t_hi; t += TOK) {
+        if (t != t0) load_chunk<S>(c, codes_h, T, t, t_end, vec);
+        chunk_stats<S>(c, s_lut, g, C, min(TOK, t_hi - t), scale, m, u);
+      }
+    }
+    // fold groups of fw neighbouring chunks (one block's) by shuffles
+#pragma unroll
+    for (int j = 0; j < MAX_G; ++j) {
+      if (j >= g) break;
+      for (int o = 1; o < fw; o <<= 1)
+        merge_stats(m[j], u[j], __shfl_xor_sync(0xffffffffu, m[j], o),
+                    __shfl_xor_sync(0xffffffffu, u[j], o));
+      if (active && tid % fw == 0) {
+        im[j * K3_THREADS + tid / fw] = m[j];
+        iu[j * K3_THREADS + tid / fw] = u[j];
+      }
+    }
+    __syncthreads();
+    if (warp < g) {   // warp j: the round's blocks for q head j
+      const int j = warp;
+      const float* cm = im + j * K3_THREADS;
+      const float* cu = iu + j * K3_THREADS;
+      float* jm = bm + j * K3_THREADS;
+      float* jw = bw + j * K3_THREADS;
+      float Mr = MASKED;
+      for (int bl = lane; bl < nb_r; bl += 32) {
+        float mb = cm[bl * epb], ub = cu[bl * epb];
+        for (int k = 1; k < epb; ++k) merge_stats(mb, ub, cm[bl * epb + k], cu[bl * epb + k]);
+        jm[bl] = mb;
+        jw[bl] = ub;
+        Mr = fmaxf(Mr, mb);
+      }
+      Mr = warp_max(Mr);
+      float Zr = 0.f;
+      float* orow = out + (hf * g + j) * NB + kr0;
+      for (int bl = lane; bl < nb_r; bl += 32) {
+        const float w = jw[bl] * __expf(jm[bl] - Mr);
+        jw[bl] = w;
+        Zr += w;
+        if (r + 1 < rounds) orow[bl] = w;   // waits in the output
+      }
+      Zr = warp_sum(Zr);
+      if (lane == 0) {
+        rM[j * max_rounds + r] = Mr;
+        merge_stats(c_M[j], c_Z[j], Mr, Zr);
+      }
+    }
+    __syncthreads();
+  }
+
+  // every CTA's (M, Z) into every CTA's shared memory (distributed shared
+  // memory, plain stores through the mapped address); one cluster barrier;
+  // then each CTA takes the row's (M, Z) from its own copy, in rank order
+  cluster_wait();             // every CTA of the cluster has started
+  if (tid < ncta * g) {
+    const int p = tid / g, j = tid % g;
+    *cluster.map_shared_rank(&r_M[rank][j], p) = c_M[j];
+    *cluster.map_shared_rank(&r_Z[rank][j], p) = c_Z[j];
+  }
+  cluster_arrive();
+  cluster_wait();
+  if (tid < g) {
+    float M = MASKED, Z = 0.f;
+    for (int p = 0; p < ncta; ++p) M = fmaxf(M, r_M[p][tid]);
+    for (int p = 0; p < ncta; ++p) Z += r_Z[p][tid] * __expf(r_M[p][tid] - M);
+    f_M[tid] = M;
+    f_Z[tid] = fmaxf(Z, 1e-30f);
+  }
+  __syncthreads();
+  for (int e = tid; e < g * nblk; e += K3_THREADS) {
+    const int j = e / nblk, bl = e % nblk, r = bl / bpr;
+    float* o = out + (hf * g + j) * NB + k0 + bl;
+    const float w = r + 1 < rounds ? *o : bw[j * K3_THREADS + bl - r * bpr];
+    *o = w * __expf(rM[j * max_rounds + r] - f_M[j]) / f_Z[j];
+  }
 }
 
 template <typename K>
@@ -228,17 +376,28 @@ cudaError_t scores_launch(const float* lut, const uint8_t* codes, int Hf, int g,
 template <int S>
 cudaError_t block_launch(const float* lut, const uint8_t* codes, const int* n_cand_vec,
                          int n_cand_scalar, int B, int H_kv, int g, int C, int T, int bs,
-                         float scale, float* bm, float* bu, float* out, cudaStream_t st) {
+                         float scale, float* out, cudaStream_t st) {
+  auto kernel = block_scores_kernel<S>;
+  // once per process, so that a launch inside a CUDA-graph capture makes no
+  // attribute call
+  static const cudaError_t attr = allow_big_clusters(kernel);
+  if (attr != cudaSuccess) return attr;
   const int NB = T / bs;
-  const int smem = g * S * C * (int)sizeof(float);
-  cudaError_t err = set_smem(block_pass1_kernel<S>, smem);
-  if (err != cudaSuccess) return err;
-  block_pass1_kernel<S><<<dim3((NB + NWARPS - 1) / NWARPS, H_kv, B), NTHREADS, smem, st>>>(
-      lut, codes, n_cand_vec, n_cand_scalar, H_kv, g, C, T, bs, NB, scale, bm, bu);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  block_pass2_kernel<<<dim3(H_kv * g, B), NTHREADS, 0, st>>>(bm, bu, H_kv * g, NB, out);
-  return cudaGetLastError();
+  // tokens per chunk: 16, or a multiple of 16 so that a block has at most
+  // K3_THREADS chunks
+  const int tpi = TOK * (((bs + TOK - 1) / TOK + K3_THREADS - 1) / K3_THREADS);
+  const int cpb = (bs + tpi - 1) / tpi, bpr = K3_THREADS / cpb;
+  const int fw = min(cpb & -cpb, 32);
+  const int ctas = max(1, min(min(K3_MAX_CTAS, sm_count() / (B * H_kv)), NB));
+  const int max_rounds = ((NB + ctas - 1) / ctas + bpr - 1) / bpr;
+  const size_t smem = sizeof(float) * (((g * S * C + 3) & ~3) +
+                                       4 * g * K3_THREADS + g * max_rounds);
+  if (smem > (size_t)optin_smem() - 1024) return cudaErrorInvalidValue;
+  const int vec = T % TOK == 0 && bs % TOK == 0 &&
+                  reinterpret_cast<uintptr_t>(codes) % 16 == 0;
+  return launch_cluster(kernel, dim3(ctas, H_kv, B), K3_THREADS, smem, st, lut,
+                        codes, n_cand_vec, n_cand_scalar, H_kv, g, C, T, bs, tpi,
+                        fw, vec, max_rounds, scale, out);
 }
 
 }  // namespace
@@ -262,20 +421,20 @@ extern "C" int pq_adc_scores(const float* lut, const uint8_t* codes, int Hf, int
 
 // K3. lut [B, H_kv, g, S, C] f32, codes [B, H_kv, S, T] uint8 with
 // T % sel_block == 0; n_cand_vec [B] int32, or null and then n_cand_scalar
-// for every b; scratch bm, bu and out [B, H_kv*g, T/sel_block] f32; all
-// contiguous. g <= 8. Returns a cudaError_t (0 = launched).
+// for every b; out [B, H_kv*g, T/sel_block] f32; all contiguous. g <= 8.
+// One launch, which writes out and nothing else. Returns a cudaError_t
+// (0 = launched).
 extern "C" int pq_adc_block_scores(const float* lut, const uint8_t* codes,
                                    const int* n_cand_vec, int n_cand_scalar, int B,
                                    int H_kv, int g, int S, int C, int T, int sel_block,
-                                   int head_dim, float* bm, float* bu, float* out,
-                                   void* stream) {
+                                   int head_dim, float* out, void* stream) {
   if (B < 1 || H_kv < 1 || g < 1 || g > MAX_G || C < 1 || C > 256 || sel_block < 1 ||
       T < sel_block || T % sel_block || head_dim < 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = 1.0f / sqrtf((float)head_dim);
 #define PQ_ARGS lut, codes, n_cand_vec, n_cand_scalar, B, H_kv, g, C, T, sel_block, \
-                scale, bm, bu, out, st
+                scale, out, st
   switch (S) {
     case 1: return block_launch<1>(PQ_ARGS);
     case 2: return block_launch<2>(PQ_ARGS);

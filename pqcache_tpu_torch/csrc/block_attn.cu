@@ -8,294 +8,546 @@
 //                                    tail (the caller folds the K scale in)
 //   kv_tail  [L, H_kv, N, 2D]        bf16 or int8 (rows read raw; the caller
 //                                    applies the V scale to acc)
-//   blk_idx  [H_kv, nb_sel] int32    selected block ids
+//   blk_idx  [H_kv, nb_sel]          int32 or int64 selected block ids; an id
+//                                    out of range counts as all masked
 //   n_cand   [H_kv] int32 or one scalar
-//   -> m, l  [H_kv, g] f32, acc [H_kv, g, D] f32
+//   -> m, l  [H_kv, g] f32, acc [H_kv, g, D] f32; a head with no unmasked
+//      row gives (-1e30, 0, 0). The TPU kernel computes q, k, v and p in
+//      f32; here they reach the tensor cores as bf16 pairs that carry f32 to
+//      2^-17 (below), with f32 sums.
 //
 // What bounds it: every selected row is read once and used for g dot products
 // and g axpys, about 4 FLOP/byte: far below the card's ridge, so it is bound by
-// the bytes it moves (8 heads x 13 blocks x 256 rows x 512 B = 13.6 MB per
-// layer-step at 32k in bf16, ~4.1 us at 3.35 TB/s; half that for int8).
+// the bytes it moves: 8 kv heads x 13 blocks x 256 rows x 512 B = 13.5 MB per
+// layer-step at 32k in bf16, 4.04 us at 3.35 TB/s; half that in int8.
 //
-// Design: a flash-decoding split wide enough to keep the loads in flight. A
-// CTA of four warps takes one kv head and a tile of ROWS rows of one selected
-// block (64 rows for g <= 4), and reads its block id from blk_idx itself (no
-// scalar prefetch): the 13 x 256-row selection of a 32k decode step spreads
-// over ~400 CTAs. A warp owns RPW rows. Each lane holds D/32 channels of the g
-// queries in registers and loads its channels of every owned row's K and V
-// halves before the first use, so all of a warp's loads are in flight at once
-// and each row is read whole, coalesced, by one warp. Scores are butterfly
-// sums over the warp; each warp keeps its own (m, l, acc); the CTA merges its
-// warps in shared memory and writes one partial, and a second small kernel
-// merges the partials into the Pallas contract. A partial whose rows are all
-// masked is m = NEG_INF, l = 0, which the merges (and the segment merge after
-// them) absorb; an out-of-range block id is treated as all masked. The TPU's
-// n_par DMA lanes have no counterpart.
+// Design: one launch. Each kv head gets a thread-block cluster of CTAs (16
+// at H_kv = 8; the largest power of two whose clusters all fit on the card
+// at once, fewer as H_kv grows, so the grid about fills the SMs). CTA i of a
+// head takes an equal contiguous share of the head's selected rows in
+// blk_idx order (selection row j is row j % bs of block blk_idx[h, j / bs])
+// and reads its block ids itself, turning each into the row range [lo, hi)
+// of its block to read (the valid rows, [0, n_cand), cut to the share; an
+// out-of-range block is an empty range; a local-window entry of the batched
+// path would be another range).
+//   * Loads: one producer thread packs the ranges into a ring of NSTAGE
+//     32 KB stages and fills them by TMA (cp.async.bulk.tensor over the
+//     layer's tail as a 2-D tensor of rows, boxes of 32 or 8 rows, byte
+//     completion on a full mbarrier), marking the stage's rows to use. The
+//     1-D bulk copy would fit contiguous rows too, but it cannot swizzle: the
+//     tensor copy writes the 128-byte swizzle that lets ldmatrix read 8 rows
+//     without bank conflicts. A range's last 8-row box may fetch up to 7 rows
+//     past its end (not marked, never used); no other row outside a range
+//     is fetched.
+//   * Compute: four consumer warps take the stages' 16-row groups in turn
+//     and run S = Q K^T and P V as mma.sync m16n8k16 (bf16 in, f32 sums):
+//     a first version on the CUDA cores, f32 FMAs from shared memory, took
+//     21-25 us on an H100 at the main shapes, held back by its instruction
+//     count, not its bytes. Accuracy as the TPU kernel's f32: a bf16 q times a bf16 or
+//     int8 k is exact; an f32 q (int8 tail) and p enter as hi + lo bf16
+//     pairs (two products), so the terms are good to 2^-17. The online
+//     softmax runs in f32 on the accumulator fragments (a row's max over the
+//     4 lanes of a quad), and P's fragment is S's, so it never leaves the
+//     registers. int8 rows are converted exactly to bf16 in registers; their
+//     channels come in fours from ldmatrix, so q is packed in that order.
+//     Rows not to use get a zero V (0 x NaN is NaN) and p = 0. A warp frees a
+//     stage by one arrival on its empty mbarrier.
+//   * Merge on chip: each CTA folds its warps into one (m, l, acc[g][D]),
+//     then sends slice p of it, and its (m, l), to CTA p of the cluster
+//     through distributed shared memory; after one cluster barrier each CTA
+//     merges its slice from every CTA in rank order and writes it once. No
+//     partials in device memory, no second kernel, no scratch; the same
+//     inputs give bitwise the same output. The TPU's n_par DMA lanes have
+//     no counterpart.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
+
+#include "mma_sm90.cuh"  // mbarriers, TMA, cluster barriers and launch
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = 32 * NWARPS;
-constexpr float NEG_INF = -1e30f;
+constexpr int NCW = 4;                      // consumer warps
+constexpr int NTHREADS = 32 * (NCW + 1);    // and one producer warp
+constexpr int STAGE_BYTES = 32 * 1024;
+constexpr int NSTAGE = 3;
+constexpr int RING_BYTES = NSTAGE * STAGE_BYTES;
+constexpr int MAX_CTAS = 16;                // non-portable cluster limit
+constexpr int BIG = 32, SMALL = 8;          // rows of the two TMA boxes
+constexpr float MASKED = -1e30f;
 
-__host__ __device__ constexpr int rows_per_warp(int g) {
-  return g <= 4 ? 16 : 64 / g;  // bounds registers: rows x g scores per lane
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <int BYTES> struct RawT;
-template <> struct RawT<2> { using T = unsigned short; };
-template <> struct RawT<4> { using T = unsigned int; };
-template <> struct RawT<8> { using T = uint2; };
-
-__device__ __forceinline__ unsigned word(unsigned short r, int) { return r; }
-__device__ __forceinline__ unsigned word(unsigned int r, int) { return r; }
-__device__ __forceinline__ unsigned word(uint2 r, int w) { return w ? r.y : r.x; }
-
-// EPL consecutive tail elements of one row, held raw in a register
-template <typename KT, int EPL>
-struct Frag {
-  using R = typename RawT<EPL * sizeof(KT)>::T;
-  R raw;
-  __device__ __forceinline__ void load(const KT* p) {
-    raw = *reinterpret_cast<const R*>(p);
-  }
-  __device__ __forceinline__ void zero() { raw = R(); }
-  __device__ __forceinline__ float get(int e) const {
-    if constexpr (sizeof(KT) == 1) {   // int8
-      const unsigned w = word(raw, e / 4);
-      return (float)(int8_t)((w >> (8 * (e % 4))) & 0xffu);
-    } else {                           // bf16: the top half of an f32
-      const unsigned w = word(raw, e / 2);
-      return __uint_as_float(((w >> (16 * (e % 2))) & 0xffffu) << 16);
-    }
-  }
+template <typename KT, int D>
+struct Cfg {
+  static constexpr int ROW_BYTES = 2 * D * (int)sizeof(KT);
+  static constexpr int COLS = 128 / (int)sizeof(KT);  // elements of a 128-byte box column
+  static constexpr int NBOX = ROW_BYTES / 128;        // box columns of a row
+  static constexpr int R = STAGE_BYTES / ROW_BYTES;   // rows of a stage
+  static constexpr int MASK_WORDS = R / 32;
+  static constexpr int KSTEPS = D / 16;               // 16 channels per mma
+  static constexpr int DT = D / 8;                    // 8-wide output tiles
+  static constexpr int V_CHUNKS = D * (int)sizeof(KT) / 16;   // 16-byte pieces of V
 };
 
-// grid (nb_sel * tiles, H_kv); partial index = sel * tiles + tile
+// byte `byte` of stage row `row`: box column byte / 128 holds every row of
+// the stage, 128 bytes each, with the 16-byte pieces of a row XORed by
+// row % 8 (TMA's 128-byte swizzle, 1024-byte atoms)
+template <int R>
+__device__ __forceinline__ uint32_t sw(uint32_t stage, int row, int byte) {
+  return stage + (byte >> 7) * (R * 128) + row * 128 +
+         ((((byte >> 4) & 7) ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t a, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t a, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+// c[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, f32 out; A's rows 8..15 are 0
+// (a0: row lane / 4, k 2 (lane % 4) + {0, 1}; a2: the same at k + 8), so
+// only c[0], c[1] (row lane / 4, columns 2 (lane % 4) + {0, 1}) carry data
+__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a2,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+// two f32 as bf16 pairs hi and lo with hi + lo = (x0, x1) to 2^-17
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - f.x, x1 - f.y);
+}
+// bytes i and j of w, int8, as an exact bf16 pair
+__device__ __forceinline__ uint32_t i8x2(uint32_t w, int i, int j) {
+  return pack_bf16((float)(int8_t)(w >> (8 * i)), (float)(int8_t)(w >> (8 * j)));
+}
+__device__ __forceinline__ uint16_t bf16_bits(__nv_bfloat16 b) {
+  return *reinterpret_cast<const uint16_t*>(&b);
+}
+
+// grid (CTAS, H_kv), cluster (CTAS, 1, 1), NTHREADS threads. Dynamic shared
+// memory: 1024 bytes of alignment slack, the ring, one int4 (first row, lo,
+// hi) per block of the share. CTA p of a cluster finishes the outputs
+// [p * sl, p * sl + sl) of the g x D; every CTA sends it its partial of that
+// slice and its (m, l).
 template <typename QT, typename KT, int D, int G>
-__global__ void __launch_bounds__(NTHREADS)
-block_attn_kernel(const QT* __restrict__ q, const KT* __restrict__ kv,
-                  int layer, int H_kv, int N, const int* __restrict__ blk_idx,
-                  int nb_sel, const int* __restrict__ n_cand_vec,
-                  int n_cand_scalar, int bs, int tiles, float scale,
-                  float* __restrict__ pm, float* __restrict__ pl,
-                  float* __restrict__ pacc) {
-  constexpr int EPL = D / 32;
-  constexpr int RPW = rows_per_warp(G);
-  constexpr int ROWS = NWARPS * RPW;
-  __shared__ float s_m[NWARPS][G], s_l[NWARPS][G];
-  __shared__ float s_acc[NWARPS][G][D];
+__global__ void __launch_bounds__(NTHREADS, 2)
+block_attn_kernel(const __grid_constant__ CUtensorMap tm_big,
+                  const __grid_constant__ CUtensorMap tm_small,
+                  const QT* __restrict__ q, int layer, int H_kv, int N,
+                  const void* __restrict__ blk_idx, int idx64, int nb_sel,
+                  const int* __restrict__ n_cand_vec, int n_cand_scalar, int bs,
+                  float scale, float* __restrict__ m_out,
+                  float* __restrict__ l_out, float* __restrict__ acc_out) {
+  using C = Cfg<KT, D>;
+  constexpr int R = C::R;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * NSTAGE];   // full, then empty
+  __shared__ uint32_t rows_ok[NSTAGE][C::MASK_WORDS];  // rows of a stage to use
+  __shared__ int st_rows[NSTAGE];                      // rows filled (+ 1 << 16: last)
+  __shared__ float in_ml[MAX_CTAS][2 * G];             // every CTA's (m, l)
+  __shared__ float in_acc[G * D + MAX_CTAS];           // [ncta][sl]
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  int4* tab = reinterpret_cast<int4*>(ring + RING_BYTES);
 
-  const int part = blockIdx.x, h = blockIdx.y;
-  const int sel = part / tiles, tile = part % tiles;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), ncta = (int)cluster.num_blocks();
+  const int h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_cand = n_cand_vec ? n_cand_vec[h] : n_cand_scalar;
-  const int blk = blk_idx[h * nb_sel + sel];
-  const bool blk_ok = blk >= 0 && (long long)(blk + 1) * bs <= N;
-  const int r0 = tile * ROWS + warp * RPW;     // first owned row of the block
-  const KT* base = kv + (((size_t)layer * H_kv + h) * N +
-                         (size_t)(blk_ok ? blk : 0) * bs) * (2 * D) +
-                   lane * EPL;
+  if (threadIdx.x == NCW * 32) {   // the producer's descriptors, early
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_big)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_small)) : "memory");
+  }
+  const long long total = (long long)nb_sel * bs;
+  const int j0 = (int)(total * rank / ncta);
+  const int j1 = (int)(total * (rank + 1) / ncta);
+  const int kb0 = j0 / bs;
+  const int nblk = j1 > j0 ? (j1 - 1) / bs - kb0 + 1 : 0;
 
-  Frag<KT, EPL> kf[RPW], vf[RPW];
-  bool ok[RPW];
+  // the share's blocks as row ranges [lo, hi) of the block to read: the
+  // valid range (candidates are [0, n_cand)) cut to the share
+  const long long lo = 0, hi = n_cand_vec ? n_cand_vec[h] : n_cand_scalar;
+  for (int k = threadIdx.x; k < nblk; k += NTHREADS) {
+    const size_t i = (size_t)h * nb_sel + kb0 + k;
+    const long long blk = idx64 ? static_cast<const long long*>(blk_idx)[i]
+                                : static_cast<const int*>(blk_idx)[i];
+    const int first = (kb0 + k) * bs;         // its first selection row
+    int4 e = make_int4(0, 0, 0, 0);
+    if (blk >= 0 && (blk + 1) * bs <= N) {
+      const long long row0 = blk * bs;
+      e.x = (int)row0;
+      e.y = (int)max(max(0ll, lo - row0), (long long)(j0 - first));
+      e.z = (int)min(min((long long)bs, hi - row0), (long long)(j1 - first));
+      if (e.z < e.y) e.z = e.y;
+    }
+    tab[k] = e;
+  }
+  const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[NSTAGE]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NSTAGE; ++s) {
+      mbar_init(full0 + 8 * s, 2);   // expect_tx, then the stage's row count
+      mbar_init(empty0 + 8 * s, NCW);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  cluster_arrive_relaxed();   // waited on before the first remote store
+
+  if (warp == NCW) {
+    // producer: one thread packs the share's ranges into the stages in
+    // boxes of BIG or SMALL rows (a range's last box may run past its end:
+    // those rows are not marked), counts the bytes, then issues the boxes
+    if (lane == 0) {
+      const int head_row = (layer * H_kv + h) * N;
+      int kb = -1, r = 0, r1 = 0, row0 = 0;      // cursor: block, rows [r, r1)
+      for (int st = 0;; ++st) {
+        const int slot = st % NSTAGE;
+        mbar_wait(empty0 + 8 * slot, ((st / NSTAGE) & 1) ^ 1);
+        const uint32_t stage = smem_u32(ring + slot * STAGE_BYTES);
+        uint32_t* ok = rows_ok[slot];
+        for (int w = 0; w < C::MASK_WORDS; ++w) ok[w] = 0u;
+        const int kb_s = kb, r_s = r, r1_s = r1, row0_s = row0;
+        int filled = 0;
+        for (int pass = 0; pass < 2; ++pass) {     // count and mark, then copy
+          if (pass) {
+            mbar_expect_tx(full0 + 8 * slot, (uint32_t)filled * C::ROW_BYTES);
+            kb = kb_s, r = r_s, r1 = r1_s, row0 = row0_s;
+            filled = 0;
+          }
+          while (filled < R) {
+            if (r >= r1) {
+              if (++kb >= nblk) break;
+              const int4 e = tab[kb];
+              row0 = e.x, r = e.y, r1 = e.z;
+              continue;
+            }
+            const int n = r1 - r;
+            const int size = n >= BIG && filled + BIG <= R ? BIG : SMALL;
+            if (!pass) {
+              const int v1 = filled + min(size, n);
+              for (int i = filled; i < v1; ++i) ok[i >> 5] |= 1u << (i & 31);
+            } else {
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = r0 + i;
-    ok[i] = blk_ok && r < bs && blk * bs + r < n_cand;
-    if (ok[i]) {
-      kf[i].load(base + (size_t)r * (2 * D));
-      vf[i].load(base + (size_t)r * (2 * D) + D);
-    } else {
-      kf[i].zero();
-      vf[i].zero();
+              for (int c = 0; c < C::NBOX; ++c)
+                tma_load_2d(stage + c * (R * 128) + filled * 128,
+                            size == BIG ? &tm_big : &tm_small, full0 + 8 * slot,
+                            c * C::COLS, head_row + row0 + r);
+            }
+            filled += size;
+            r += size;
+          }
+        }
+        // whether any row is left after this stage
+        bool more = r < r1;
+        for (int k = kb + 1; k < nblk && !more; ++k) more = tab[k].z > tab[k].y;
+        st_rows[slot] = filled | (more ? 0 : 1 << 16);
+        mbar_arrive(full0 + 8 * slot);   // the second arrival: the mark is done
+        if (!more) break;
+      }
+    }
+    __syncwarp();
+  } else {
+    // consumers: the 16-row groups of the share, counted across stages, go
+    // to the warps in turn, so a stage of two groups and the next one are
+    // taken by different warps.
+    // Lane (j = lane / 4, t = lane % 4) holds q head j's scores of rows
+    // 2t, 2t + 1, 8 + 2t, 9 + 2t of a group, and its accumulator columns.
+    const int t = lane & 3, gj = lane >> 2;
+    const QT* qh = q + ((size_t)h * G + min(gj, G - 1)) * D;
+    uint32_t qa[C::KSTEPS][2], ql[C::KSTEPS][2];
+#pragma unroll
+    for (int kk = 0; kk < C::KSTEPS; ++kk)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        // bf16 rows: channels 16kk + 2t + 8hf + {0, 1}; int8 rows (their
+        // channels come in fours, see below): 16kk + 4t + 2hf + {0, 1}
+        const int c = sizeof(KT) == 2 ? 16 * kk + 2 * t + 8 * hf
+                                      : 16 * kk + 4 * t + 2 * hf;
+        if constexpr (sizeof(KT) == 2) {
+          qa[kk][hf] = gj < G ? (uint32_t)bf16_bits(qh[c]) |
+                                    ((uint32_t)bf16_bits(qh[c + 1]) << 16)
+                              : 0u;
+          ql[kk][hf] = 0u;
+        } else {
+          split(gj < G ? qh[c] : 0.f, gj < G ? qh[c + 1] : 0.f, qa[kk][hf],
+                ql[kk][hf]);
+        }
+      }
+    float acc[C::DT][4], m = MASKED, lsum = 0.f;
+#pragma unroll
+    for (int i = 0; i < C::DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    for (int st = 0, gbase = 0;; ++st) {
+      const int slot = st % NSTAGE;
+      mbar_wait(full0 + 8 * slot, (st / NSTAGE) & 1);
+      const int info = st_rows[slot], filled = info & 0xffff;
+      const uint32_t stage = smem_u32(ring + slot * STAGE_BYTES);
+      const int first = (warp - gbase % NCW + NCW) % NCW;   // this warp's first group
+      gbase += (filled + 15) / 16;
+      for (int g0 = 16 * first; g0 < filled; g0 += NCW * 16) {
+        const uint32_t okb = (rows_ok[slot][g0 >> 5] >> (g0 & 31)) & 0xffffu;
+        if (!okb) continue;
+        if (okb != 0xffffu) {
+          // rows not to use may hold anything, and 0 x NaN is NaN in the
+          // products: zero their V
+          for (int i = lane; i < 16 * C::V_CHUNKS; i += 32) {
+            const int rr = i / C::V_CHUNKS;
+            if (!((okb >> rr) & 1u))
+              asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(
+                               sw<R>(stage, g0 + rr, D * (int)sizeof(KT) + (i % C::V_CHUNKS) * 16)),
+                           "r"(0u) : "memory");
+          }
+          // order these writes before the stage's next fill by TMA
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          __syncwarp();
+        }
+        // S = Q K^T over the group's 16 rows: two 8-row tiles
+        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        const int mi = lane >> 3, lr = lane & 7;
+        if constexpr (sizeof(KT) == 2) {
+#pragma unroll
+          for (int kk = 0; kk < C::KSTEPS; ++kk) {
+            uint32_t b[4];   // rows 0-7 (k, k + 8), rows 8-15 (k, k + 8)
+            ldsm4(sw<R>(stage, g0 + lr + (mi >> 1) * 8, (16 * kk + (mi & 1) * 8) * 2), b);
+            mma16816(s[0], qa[kk][0], qa[kk][1], b[0], b[1]);
+            mma16816(s[1], qa[kk][0], qa[kk][1], b[2], b[3]);
+          }
+        } else {
+          // an 8x8 b16 matrix of int8 rows gives lane (r, t) channels
+          // 4t .. 4t + 3 of 16: taken as k = 2t, 2t + 1, 2t + 8, 2t + 9,
+          // the order q was packed in
+#pragma unroll
+          for (int kk = 0; kk < C::KSTEPS; kk += 2) {
+            uint32_t b[4];   // (rows 0-7, kk), (rows 8-15, kk), then kk + 1
+            ldsm4(sw<R>(stage, g0 + lr + (mi & 1) * 8, 16 * (kk + (mi >> 1))), b);
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              const int k2 = kk + (x >> 1);
+              const uint32_t b0 = i8x2(b[x], 0, 1), b1 = i8x2(b[x], 2, 3);
+              mma16816(s[x & 1], qa[k2][0], qa[k2][1], b0, b1);
+              mma16816(s[x & 1], ql[k2][0], ql[k2][1], b0, b1);
+            }
+          }
+        }
+        // online softmax over the group, in f32
+        const float v[4] = {s[0][0] * scale, s[0][1] * scale, s[1][0] * scale,
+                            s[1][1] * scale};
+        const int rows[4] = {2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t};
+        bool ok[4];
+        float mx = MASKED;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ok[i] = (okb >> rows[i]) & 1u;
+          if (ok[i]) mx = fmaxf(mx, v[i]);
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m, mx), corr = __expf(m - m_new);
+        m = m_new;
+        float p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[i] = ok[i] ? __expf(v[i] - m_new) : 0.f;
+        lsum = lsum * corr + ((p[0] + p[1]) + (p[2] + p[3]));
+#pragma unroll
+        for (int i = 0; i < C::DT; ++i) {
+          acc[i][0] *= corr;
+          acc[i][1] *= corr;
+        }
+        // P (f32) as hi + lo bf16 for P V: its A fragment is S's C fragment
+        uint32_t ph0, pl0, ph2, pl2;
+        split(p[0], p[1], ph0, pl0);
+        split(p[2], p[3], ph2, pl2);
+        if constexpr (sizeof(KT) == 2) {
+#pragma unroll
+          for (int tp = 0; tp < C::DT; tp += 2) {
+            uint32_t b[4];   // V^T: (d tile tp: rows 0-7, 8-15), then tp + 1
+            ldsm4_t(sw<R>(stage, g0 + lr + (mi & 1) * 8, (D + 8 * (tp + (mi >> 1))) * 2), b);
+            mma16816(acc[tp], ph0, ph2, b[0], b[1]);
+            mma16816(acc[tp], pl0, pl2, b[0], b[1]);
+            mma16816(acc[tp + 1], ph0, ph2, b[2], b[3]);
+            mma16816(acc[tp + 1], pl0, pl2, b[2], b[3]);
+          }
+        } else {
+          // transposed, a b16 of an int8 row is two columns: lane (t, c)
+          // gets columns 2c, 2c + 1 of rows 2t, 2t + 1, i.e. two tiles,
+          // even columns (bytes 0, 2) and odd ones (bytes 1, 3)
+#pragma unroll
+          for (int ch = 0; ch < D / 16; ch += 2) {
+            uint32_t b[4];   // (rows 0-7, chunk ch), (rows 8-15, ch), then ch + 1
+            ldsm4_t(sw<R>(stage, g0 + lr + (mi & 1) * 8, D + 16 * (ch + (mi >> 1))), b);
+#pragma unroll
+            for (int y = 0; y < 2; ++y)
+#pragma unroll
+              for (int par = 0; par < 2; ++par) {
+                const uint32_t b0 = i8x2(b[2 * y], par, 2 + par);
+                const uint32_t b1 = i8x2(b[2 * y + 1], par, 2 + par);
+                float (&a)[4] = acc[2 * (ch + y) + par];
+                mma16816(a, ph0, ph2, b0, b1);
+                mma16816(a, pl0, pl2, b0, b1);
+              }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+      if (info >> 16) break;
+    }
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    // every stage is consumed (so every copy has landed): the ring is free
+    // for the warps' partials [NCW][G][D + 2]
+    named_bar_sync(1, NCW * 32);
+    if (gj < G) {
+      float* o = reinterpret_cast<float*>(ring) + (warp * G + gj) * (D + 2);
+#pragma unroll
+      for (int i = 0; i < C::DT; ++i) {
+        // bf16: tile i is columns 8i + 2t + {0, 1}; int8: tile 2c + par is
+        // columns 16c + 4t + par + {0, 2}
+        const int d0 = sizeof(KT) == 2 ? 8 * i + 2 * t : 16 * (i >> 1) + 4 * t + (i & 1);
+        const int d1 = sizeof(KT) == 2 ? d0 + 1 : d0 + 2;
+        o[2 + d0] = acc[i][0];
+        o[2 + d1] = acc[i][1];
+      }
+      if (t == 0) {
+        o[0] = m;
+        o[1] = lsum;
+      }
     }
   }
-  float qv[G][EPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < EPL; ++e)
-      qv[g][e] = to_f(q[((size_t)h * G + g) * D + lane * EPL + e]) * scale;
-
-  float s[RPW][G];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i)
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float t = 0.f;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) t = fmaf(qv[g][e], kf[i].get(e), t);
-      s[i][g] = t;
-    }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        s[i][g] += __shfl_xor_sync(0xffffffffu, s[i][g], o);
-
-  float m[G], l[G], acc[G][EPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-      if (ok[i]) m[g] = fmaxf(m[g], s[i][g]);
-  }
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    if (!ok[i]) continue;
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float p = __expf(s[i][g] - m[g]);
-      l[g] += p;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] = fmaf(p, vf[i].get(e), acc[g][e]);
-    }
-  }
-
-  if (lane == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      s_m[warp][g] = m[g];
-      s_l[warp][g] = l[g];
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) s_acc[warp][g][lane * EPL + e] = acc[g][e];
   __syncthreads();
 
-  const int n_part = nb_sel * tiles;
+  // the CTA's partial, its warps merged in order, goes out by slices: the
+  // outputs [p * sl, p * sl + sl) to CTA p of the cluster, and (m, l) to
+  // every CTA (distributed shared memory: plain stores through the mapped
+  // address). Then one cluster barrier.
+  const int sl = (G * D + ncta - 1) / ncta;
+  const float* wp = reinterpret_cast<const float*>(ring);
+  cluster_wait();             // every CTA of the cluster has started
   for (int i = threadIdx.x; i < G * D; i += NTHREADS) {
-    const int g = i / D, d = i % D;
-    float mx = NEG_INF;
+    const int j = i / D, d = i % D;
+    float mx = MASKED;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) mx = fmaxf(mx, s_m[w][g]);
+    for (int w = 0; w < NCW; ++w) mx = fmaxf(mx, wp[(w * G + j) * (D + 2)]);
     float a = 0.f, ls = 0.f;
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w) {
-      const float wt = __expf(s_m[w][g] - mx);
-      a = fmaf(s_acc[w][g][d], wt, a);
-      ls = fmaf(s_l[w][g], wt, ls);
+    for (int w = 0; w < NCW; ++w) {
+      const float* o = wp + (w * G + j) * (D + 2);
+      const float wt = __expf(o[0] - mx);
+      a = fmaf(o[2 + d], wt, a);
+      ls = fmaf(o[1], wt, ls);
     }
-    const size_t o = ((size_t)h * n_part + part) * G + g;
-    pacc[o * D + d] = a;
+    const int p = i / sl;
+    *cluster.map_shared_rank(&in_acc[rank * sl + i - p * sl], p) = a;
+    if (d == 0)
+      for (int p2 = 0; p2 < ncta; ++p2) {
+        *cluster.map_shared_rank(&in_ml[rank][j], p2) = mx;
+        *cluster.map_shared_rank(&in_ml[rank][G + j], p2) = ls;
+      }
+  }
+  cluster_arrive();
+  cluster_wait();
+
+  // this CTA's slice of the head's result, from every CTA's partial in rank
+  // order; no CTA touches a peer's shared memory after the barrier
+  for (int i = rank * sl + threadIdx.x; i < min(G * D, rank * sl + sl);
+       i += NTHREADS) {
+    const int j = i / D, d = i % D;
+    float mx = MASKED;
+    for (int p = 0; p < ncta; ++p) mx = fmaxf(mx, in_ml[p][j]);
+    float a = 0.f, ls = 0.f;
+    for (int p = 0; p < ncta; ++p) {
+      const float wt = __expf(in_ml[p][j] - mx);
+      a = fmaf(in_acc[p * sl + i - rank * sl], wt, a);
+      ls = fmaf(in_ml[p][G + j], wt, ls);
+    }
+    acc_out[(size_t)h * G * D + i] = a;
     if (d == 0) {
-      pm[o] = mx;
-      pl[o] = ls;
+      m_out[h * G + j] = mx;
+      l_out[h * G + j] = ls;
     }
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// grid (g, H_kv), D threads: merge the n_part partials of one query row.
-// The partial weights exp(m_s - m) are computed once into shared memory
-// (n_part floats, dynamic); each thread then sums its channel over the
-// partials with the loads unrolled, so they are in flight together.
-template <int D>
-__global__ void __launch_bounds__(D)
-merge_kernel(const float* __restrict__ pm, const float* __restrict__ pl,
-             const float* __restrict__ pacc, int n_part, int g,
-             float* __restrict__ m, float* __restrict__ l,
-             float* __restrict__ acc) {
-  extern __shared__ float sw[];               // [n_part] partial weights
-  __shared__ float red[D / 32];
-  const int gi = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
-  const int warp = d >> 5, lane = d & 31;
-  const size_t base = (size_t)h * n_part * g + gi;   // partial s: base + s * g
-
-  float mx = NEG_INF;
-  for (int s = d; s < n_part; s += D) mx = fmaxf(mx, pm[base + (size_t)s * g]);
-  mx = warp_max(mx);
-  if (lane == 0) red[warp] = mx;
-  __syncthreads();
-  mx = red[0];
-#pragma unroll
-  for (int w = 1; w < D / 32; ++w) mx = fmaxf(mx, red[w]);
-  __syncthreads();
-
-  float ls = 0.f;
-  for (int s = d; s < n_part; s += D) {
-    const size_t i = base + (size_t)s * g;
-    const float w = __expf(pm[i] - mx);
-    sw[s] = w;
-    ls = fmaf(pl[i], w, ls);
+// the most clusters of `ctas` CTAs that fit on the card at once
+template <typename K>
+int active_clusters(K kernel, int ctas, int threads, size_t smem) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = ctas;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
   }
-  ls = warp_sum(ls);
-  if (lane == 0) red[warp] = ls;
-  __syncthreads();
-
-  float a = 0.f;
-#pragma unroll 8
-  for (int s = 0; s < n_part; ++s)
-    a = fmaf(pacc[(base + (size_t)s * g) * D + d], sw[s], a);
-  acc[((size_t)h * g + gi) * D + d] = a;
-  if (d == 0) {
-    float lt = 0.f;
-#pragma unroll
-    for (int w = 0; w < D / 32; ++w) lt += red[w];
-    m[h * g + gi] = mx;
-    l[h * g + gi] = lt;
-  }
-}
-
-int tiles_per_block(int g, int bs) {
-  const int rows = NWARPS * rows_per_warp(g);
-  return (bs + rows - 1) / rows;
+  return n;
 }
 
 template <typename QT, typename KT, int D, int G>
 cudaError_t launch(const void* q, const void* kv, int layer, int H_kv, int N,
-                   const int* blk_idx, int nb_sel, const int* n_cand_vec,
-                   int n_cand_scalar, int bs, float* pm, float* pl,
-                   float* pacc, float* m, float* l, float* acc,
-                   cudaStream_t stream) {
-  const int tiles = tiles_per_block(G, bs);
-  block_attn_kernel<QT, KT, D, G>
-      <<<dim3(nb_sel * tiles, H_kv), NTHREADS, 0, stream>>>(
-          static_cast<const QT*>(q), static_cast<const KT*>(kv), layer, H_kv,
-          N, blk_idx, nb_sel, n_cand_vec, n_cand_scalar, bs, tiles,
-          1.0f / sqrtf((float)D), pm, pl, pacc);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n_part = nb_sel * tiles;
-  merge_kernel<D><<<dim3(G, H_kv), D, n_part * sizeof(float), stream>>>(
-      pm, pl, pacc, n_part, G, m, l, acc);
-  return cudaGetLastError();
+                   const void* blk_idx, int idx64, int nb_sel,
+                   const int* n_cand_vec, int n_cand_scalar, int bs, float* m,
+                   float* l, float* acc, cudaStream_t stream) {
+  using C = Cfg<KT, D>;
+  auto kernel = block_attn_kernel<QT, KT, D, G>;
+  // once per process, so that a launch inside a CUDA-graph capture makes no
+  // attribute call
+  static const cudaError_t attr = allow_big_clusters(kernel);
+  if (attr != cudaSuccess) return attr;
+  // the layer's rows [0, (layer + 1) H_kv N) of the tail as one 2-D tensor
+  // of rows of 2D elements, read in boxes of BIG or SMALL rows
+  const long long rows = ((long long)layer + 1) * H_kv * N;
+  if (rows >= (1ll << 31)) return cudaErrorInvalidValue;
+  const CUtensorMapDataType type = sizeof(KT) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                   : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  CUtensorMap tm_big, tm_small;
+  cudaError_t e = make_tmap_2d(&tm_big, kv, type, sizeof(KT), rows, 2 * D, BIG);
+  if (e == cudaSuccess) e = make_tmap_2d(&tm_small, kv, type, sizeof(KT), rows, 2 * D, SMALL);
+  if (e != cudaSuccess) return e;
+  // CTAs per kv head: the largest power of two up to MAX_CTAS, the SMs per
+  // head and the selection's stages whose clusters, one per head, all fit
+  // on the card at once (a cluster that waits for room doubles the time),
+  // else 1
+  const long long total = (long long)nb_sel * bs;
+  const long long by_rows = (total + C::R - 1) / C::R;
+  const int by_sms = max(1, sm_count() / H_kv);
+  static int fits[MAX_CTAS + 1] = {};   // per size: clusters that fit, + 1
+  int ctas = 0;
+  for (int c = MAX_CTAS; c >= 1 && !ctas; c /= 2) {
+    if (c > by_sms || c > by_rows) continue;
+    if (!fits[c]) fits[c] = 1 + active_clusters(kernel, c, NTHREADS, 1024 + RING_BYTES);
+    if (fits[c] - 1 >= H_kv || c == 1) ctas = c;
+  }
+  const long long share = (total + ctas - 1) / ctas;
+  const size_t smem = 1024 + RING_BYTES + (share / bs + 2) * sizeof(int4);
+  if (smem > (size_t)optin_smem() - 16 * 1024) return cudaErrorInvalidValue;
+  return launch_cluster(kernel, dim3(ctas, H_kv), NTHREADS, smem, stream, tm_big,
+                        tm_small, static_cast<const QT*>(q), layer, H_kv, N,
+                        blk_idx, idx64, nb_sel, n_cand_vec, n_cand_scalar, bs,
+                        1.0f / sqrtf((float)D), m, l, acc);
 }
 
 template <typename QT, typename KT, int D>
 cudaError_t by_group(int g, const void* q, const void* kv, int layer,
-                     int H_kv, int N, const int* blk_idx, int nb_sel,
-                     const int* n_cand_vec, int n_cand_scalar, int bs,
-                     float* pm, float* pl, float* pacc, float* m, float* l,
-                     float* acc, cudaStream_t s) {
-#define PQ_ARGS q, kv, layer, H_kv, N, blk_idx, nb_sel, n_cand_vec, \
-                n_cand_scalar, bs, pm, pl, pacc, m, l, acc, s
+                     int H_kv, int N, const void* blk_idx, int idx64,
+                     int nb_sel, const int* n_cand_vec, int n_cand_scalar,
+                     int bs, float* m, float* l, float* acc, cudaStream_t s) {
+#define PQ_ARGS q, kv, layer, H_kv, N, blk_idx, idx64, nb_sel, n_cand_vec, \
+                n_cand_scalar, bs, m, l, acc, s
   switch (g) {
     case 1: return launch<QT, KT, D, 1>(PQ_ARGS);
     case 2: return launch<QT, KT, D, 2>(PQ_ARGS);
@@ -308,12 +560,11 @@ cudaError_t by_group(int g, const void* q, const void* kv, int layer,
 
 template <typename QT, typename KT>
 cudaError_t by_dim(int D, int g, const void* q, const void* kv, int layer,
-                   int H_kv, int N, const int* blk_idx, int nb_sel,
-                   const int* n_cand_vec, int n_cand_scalar, int bs,
-                   float* pm, float* pl, float* pacc, float* m, float* l,
-                   float* acc, cudaStream_t s) {
-#define PQ_ARGS g, q, kv, layer, H_kv, N, blk_idx, nb_sel, n_cand_vec, \
-                n_cand_scalar, bs, pm, pl, pacc, m, l, acc, s
+                   int H_kv, int N, const void* blk_idx, int idx64,
+                   int nb_sel, const int* n_cand_vec, int n_cand_scalar,
+                   int bs, float* m, float* l, float* acc, cudaStream_t s) {
+#define PQ_ARGS g, q, kv, layer, H_kv, N, blk_idx, idx64, nb_sel, n_cand_vec, \
+                n_cand_scalar, bs, m, l, acc, s
   if (D == 64) return by_group<QT, KT, 64>(PQ_ARGS);
   if (D == 128) return by_group<QT, KT, 128>(PQ_ARGS);
   return cudaErrorInvalidValue;
@@ -323,22 +574,22 @@ cudaError_t by_dim(int D, int g, const void* q, const void* kv, int layer,
 }  // namespace
 
 // kv_dtype: 1 = bf16 (q bf16), 2 = int8 (q f32); g in {1, 2, 4, 8}; D in
-// {64, 128}. n_cand_vec may be null (then n_cand_scalar applies to every
-// head). pm/pl [H_kv, n_part, g] and pacc [H_kv, n_part, g, D] are scratch;
-// n_part must equal nb_sel * tiles_per_block(g, bs), else nothing launches.
-// All buffers contiguous. Returns a cudaError_t (0 = launched).
+// {64, 128}. blk_idx int64 when idx64, else int32. n_cand_vec may be null
+// (then n_cand_scalar applies to every head). kv 16-byte aligned; all
+// buffers contiguous. One launch; writes m, l [H_kv, g] and acc
+// [H_kv, g, D] and nothing else. Returns a cudaError_t (0 = launched).
 extern "C" int pq_block_attn(const void* q, const void* kv, int kv_dtype,
                              int H_kv, int N, int D, int g, int layer,
-                             const int* blk_idx, int nb_sel,
+                             const void* blk_idx, int idx64, int nb_sel,
                              const int* n_cand_vec, int n_cand_scalar, int bs,
-                             int n_part, float* pm, float* pl, float* pacc,
                              float* m, float* l, float* acc, void* stream) {
-  if (nb_sel < 1 || bs < 1 || g < 1 ||
-      n_part != nb_sel * tiles_per_block(g, bs))
+  if (nb_sel < 1 || bs < 1 || H_kv < 1 || N < bs ||
+      (long long)nb_sel * bs > (1ll << 30) ||
+      reinterpret_cast<uintptr_t>(kv) % 16)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PQ_ARGS D, g, q, kv, layer, H_kv, N, blk_idx, nb_sel, n_cand_vec, \
-                n_cand_scalar, bs, pm, pl, pacc, m, l, acc, s
+#define PQ_ARGS D, g, q, kv, layer, H_kv, N, blk_idx, idx64, nb_sel, \
+                n_cand_vec, n_cand_scalar, bs, m, l, acc, s
   if (kv_dtype == 1) return by_dim<__nv_bfloat16, __nv_bfloat16>(PQ_ARGS);
   if (kv_dtype == 2) return by_dim<float, int8_t>(PQ_ARGS);
   return cudaErrorInvalidValue;

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the prefill kernels K2
-// (flash_attention.cu) and K4 (flash_scores.cu): the wgmma shared-memory
-// descriptor for 128-byte swizzled tiles, wgmma.mma_async (A from shared
-// memory or from registers) with its fence / commit / wait, mbarrier
-// rings, TMA tile loads (cp.async.bulk.tensor with complete_tx),
-// setmaxnreg, and on the host the CUtensorMap encoder.
+// (flash_attention.cu) and K4 (flash_scores.cu) and the decode kernels K1
+// (block_attn.cu) and K3 (adc.cu): the wgmma shared-memory descriptor for
+// 128-byte swizzled tiles, wgmma.mma_async (A from shared memory or from
+// registers) with its fence / commit / wait, mbarrier rings, TMA tile loads
+// (cp.async.bulk.tensor with complete_tx) and 1-D bulk copies, setmaxnreg,
+// split cluster barriers, and on the host the CUtensorMap encoder and the
+// cluster launch.
 //
 // Tile layout in shared memory. A bf16 tile of R rows and D columns is
 // loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B as D / 64 boxes of 64
@@ -109,6 +111,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// ------------------------------------------------------------------ clusters
+// barrier.cluster in two halves: every thread of every CTA of the cluster
+// arrives (release), and its wait (acquire) returns once all have arrived;
+// work between the two overlaps the barrier
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+// an arrival that orders nothing: with a wait before the first access to a
+// peer's shared memory, it makes sure every CTA of the cluster has started
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------- TMA
 // One box of a 3-D tensor map into shared memory; completion is counted
 // on `bar` in bytes. Coordinates: (column, row, head).
@@ -120,6 +138,15 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2) : "memory");
+}
+// one box of a 2-D tensor map into shared memory; coordinates (column, row)
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
 }
 // `bytes` contiguous bytes (16-byte aligned, a multiple of 16) into shared
 // memory, counted on `bar` like a tile
@@ -293,6 +320,78 @@ inline cudaError_t make_tmap(CUtensorMap* map, const void* ptr, int heads,
          dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------- host: clusters
+inline int device_attr(cudaDeviceAttr a) {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, a, dev);
+  return v;
+}
+inline int sm_count() {
+  static const int n = device_attr(cudaDevAttrMultiProcessorCount);
+  return n;
+}
+// the most shared memory one block may opt in to (227 KB on an H100)
+inline int optin_smem() {
+  static const int n = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin);
+  return n;
+}
+
+// Let `kernel` take all the dynamic shared memory a block may opt in to and
+// clusters of up to 16 CTAs (8 is the portable limit). Call it once per
+// kernel and process, so that a launch inside a CUDA-graph capture makes no
+// attribute call.
+template <typename K>
+cudaError_t allow_big_clusters(K kernel) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin_smem() - (int)fa.sharedSizeBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+// launch `kernel` on `grid` with clusters of grid.x CTAs along x
+template <typename... Exp, typename... Act>
+cudaError_t launch_cluster(void (*kernel)(Exp...), dim3 grid, int threads,
+                           size_t smem, cudaStream_t stream, Act... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = grid.x;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// 2-D map of a contiguous [rows, cols] tensor of bf16 or uint8 elements
+// (one row 16-byte aligned), boxes of [box_rows, 128 bytes] with the
+// 128-byte swizzle; rows at or past `rows` read 0.
+inline cudaError_t make_tmap_2d(CUtensorMap* map, const void* ptr,
+                                CUtensorMapDataType type, int elem_bytes,
+                                long long rows, int cols, int box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return cudaErrorInitializationError;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r =
+      fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

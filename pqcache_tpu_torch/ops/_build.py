@@ -31,9 +31,9 @@ SIGNATURES = {
     "flash_attention": {"pq_flash_attention": [_P] * 6 + [_I] * 9 + [_P]},
     "flash_scores": {"pq_flash_scores": [_P] * 6 + [_I] * 8 + [_P]},
     "block_attn": {"pq_block_attn": [_P, _P] + [_I] * 6
-                   + [_P, _I, _P, _I, _I, _I] + [_P] * 7},
+                   + [_P, _I, _I, _P, _I, _I] + [_P] * 4},
     "adc": {"pq_adc_scores": [_P, _P] + [_I] * 6 + [_P, _P],
-            "pq_adc_block_scores": [_P, _P, _P] + [_I] * 9 + [_P] * 4},
+            "pq_adc_block_scores": [_P, _P, _P] + [_I] * 9 + [_P] * 2},
     "gather": {"pq_gather_rows": [_P, _P] + [_I] * 6 + [_P, _P]},
 }
 

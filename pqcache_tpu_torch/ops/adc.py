@@ -143,16 +143,14 @@ def adc_block_scores(lut: torch.Tensor, codes: torch.Tensor, n_cand, *,
         n_ptr, n_scalar = n_vec.data_ptr(), 0
     else:
         n_ptr, n_scalar = None, int(n_cand)
-    NB = T // sel_block
-    # pass 1's per-block (max, exp-sum) scratch, then the output
-    buf = torch.empty((3, B, H_kv * g, NB), dtype=torch.float32,
+    out = torch.empty((B, H_kv * g, T // sel_block), dtype=torch.float32,
                       device=lut.device)
     _build.check(_build.lib("adc").pq_adc_block_scores(
         lut.data_ptr(), codes.data_ptr(), n_ptr, n_scalar, B, H_kv, g, S, C,
-        T, sel_block, int(head_dim), buf[0].data_ptr(), buf[1].data_ptr(),
-        buf[2].data_ptr(), _build.stream_ptr(lut.device)), "adc_block_scores")
+        T, sel_block, int(head_dim), out.data_ptr(),
+        _build.stream_ptr(lut.device)), "adc_block_scores")
     adc_block_scores.launches += 1
-    return buf[2] if batched else buf[2, 0]
+    return out if batched else out[0]
 
 
 adc_block_scores.launches = 0

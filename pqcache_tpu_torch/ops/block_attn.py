@@ -24,13 +24,7 @@ SUPPORTED_GROUPS = (1, 2, 4, 8)
 # (kv_tail dtype, q dtype) -> the kernel's kv_dtype code: bf16 rows take a
 # bf16 query, int8 rows the f32 query with the K scale folded in
 _DTYPES = {(torch.bfloat16, torch.bfloat16): 1, (torch.int8, torch.float32): 2}
-
-
-def _tile_rows(g: int) -> int:
-    """Rows of one CTA's tile in csrc/block_attn.cu (NWARPS x
-    rows_per_warp(g)): a selected block splits into ceil(block / this)
-    partials. The C entry point refuses a count that disagrees."""
-    return 4 * (16 if g <= 4 else 64 // g)
+_ID_DTYPES = (torch.int32, torch.int64)
 
 
 def _later_options(pair, win_len, win_max):
@@ -119,27 +113,23 @@ def block_topk_attention(q: torch.Tensor, kv_tail: torch.Tensor, layer,
         raise ValueError(f"block_topk_attention: layer {layer} out of range")
     g = H // H_kv
     q = q.contiguous()
-    blk = blk_idx.to(torch.int32).contiguous()
+    # the kernel reads int32 or int64 ids as they are: no cast launch
+    blk = blk_idx if blk_idx.dtype in _ID_DTYPES else blk_idx.to(torch.int32)
+    blk = blk.contiguous()
     if isinstance(n_cand, torch.Tensor) and n_cand.dim() == 1:
         n_vec = n_cand.to(device=q.device, dtype=torch.int32).contiguous()
         n_ptr, n_scalar = n_vec.data_ptr(), 0
     else:
         n_ptr, n_scalar = None, int(n_cand)
-    # the kernel's per-split partials (m, l, acc), then its outputs (m, l,
-    # acc): one f32 buffer each, cut into views
-    n_part = nb_sel * -(-block // _tile_rows(g))
-    parts = torch.empty(H_kv * n_part * g * (D + 2), dtype=torch.float32,
-                        device=q.device)
+    # the outputs (m, l, acc): one f32 buffer cut into views, and nothing else
     out = torch.empty(H_kv * g * (D + 2), dtype=torch.float32,
                       device=q.device)
-    pm, pl, pacc = parts.split([H_kv * n_part * g] * 2
-                               + [H_kv * n_part * g * D])
     m, l, acc = out.split([H_kv * g] * 2 + [H_kv * g * D])
     _build.check(_build.lib("block_attn").pq_block_attn(
         q.data_ptr(), kv_tail.data_ptr(), kv_code, H_kv, N, D, g, layer,
-        blk.data_ptr(), nb_sel, n_ptr, n_scalar, block, n_part, pm.data_ptr(),
-        pl.data_ptr(), pacc.data_ptr(), m.data_ptr(), l.data_ptr(),
-        acc.data_ptr(), _build.stream_ptr(q.device)), "block_topk_attention")
+        blk.data_ptr(), int(blk.dtype == torch.int64), nb_sel, n_ptr,
+        n_scalar, block, m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+        _build.stream_ptr(q.device)), "block_topk_attention")
     m, l, acc = m.view(H_kv, g), l.view(H_kv, g), acc.view(H_kv, g, D)
     block_topk_attention.launches += 1
     return m, l, acc

@@ -13,7 +13,9 @@ computes in float32 from the same inputs as its
 plain version (1e-4). K5 sums the same float32 LUT entries in the plain
 version's order for S <= 2 (exact) and in its own order above (1e-6
 relative); K3 sums exp terms in another order than the plain softmax (1e-5
-relative to each row's largest entry, and the same block selection); K4
+relative to each row's largest entry, and the same block selection); K1 and
+K3 merge on chip in a fixed order, so two calls give bitwise the same
+output, and each call is one CUDA kernel; K4
 sums its bf16 tensor-core logits in another order and uses the fast exp
 (1e-4 of each head's largest entry); K6 copies bytes (exact).
 """
@@ -160,14 +162,9 @@ def test_flash_scores_kernel_matches_plain(dev, mode, D, T, pad, valid_len,
     assert ((fed - got).abs() <= K4_TOL * scale).all()
 
 
-@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
-@pytest.mark.parametrize("D,bs,nb_sel,n_cand,group", [
-    (128, 256, 5, 1100, 4), (64, 16, 9, 333, 8), (128, 128, 3, 0, 1),
-    (64, 256, 4, 900, 2)])
-def test_block_attn_kernel_matches_plain(dev, kv_dtype, D, bs, nb_sel,
-                                         n_cand, group):
+def _block_attn_inputs(dev, kv_dtype, D, bs, nb_sel, group, L=2, H_kv=4,
+                       N=1536):
     rng = np.random.default_rng(D + bs)
-    L, H_kv, N = 2, 4, 1536
     H = H_kv * group
     if kv_dtype == torch.int8:
         kv = torch.from_numpy(rng.integers(-127, 128, (L, H_kv, N, 2 * D),
@@ -181,12 +178,45 @@ def test_block_attn_kernel_matches_plain(dev, kv_dtype, D, bs, nb_sel,
             np.float32)).to(dev).bfloat16()
     blk = torch.from_numpy(np.stack([rng.choice(N // bs, nb_sel, replace=False)
                                      for _ in range(H_kv)])).to(dev)
-    got = block_topk_attention(q, kv, 1, blk, n_cand, block=bs)
+    return q, kv, blk
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("D,bs,nb_sel,n_cand,group,bad_ids", [
+    (128, 256, 5, 1100, 4, False), (64, 16, 9, 333, 8, False),
+    (128, 128, 3, 0, 1, False), (64, 256, 4, 900, 2, False),
+    # many small blocks; a selection that does not divide evenly among a
+    # cluster's CTAs; ids out of range (all masked); a per-head n_cand
+    # that includes 0
+    (64, 16, 80, 1000, 4, False), (128, 48, 9, 1300, 4, False),
+    (128, 128, 6, 1000, 4, True), (128, 64, 7, [0, 700, 1536, 300], 8, False)])
+def test_block_attn_kernel_matches_plain(dev, kv_dtype, idx_dtype, D, bs,
+                                         nb_sel, n_cand, group, bad_ids):
+    N = 1536
+    q, kv, blk = _block_attn_inputs(dev, kv_dtype, D, bs, nb_sel, group, N=N)
+    nc = (torch.tensor(n_cand, dtype=torch.int32, device=dev)
+          if isinstance(n_cand, list) else n_cand)
+    blk_ref = blk
+    if bad_ids:
+        # the kernel masks an id out of range; the plain version indexes
+        # every id, so it gets the last block instead, all past n_cand
+        blk, blk_ref = blk.clone(), blk.clone()
+        blk[0, 1], blk[1, 0], blk[2, 5] = N // bs, -2, N // bs + 7
+        blk_ref[0, 1] = blk_ref[1, 0] = blk_ref[2, 5] = N // bs - 1
+        assert (N // bs - 1) * bs >= n_cand
+    n0 = block_topk_attention.launches
+    got = block_topk_attention(q, kv, 1, blk.to(idx_dtype), nc, block=bs)
     torch.cuda.synchronize()
-    ref = block_topk_attention_ref(q, kv, 1, blk, n_cand, block=bs)
+    assert block_topk_attention.launches == n0 + 1
+    ref = block_topk_attention_ref(q, kv, 1, blk_ref, nc, block=bs)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-4,
                                    atol=1e-4 * max(1.0, b.abs().max().item()))
+    if isinstance(n_cand, list):    # a head with no candidate
+        h = n_cand.index(0)
+        assert got[0][h].eq(-1e30).all() and not got[1][h].any()
+        assert not got[2][h].any()
 
 
 @pytest.mark.parametrize("round_bf16", [False, True])
@@ -212,17 +242,28 @@ def test_adc_scores_kernel_matches_plain(dev, lead, H_kv, g, S, C, T,
         torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("B,H_kv,g,C,T,bs,n_cand", [
-    (None, 8, 4, 64, 33024, 256, 25570), (None, 2, 8, 256, 2048, 16, 1999),
-    (3, 2, 2, 64, 2048, 128, [2048, 700, 0]), (None, 2, 4, 64, 4096, 512, 0)])
-def test_adc_block_scores_kernel_matches_plain(dev, B, H_kv, g, C, T, bs,
-                                               n_cand):
-    rng = np.random.default_rng(T + bs)
+def _adc_block_inputs(dev, B, H_kv, g, S, C, T, seed):
+    rng = np.random.default_rng(seed)
     lead = () if B is None else (B,)
-    lut = torch.from_numpy(rng.normal(size=(*lead, H_kv, g, 2, C)).astype(
+    lut = torch.from_numpy(rng.normal(size=(*lead, H_kv, g, S, C)).astype(
         np.float32) * 4).to(dev)
-    codes = torch.from_numpy(rng.integers(0, C, size=(*lead, H_kv, 2, T))
+    codes = torch.from_numpy(rng.integers(0, C, size=(*lead, H_kv, S, T))
                              .astype(np.uint8)).to(dev)
+    return lut, codes
+
+
+@pytest.mark.parametrize("B,H_kv,g,S,C,T,bs,n_cand", [
+    (None, 8, 4, 2, 64, 33024, 256, 25570), (None, 2, 8, 2, 256, 2048, 16, 1999),
+    (3, 2, 2, 2, 64, 2048, 128, [2048, 700, 0]), (None, 2, 4, 2, 64, 4096, 512, 0),
+    # a long row (two rounds per CTA); the largest LUT (g 8, S 16, C 256);
+    # B 8 with a [B] n_cand that includes 0 and T; blocks longer than 4096
+    # tokens; T and sel_block that are not multiples of 16 (byte loads)
+    (None, 8, 4, 2, 64, 131072, 256, 100000), (None, 2, 8, 16, 256, 4096, 256, 3000),
+    (8, 8, 4, 2, 64, 8192, 256, [8192, 0, 5000, 1, 8191, 256, 0, 4000]),
+    (None, 2, 2, 2, 64, 16384, 8192, 12000), (None, 2, 4, 4, 16, 1000, 40, 777)])
+def test_adc_block_scores_kernel_matches_plain(dev, B, H_kv, g, S, C, T, bs,
+                                               n_cand):
+    lut, codes = _adc_block_inputs(dev, B, H_kv, g, S, C, T, T + bs)
     nc = (torch.tensor(n_cand, dtype=torch.int32, device=dev)
           if isinstance(n_cand, list) else n_cand)
     n0 = adc_block_scores.launches
@@ -234,11 +275,46 @@ def test_adc_block_scores_kernel_matches_plain(dev, B, H_kv, g, C, T, bs,
     scale = ref.abs().amax(-1, keepdim=True).clamp(min=1e-30)
     assert ((got - ref).abs() / scale).max().item() <= 1e-5
     assert (got[ref.sum(-1) == 0] == 0).all()       # n_cand 0: zeros
-    if B is None and n_cand:
+    if B is None and n_cand and 13 * bs <= n_cand:
         k = 13 * bs
         assert torch.equal(
             pq.topk_from_block_mass(got, n_cand, k, group=g, block=bs),
             pq.topk_from_block_mass(ref, n_cand, k, group=g, block=bs))
+
+
+def _decode_kernel_calls(dev):
+    """K1 with int64 block ids and K3, each at the 32k decode widths (8 kv
+    heads, g 4, D 128; 13 of 129 blocks of 256 rows)."""
+    q, kv, blk = _block_attn_inputs(dev, torch.bfloat16, 128, 256, 13, 4,
+                                    L=1, H_kv=8, N=33024)
+    lut, codes = _adc_block_inputs(dev, None, 8, 4, 2, 64, 33024, 0)
+    assert blk.dtype == torch.int64
+    return (lambda: block_topk_attention(q, kv, 0, blk, 25570, block=256),
+            lambda: (adc_block_scores(lut, codes, 25570, sel_block=256,
+                                      head_dim=128),))
+
+
+def test_decode_kernels_are_deterministic(dev):
+    # the on-chip merges sum in a fixed order, with no atomics
+    for call in _decode_kernel_calls(dev):
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_decode_kernels_launch_once(dev):
+    # one CUDA kernel per call, and no cast, memset or copy beside it
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for call in _decode_kernel_calls(dev):
+        call()                                  # build and load first
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        ev = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        assert len(ev) == 1, ev
 
 
 @pytest.mark.parametrize("dtype,D2", [(torch.bfloat16, 256),
