@@ -11,8 +11,15 @@ the fused block-scorer path (K3 + K1) and the score-reading policies h2o
 ("sum" and "max") and infllm (K2 + K4 at prefill), checks that each request
 launched exactly the kernels of its path, profiles a few decode steps of
 each path (device time and launches per step), then holds the kernels
-against the plain versions end to end at reduced depth. Any failure exits
-non-zero. Without CUDA it exits 1 and prints no result.
+against the plain versions end to end at reduced depth. Then bench.py's
+batched protocol at 8 layers: one 32k prompt inserted into B = 8 and B = 1
+slots, pq_search (int8 tail, K1 with the local window) and `original`,
+one chunk decoded eagerly and replayed from a CUDA graph with identical
+tokens and states, launches per step by stage, device busy share, capture
+time and peak memory; K1 at the batched shapes (the kernels line carries
+it) with a sweep of its CTAs per head, K3 at B 8, and 2-layer batched
+kernels-vs-plain checks. Any failure exits non-zero. Without CUDA it exits
+1 and prints no result.
 
 Output: the card's name and power limit, per-phase results, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -36,7 +43,7 @@ from pqcache_tpu_torch import config
 from pqcache_tpu_torch.core import pq
 from pqcache_tpu_torch.core.budget import compute_budget
 from pqcache_tpu_torch.models import llama
-from pqcache_tpu_torch.ops import _build, dispatch
+from pqcache_tpu_torch.ops import _build, adc, block_attn, dispatch
 from pqcache_tpu_torch.ops.adc import (adc_block_scores, adc_block_scores_ref,
                                        adc_scores, adc_scores_ref)
 from pqcache_tpu_torch.ops.attention_ref import (chunked_attention,
@@ -48,7 +55,9 @@ from pqcache_tpu_torch.ops.flash_scores import flash_scores
 from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
 from pqcache_tpu_torch.policies import h2o, infllm
 from pqcache_tpu_torch.policies.base import get_policy
+from pqcache_tpu_torch.runtime import stages
 from pqcache_tpu_torch.runtime.generate import Engine, bucket_length
+from pqcache_tpu_torch.runtime.state import per_head
 
 # published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them, HBM3
 PEAK_BF16 = 989e12
@@ -953,6 +962,438 @@ def score_self_check(dev, params, model, engine: str):
                          f"end ({engine})")
 
 
+# ---------------------------------------------------------------------------
+# The batched decode, bench.py's protocol, eager and replayed from a CUDA graph
+
+BATCH_LAYERS = 8          # bench.py's depth at Llama-3.1-8B widths
+BATCH_CTX = 32768         # bench.py's prompt: one 32k prompt, no pad
+BATCH_GEN = 128           # bench.py's gen: one chunk of ring_k = 128 steps
+BATCH_PROFILE = 4         # profiled steps (a short chunk of its own)
+# the most steps the phase decodes on one batched state (two chunks, the
+# profiled steps, a whole profiled chunk), reserved as max_new_tokens
+BATCH_STEPS = 3 * BATCH_GEN + BATCH_PROFILE
+BATCH_SEGMENT = 16        # steps per profile of a whole replayed chunk
+# the kernels of each batched path, and the name of each in the profiler
+PATH_KERNELS = {"pq_search": ("block_topk_attention",), "original": ()}
+DEVICE_NAMES = {"block_topk_attention": "::block_attn_kernel<",
+                "adc_block_scores": "::block_scores_kernel<",
+                "adc_scores": "::adc_scores_kernel<",
+                "gather_rows": "::gather_kernel<"}
+
+
+def batched_cfg(model, policy: str, kernels: str = "auto",
+                compress: float = 0.2, **pq_kw):
+    """bench.py's configuration: select_block 256 with the joint-histogram
+    scorer, an int8 tail for pq_search (bf16 for `original`), ring_cap 128,
+    jhist_defer "auto", fetch_par 32 (accepted, no effect on the card),
+    budget 0.2 / 0.5 / sink 32; bf16 weights. Where bench.py reserves gen
+    + 2 new tokens, this reserves the BATCH_STEPS the phase decodes."""
+    kw = dict(n_subvec_per_head=2, n_subbits=6, kmeans_iters=6,
+              select_block=256, fetch_par=32, ring_cap=128)
+    kw.update(pq_kw)
+    return config.EngineConfig(
+        model=model, pq=config.PQConfig(**kw),
+        budget=config.BudgetConfig(compress_ratio=compress, recent_ratio=0.5,
+                                   sink_size=32),
+        cache=config.CacheConfig(
+            kv_dtype="int8" if policy == "pq_search" else "bf16"),
+        runtime=config.RuntimeConfig(
+            policy=policy, prefill_bucket=1024, max_new_tokens=BATCH_STEPS,
+            max_seq_len=BATCH_CTX + 2048, kernels=kernels))
+
+
+def _counts() -> dict:
+    return {k: fn.launches for k, fn in KERNELS.items()}
+
+
+def _zero_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _profile(run, steps: int) -> dict:
+    """torch.profiler over run() (a chunk of `steps` steps and its flush):
+    device kernels per step by name and their device ms per step; host
+    launches per step (kernel launches, graph launches) attributed to the
+    stage ranges that hold them (runtime/stages.py)."""
+    import bisect
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    # device events: kernels (not copies, not the stage marks' own device
+    # ranges, which span their kernels)
+    dev_ev = [e for e in evs if e.device_type == DeviceType.CUDA
+              and not e.name.startswith(("Memcpy", "Memset", stages.PREFIX))]
+    by_name = {}
+    for e in dev_ev:
+        by_name[e.name] = by_name.get(e.name, 0) + 1
+    ranges = sorted((e.time_range.start, e.time_range.end,
+                     e.name[len(stages.PREFIX):]) for e in evs
+                    if e.name.startswith(stages.PREFIX))
+    starts = [r[0] for r in ranges]
+    by_stage, graph_launches = {}, 0
+    for e in evs:
+        if e.device_type == DeviceType.CUDA:
+            continue
+        if "GraphLaunch" in e.name:
+            graph_launches += 1
+        if "LaunchKernel" not in e.name:
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        st = (ranges[i][2] if i >= 0 and e.time_range.start < ranges[i][1]
+              else "other")
+        by_stage[st] = by_stage.get(st, 0) + 1
+    dev_t = {}
+    for e in dev_ev:
+        dev_t[e.name] = dev_t.get(e.name, 0.0) + e.self_device_time_total
+    top = sorted(dev_t.items(), key=lambda kv: -kv[1])[:8]
+    return dict(
+        kernels=len(dev_ev) / steps,
+        dev_ms=sum(e.self_device_time_total for e in dev_ev) / 1e3 / steps,
+        top="; ".join(f"{k[:56]} {v / 1e3 / steps:.3f}" for k, v in top),
+        host_launches=sum(by_stage.values()) / steps,
+        graph_launches=graph_launches / steps,
+        by_stage={k: v / steps for k, v in sorted(by_stage.items())},
+        by_name=by_name)
+
+
+def _same_state(a, b) -> bool:
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a)
+               if isinstance(getattr(a, f.name), torch.Tensor))
+
+
+def batched_run(dev, model, params, pol, state, first: int, B: int,
+                name: str) -> dict:
+    """One arm at batch B: the prefilled state inserted into B slots, one
+    chunk of BATCH_GEN steps eagerly (on a copy of the batched state) and
+    the same chunk replayed from a CUDA graph (its first step eager, then
+    the capture); tokens and the states after the flush must be identical.
+    A second replayed chunk is timed; profiles of BATCH_PROFILE steps
+    attribute the launches by stage (eager) and count the replayed path
+    kernels on the card, which must be BATCH_PROFILE x L while the
+    wrappers' counters stay at 0. Kernel counts are zeroed before and read
+    after the eager chunk and the capture; the replayed launches are the
+    replays times the profiled launches per step."""
+    from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
+    L = model.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    bstate = pol.init_batched_state(B)
+    for slot in range(B):
+        pol.insert_slot(bstate, state, slot)
+    twin = copy.deepcopy(bstate)
+    tok = torch.full((B,), first, dtype=torch.int32, device=dev)
+    pos = torch.full((B,), BATCH_CTX, dtype=torch.int32, device=dev)
+    n = BATCH_GEN
+    eager = BatchedDecoder(model, params, pol, twin, chunk=n, graph=False)
+    replay = BatchedDecoder(model, params, pol, bstate, chunk=n)
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = eager.decode(tok, pos, n)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t) * 1e3 / n
+    eager_counts = _counts()
+    _zero_counts()
+    t = time.perf_counter()
+    got = replay.decode(tok, pos, n)
+    torch.cuda.synchronize()
+    first_chunk_s = time.perf_counter() - t
+    capture_counts = _counts()
+    same_tokens = torch.equal(got, want)
+    same_state = _same_state(bstate, twin)
+    t = time.perf_counter()
+    replay.decode(got[-1], pos + n, n)
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t) * 1e3 / n
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # profiles: a short chunk eagerly with its stages marked, on the copy,
+    # and replayed, whose path kernels must number steps x L; then, where
+    # the tail has room for it (the pq arm at B 8), a whole replayed chunk
+    # of ring_k steps in BATCH_SEGMENT-step profiles, counted per segment
+    steps = BATCH_PROFILE
+    with stages.recording():
+        prof_eager = _profile(lambda: eager.decode(
+            want[-1], pos + n, steps), steps)
+    _zero_counts()
+    prof_replay = _profile(lambda: replay.decode(
+        got[-1], pos + 2 * n, steps), steps)
+    replay_counted = _counts()
+    path = PATH_KERNELS[pol.cfg.runtime.policy]
+
+    def path_seen(profiles):
+        return {k: sum(c for pr in profiles for nm, c in pr["by_name"].items()
+                       if DEVICE_NAMES[k] in nm) for k in path}
+    seen = path_seen([prof_replay])
+    whole = ""
+    if pol.cfg.runtime.policy == "pq_search" and B == 8:
+        replay.begin(got[-1], pos + 2 * n + steps)
+        segs = [_profile(lambda: [replay.step()
+                                  for _ in range(BATCH_SEGMENT)],
+                         BATCH_SEGMENT) for _ in range(n // BATCH_SEGMENT)]
+        replay.finish(n)
+        whole = (f"; a whole replayed chunk of {n} steps: path kernels "
+                 f"{path_seen(segs)} (per {BATCH_SEGMENT}-step segment "
+                 f"{[path_seen([sg]) for sg in segs]}, kernels per segment "
+                 f"{[round(sg['kernels'] * BATCH_SEGMENT) for sg in segs]})")
+    log(f"batched {name} B={B}: eager {eager_ms:.2f} ms/token "
+        f"({B * 1e3 / eager_ms:.1f} tok/s aggregate) over {n} steps; "
+        f"replayed {replay_ms:.3f} ms/token ({B * 1e3 / replay_ms:.1f} tok/s "
+        f"aggregate, {eager_ms / replay_ms:.2f}x); first replayed chunk "
+        f"{first_chunk_s:.2f} s with the eager warm-up step and the capture "
+        f"({replay.capture_seconds:.3f} s, graph pool "
+        f"{replay.pool_bytes / 2 ** 20:.0f} MiB); joint histogram joins "
+        f"deferred: {getattr(pol, '_jhist_defer', lambda s: 'n/a')(bstate)}"
+        f"; tokens identical "
+        f"{same_tokens}, states identical after the flush {same_state}; "
+        f"peak {peak:.2f} GiB")
+    log(f"batched {name} B={B} eager profile: {prof_eager['kernels']:.0f} "
+        f"kernels/step, {prof_eager['host_launches']:.0f} host launches/step "
+        f"by stage " + json.dumps({k: round(v, 2) for k, v in
+                                    prof_eager["by_stage"].items()})
+        + f"; device under the profiler {prof_eager['dev_ms']:.3f} ms/step; "
+        f"busy (the replayed step's device time over the eager step) "
+        f"{prof_replay['dev_ms'] / eager_ms:.1%}; top kernels (ms/step): "
+        + prof_eager["top"])
+    log(f"batched {name} B={B} replayed profile over {steps} steps: "
+        f"{prof_replay['kernels']:.0f} kernels/step from "
+        f"{prof_replay['graph_launches']:.2f} graph launches and "
+        f"{prof_replay['host_launches']:.2f} kernel launches per step on the "
+        f"host; device {prof_replay['dev_ms']:.3f} ms/step, "
+        f"busy {prof_replay['dev_ms'] / replay_ms:.1%} of the unprofiled "
+        f"replayed step; path kernels seen {seen}, counted by the wrappers "
+        f"during the replays {replay_counted}; top kernels (ms/step): "
+        + prof_replay["top"] + whole)
+    want_eager = {k: L * n * (k in path) for k in KERNELS}
+    want_capture = {k: 2 * L * (k in path) for k in KERNELS}
+    if (not same_tokens or not same_state or eager_counts != want_eager
+            or capture_counts != want_capture
+            or any(seen[k] != L * steps for k in path)
+            or any(replay_counted.values())
+            or not bool(((got >= 0) & (got < model.vocab_size)).all())):
+        raise SystemExit(
+            f"batched {name} B={B} failed: tokens {same_tokens}, states "
+            f"{same_state}, eager launches {eager_counts} (expected "
+            f"{want_eager}), capture {capture_counts} (expected "
+            f"{want_capture}), replayed path kernels {seen}")
+    replayed = {k: replay.replays * seen[k] // steps for k in path}
+    out = dict(eager_ms=eager_ms, replay_ms=replay_ms, peak_gib=peak,
+               capture_s=replay.capture_seconds, counts=eager_counts,
+               replayed=replayed,
+               capture_counts=capture_counts, bstate=bstate)
+    del twin, eager, replay
+    return out
+
+
+def k1_batched_entry(dev, pol, bstate) -> dict:
+    """K1 at the batched shapes of bench.py's path, on the real tail of the
+    B = 8 state: 64 folded kv heads, 13 selected blocks of 256 rows below
+    each head's n_cand, the local window of 3273 rows from n_cand (win_len
+    read from the card), int8 rows, q f32. Timed by CUDA-graph replay
+    cycling over the 8 layers (about 108 MB of rows per call, 864 MB per
+    cycle), so rows arrive cold."""
+    L, Hf, N, D2 = bstate.kv_tail.shape
+    D, bs, local = D2 // 2, pol.select_block, pol.budget.local
+    g = pol.group
+    nb_sel = -(-pol.budget.topk // bs)
+    n_c = per_head(bstate.n_cand, pol.H_kv)
+    rng = np.random.default_rng(SEED + 7)
+    ncn = n_c.cpu().numpy()
+    blk_np = np.stack([np.sort(rng.choice(ncn[h] // bs, nb_sel,
+                                          replace=False)) for h in range(Hf)])
+    blk = torch.from_numpy(blk_np).to(dev)
+    q = torch.randn((Hf * g, 1, D), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 7), device=dev) * 0.01
+    wl = torch.full((), local, dtype=torch.int32, device=dev)
+    kw = dict(block=bs, win_len=wl, win_max=local)
+    got = block_topk_attention(q, bstate.kv_tail, 3, blk, n_c, **kw)
+    ctas = block_attn.last_ctas()
+    torch.cuda.synchronize()
+    ref = block_topk_attention_ref(q, bstate.kv_tail, 3, blk, n_c, **kw)
+    err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    rel = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+              for a, b in zip(got, ref))
+    log(f"K1 batched (64 folded heads, window {local}, int8): max_abs_err "
+        f"{err:.3e}, {rel:.3e} relative to the largest entry (tol {K1_TOL});"
+        f" {ctas} CTAs per kv head")
+    if not rel <= K1_TOL:
+        raise SystemExit("K1 with the window disagrees with its plain version")
+    layer = iter(range(10 ** 9))
+
+    def call():
+        return block_topk_attention(q, bstate.kv_tail, next(layer) % L, blk,
+                                    n_c, **kw)
+    ms = graph_ms(call, 4 * L)
+    plain_ms = graph_ms(lambda: block_topk_attention_ref(
+        q, bstate.kv_tail, next(layer) % L, blk, n_c, **kw), L)
+    call_ms = cuda_ms(lambda: block_topk_attention(
+        q, bstate.kv_tail, next(layer) % L, blk, n_c, **kw), 200, warmup=8)
+    sel_rows = int(np.minimum(bs, np.maximum(ncn[:, None] - blk_np * bs,
+                                             0)).sum())
+    win_rows = int(np.minimum(local, N - ncn).sum())
+    rows = sel_rows + win_rows
+    nbytes = rows * D2 + q.numel() * 4 + Hf * g * 4 * (2 + D)
+    ops = 4.0 * g * D * rows
+    bound_ms = max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3
+    log(f"K1 batched: kernel {ms * 1e3:.2f} us of device time per call "
+        f"({rows} rows, {nbytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%} of "
+        f"its bound), {call_ms * 1e3:.2f} us per call from Python; plain "
+        f"{plain_ms:.3f} ms; bound {bound_ms * 1e3:.2f} us (bytes); library "
+        f"call: none")
+    return dict(name="block_topk_attention", route="cuda",
+                source="pqcache_tpu_torch/csrc/block_attn.cu",
+                replaces="pqcache_tpu/ops/block_attn_pallas.py:138",
+                max_abs_err=err, max_row_rel_err=row_rel_err(got[2], ref[2]),
+                ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None)
+
+
+def k3_batched(dev, n_cand) -> None:
+    """K3 at B 8 (the batched K3 branch's shapes: [8, 8, 4, 2, 64] LUT,
+    codes [8, 8, 2, 33280], the slots' n_cand), codes cold (16 layers, 68
+    MB per cycle); prints the CTAs per (slot, kv head) it chose."""
+    m = config.LLAMA31_8B
+    B, H_kv, g, L, bs, D = 8, m.num_kv_heads, m.num_heads // m.num_kv_heads, \
+        16, 256, m.head_dim
+    T = 33280
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    lut = torch.randn((B, H_kv, g, 2, 64), generator=gen, device=dev) * 8
+    codes = torch.randint(0, 64, (L, B, H_kv, 2, T), generator=gen,
+                          device=dev, dtype=torch.uint8)
+    got = adc_block_scores(lut, codes[3], n_cand, sel_block=bs, head_dim=D)
+    ctas = adc.block_scores_ctas()
+    torch.cuda.synchronize()
+    ref = adc_block_scores_ref(lut, codes[3], n_cand, sel_block=bs,
+                               head_dim=D)
+    rel = ((got - ref).abs() / ref.abs().amax(-1, keepdim=True)).max().item()
+    layer = iter(range(10 ** 9))
+    ms = graph_ms(lambda: adc_block_scores(
+        lut, codes[next(layer) % L], n_cand, sel_block=bs, head_dim=D), 4 * L)
+    nbytes = codes[0].numel() + lut.numel() * 4 + got.numel() * 4
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    log(f"K3 batched B={B}: {rel:.3e} relative to each row's largest entry "
+        f"(tol {K3_TOL}); {ctas} CTAs per (slot, kv head); kernel "
+        f"{ms * 1e3:.2f} us of device time per call, codes cold "
+        f"({nbytes / ms / 1e6:.0f} GB/s, bound {bound_ms * 1e3:.2f} us)")
+    if not rel <= K3_TOL:
+        raise SystemExit("K3 at B 8 disagrees with its plain version")
+
+
+def batched_phase(dev, params, model) -> tuple:
+    """bench.py's protocol through the port at BATCH_LAYERS layers: the
+    pq_search arm (int8 tail) and then, with the pq state freed, the
+    `original` arm (bf16 cache), each prefilled once from one 32k prompt
+    (TTFT), then decoded at B = 8 and at B = 1, eagerly and replayed.
+    Returns (the K1 entry at the batched shapes, the launches the wrappers
+    counted, the launches replayed from the graphs)."""
+    model = dataclasses.replace(model, num_layers=BATCH_LAYERS)
+    params = dict(params, layers={k: v[:BATCH_LAYERS]
+                                  for k, v in params["layers"].items()})
+    ids = np.random.default_rng(SEED + 3).integers(0, model.vocab_size,
+                                                   BATCH_CTX)
+    toks = torch.from_numpy(ids).to(dev)
+    launches = dict.fromkeys(KERNELS, 0)
+    replayed = dict.fromkeys(KERNELS, 0)
+    entry = None
+    for policy in ("pq_search", "original"):
+        cfg = batched_cfg(model, policy)
+        pol = get_policy(cfg, compute_budget(cfg.budget, BATCH_CTX,
+                                             BATCH_STEPS), dev)
+        state = pol.init_state()
+        _zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        first = int(torch.argmax(llama.prefill(model, params, pol, state,
+                                               toks, 0, BATCH_CTX)))
+        ttft = time.perf_counter() - t
+        for k, v in _counts().items():
+            launches[k] += v
+        log(f"batched {policy}: TTFT {ttft * 1e3:.1f} ms ({BATCH_LAYERS} "
+            f"layers, prompt {BATCH_CTX}); ring_k {getattr(pol, 'ring_k', 0)}")
+        for B in (8, 1):
+            r = batched_run(dev, model, params, pol, state, first, B,
+                            policy)
+            for counts in (r["counts"], r["capture_counts"]):
+                for k, v in counts.items():
+                    launches[k] += v
+            for k, v in r["replayed"].items():
+                replayed[k] += v
+            if policy == "pq_search" and B == 8:
+                entry = k1_batched_entry(dev, pol, r["bstate"])
+                k3_batched(dev, r["bstate"].n_cand)
+            del r
+            torch.cuda.empty_cache()
+        del state, pol
+        torch.cuda.empty_cache()
+    return entry, launches, replayed
+
+
+def batched_self_check(dev, params, model, name: str, **pq_kw) -> None:
+    """kernels="auto" against kernels="xla" (the plain versions) on the
+    batched path at SELF_LAYERS layers: two slots (3072- and 3000-token
+    prompts) prefilled through the kernels and inserted into one batched
+    state and a copy of it; 16 steps with ring_cap 8 (two flushes), each
+    step's logits from both routes fed the plain route's tokens, held to
+    LOGIT_TOL, greedy tokens equal away from a near tie. Budget
+    SELF_COMPRESS, so that the top-k takes every candidate block."""
+    small, sp, _ = _small(model, params)
+    rng = np.random.default_rng(SEED + 9)
+    P, lengths, n_steps = 3072, (3072, 3000), 16
+    pols = {}
+    for kernels in ("auto", "xla"):
+        cfg = batched_cfg(small, "pq_search", kernels, SELF_COMPRESS,
+                          ring_cap=8, **pq_kw)
+        pols[kernels] = get_policy(
+            cfg, compute_budget(cfg.budget, P, BATCH_GEN + 2), dev)
+    pol = pols["auto"]
+    bstate = pol.init_batched_state(len(lengths))
+    first, pos = [], []
+    for slot, n in enumerate(lengths):
+        ids = np.zeros(P, np.int64)
+        ids[P - n:] = rng.integers(0, small.vocab_size, n)
+        st = pol.init_state()
+        lg = llama.prefill(small, sp, pol, st, torch.from_numpy(ids).to(dev),
+                           P - n, n)
+        pol.insert_slot(bstate, st, slot)
+        first.append(int(torch.argmax(lg)))
+        pos.append(n)
+    states = {"auto": bstate, "xla": copy.deepcopy(bstate)}
+    tok = torch.tensor(first, dtype=torch.int32, device=dev)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    diffs, parted = [], []
+    for i in range(n_steps):
+        lg = {k: llama.decode_step_batched(small, sp, pols[k], states[k], tok,
+                                           pos) for k in ("auto", "xla")}
+        d = (lg["auto"] - lg["xla"]).abs().amax(-1)
+        diffs.append(d.max().item())
+        a, x = lg["auto"].argmax(-1), lg["xla"].argmax(-1)
+        for b in torch.nonzero(a != x).flatten().tolist():
+            top2 = lg["xla"][b].topk(2).values
+            parted.append((i, b, (top2[0] - top2[1]).item(), d[b].item()))
+        tok, pos = x.to(torch.int32), pos + 1
+        if (i + 1) % pol.ring_k == 0:
+            for k in ("auto", "xla"):
+                pols[k].flush_ring_batched(states[k])
+    same_hist = (pol.use_jhist and torch.equal(states["auto"].jhist,
+                                               states["xla"].jhist))
+    log(f"self-check batched {name} ({SELF_LAYERS} layers, B "
+        f"{len(lengths)}, ring_k {pol.ring_k}, joins deferred "
+        f"{pol._jhist_defer(bstate)}): max |logit diff| {max(diffs):.4f} "
+        f"(tol {LOGIT_TOL}) over {n_steps} steps; greedy tokens parted at "
+        f"{parted or 'no step'}; histograms equal: "
+        f"{same_hist if pol.use_jhist else 'n/a'}")
+    if (max(diffs) > LOGIT_TOL or any(gap > 2 * d for _, _, gap, d in parted)
+            or (pol.use_jhist and not same_hist)):
+        raise SystemExit(f"batched kernels disagree with the plain versions "
+                         f"({name})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -984,12 +1425,26 @@ def main() -> int:
     score_self_check(dev, params, model, "h2o-sum")
     score_self_check(dev, params, model, "infllm")
     log(f"self-checks done at {time.perf_counter() - t0:.0f} s")
+    k1_entry, batched, replayed = batched_phase(dev, params, model)
+    for k, v in batched.items():
+        launches[k] += v
+    batched_self_check(dev, params, model, "jhist", jhist_defer="on")
+    batched_self_check(dev, params, model, "k3", scorer="kernel")
+    log(f"batched phase done at {time.perf_counter() - t0:.0f} s; launches "
+        f"{batched} from the wrappers, {replayed} replayed from the graphs")
+    # the kernels line takes K1 at the batched path's shapes
+    entries = [k1_entry if e["name"] == k1_entry["name"] else e
+               for e in entries]
     del params
+    # launches: the wrappers' counts (eager calls and captures);
+    # replayed_launches: the kernels the batched graphs' replays ran
     for e in entries:
         e["launches"] = launches[e["name"]]
+        e["replayed_launches"] = replayed[e["name"]]
         if not e["launches"]:
             raise SystemExit(f"{e['name']} never launched on the main path")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    keys = ("name", "route", "source", "replaces", "launches",
+            "replayed_launches", "max_abs_err",
             "max_row_rel_err", "ms", "call_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t0:.0f} s")

@@ -53,11 +53,22 @@ def _opt(src, name, device):
     return None if v is None else tensor_from_numpy(v, device)
 
 
+def _counter(src, name, device):
+    """A counter: a host int from a scalar (single sequence), an int32 [B]
+    tensor on ``device`` from a vector (a batched state)."""
+    a = np.asarray(_field(src, name))
+    if a.ndim == 0:
+        return int(a)
+    return tensor_from_numpy(a.astype(np.int32), device)
+
+
 def pq_state_from_numpy(src, device=None) -> PQState:
-    """A single-sequence JAX ``PQState`` with numpy leaves (an object with
-    the fields as attributes, or a dict) -> the port's PQState on
-    ``device`` (cuda unless given)."""
+    """A JAX ``PQState`` with numpy leaves (an object with the fields as
+    attributes, or a dict) -> the port's PQState on ``device`` (cuda unless
+    given). A batched state (counters [B]) keeps its counters on the device
+    and brings its ring (``ring_kv``, ``ring_r``) along."""
     device = resolve_device(device)
+    ring_r = _opt(src, "ring_r", device)
     return PQState(
         k_sink=tensor_from_numpy(_field(src, "k_sink"), device),
         v_sink=tensor_from_numpy(_field(src, "v_sink"), device),
@@ -65,25 +76,28 @@ def pq_state_from_numpy(src, device=None) -> PQState:
         codes=tensor_from_numpy(_field(src, "codes"), device),
         centroids=tensor_from_numpy(_field(src, "centroids"), device),
         phi=tensor_from_numpy(_field(src, "phi"), device),
-        n_cand=int(_field(src, "n_cand")),
-        pos=int(_field(src, "pos")),
+        n_cand=_counter(src, "n_cand", device),
+        pos=_counter(src, "pos", device),
         jhist=_opt(src, "jhist", device),
         k_scale=_opt(src, "k_scale", device),
         v_scale=_opt(src, "v_scale", device),
+        ring_kv=_opt(src, "ring_kv", device),
+        ring_r=None if ring_r is None else ring_r.to(torch.int32),
     )
 
 
 def dense_state_from_numpy(src, device=None) -> DenseState:
-    """A single-sequence JAX ``DenseState`` with numpy leaves -> the port's
-    DenseState on ``device`` (cuda unless given), with h2o's ``scores`` and
-    ``mask`` where the source has them."""
+    """A JAX ``DenseState`` with numpy leaves -> the port's DenseState on
+    ``device`` (cuda unless given), with h2o's ``scores`` and ``mask``
+    where the source has them; a batched state keeps its counters [B] on
+    the device."""
     device = resolve_device(device)
     return DenseState(
         k_cache=tensor_from_numpy(_field(src, "k_cache"), device),
         v_cache=tensor_from_numpy(_field(src, "v_cache"), device),
-        length=int(_field(src, "length")),
-        start=int(_field(src, "start")),
-        pos=int(_field(src, "pos")),
+        length=_counter(src, "length", device),
+        start=_counter(src, "start", device),
+        pos=_counter(src, "pos", device),
         scores=_opt(src, "scores", device),
         mask=_opt(src, "mask", device),
     )

@@ -274,7 +274,9 @@ def _valid_masks(n_valid, H_kv: int, group: int, T: int, device):
     pos = torch.arange(T, device=device)
     if isinstance(n_valid, torch.Tensor) and n_valid.dim() == 1:
         valid_kv = pos[None, :] < n_valid.to(device)[:, None]
-        return valid_kv, valid_kv.repeat_interleave(group, 0)
+        # each kv head's row `group` times (no count read on the host)
+        return valid_kv, valid_kv[:, None].expand(-1, group, -1).reshape(
+            -1, T)
     v = (pos < n_valid)[None, :]
     return v, v
 

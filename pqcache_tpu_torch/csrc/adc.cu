@@ -353,25 +353,30 @@ block_scores_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ c
   }
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
-  if (bytes > 48 * 1024)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  return cudaSuccess;
+template <int S, bool RND>
+cudaError_t scores_launch_rnd(const float* lut, const uint8_t* codes, int Hf, int g,
+                              int C, int T, float* out, cudaStream_t st) {
+  auto kernel = adc_scores_kernel<S, RND>;
+  // the LUT may take all the shared memory a block can opt in to: allowed
+  // once per process and instantiation, so that a launch inside a CUDA-graph
+  // capture makes no attribute call
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+  if (attr != cudaSuccess) return attr;
+  const int smem = g * S * C * (int)sizeof(float);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  kernel<<<dim3((T + TOK_CTA - 1) / TOK_CTA, Hf), NTHREADS, smem, st>>>(lut, codes, g, C, T, out);
+  return cudaGetLastError();
 }
 
 template <int S>
 cudaError_t scores_launch(const float* lut, const uint8_t* codes, int Hf, int g, int C,
                           int T, int round_bf16, float* out, cudaStream_t st) {
-  const int smem = g * S * C * (int)sizeof(float);
-  void (*kernel)(const float*, const uint8_t*, int, int, int, float*) =
-      round_bf16 ? &adc_scores_kernel<S, true> : &adc_scores_kernel<S, false>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((T + TOK_CTA - 1) / TOK_CTA, Hf), NTHREADS, smem, st>>>(lut, codes, g, C, T, out);
-  return cudaGetLastError();
+  return round_bf16 ? scores_launch_rnd<S, true>(lut, codes, Hf, g, C, T, out, st)
+                    : scores_launch_rnd<S, false>(lut, codes, Hf, g, C, T, out, st);
 }
+
+int last_block_ctas = 0;   // K3: CTAs per (slot, kv head) of the last launch
 
 template <int S>
 cudaError_t block_launch(const float* lut, const uint8_t* codes, const int* n_cand_vec,
@@ -389,6 +394,7 @@ cudaError_t block_launch(const float* lut, const uint8_t* codes, const int* n_ca
   const int cpb = (bs + tpi - 1) / tpi, bpr = K3_THREADS / cpb;
   const int fw = min(cpb & -cpb, 32);
   const int ctas = max(1, min(min(K3_MAX_CTAS, sm_count() / (B * H_kv)), NB));
+  last_block_ctas = ctas;
   const int max_rounds = ((NB + ctas - 1) / ctas + bpr - 1) / bpr;
   const size_t smem = sizeof(float) * (((g * S * C + 3) & ~3) +
                                        4 * g * K3_THREADS + g * max_rounds);
@@ -445,3 +451,6 @@ extern "C" int pq_adc_block_scores(const float* lut, const uint8_t* codes,
   }
 #undef PQ_ARGS
 }
+
+// CTAs per (slot, kv head) that the last pq_adc_block_scores launch chose
+extern "C" int pq_adc_block_scores_ctas() { return last_block_ctas; }

@@ -10,7 +10,12 @@
 //                                    applies the V scale to acc)
 //   blk_idx  [H_kv, nb_sel]          int32 or int64 selected block ids; an id
 //                                    out of range counts as all masked
-//   n_cand   [H_kv] int32 or one scalar
+//   n_cand   [H_kv] int32 or one scalar, in device memory or by value
+//   win_len  with win_max > 0 (local-window coverage): the rows [n_cand,
+//            n_cand + win_len) of each head are attended too, win_len cut to
+//            [0, min(win_max, N - n_cand)]; [H_kv] int32 or one scalar, in
+//            device memory or by value (a CUDA graph replays what the card
+//            holds, so a count that changes every step is read there)
 //   -> m, l  [H_kv, g] f32, acc [H_kv, g, D] f32; a head with no unmasked
 //      row gives (-1e30, 0, 0). The TPU kernel computes q, k, v and p in
 //      f32; here they reach the tensor cores as bf16 pairs that carry f32 to
@@ -19,7 +24,10 @@
 // What bounds it: every selected row is read once and used for g dot products
 // and g axpys, about 4 FLOP/byte: far below the card's ridge, so it is bound by
 // the bytes it moves: 8 kv heads x 13 blocks x 256 rows x 512 B = 13.5 MB per
-// layer-step at 32k in bf16, 4.04 us at 3.35 TB/s; half that in int8.
+// layer-step at 32k in bf16, 4.04 us at 3.35 TB/s; half that in int8. The
+// batched decode adds the local window: at B 8 (64 folded heads, 13 blocks
+// and a window of up to 3273 rows, int8) about 6600 rows x 256 B x 64 heads
+// = 108 MB per layer-step, 32 us.
 //
 // Design: one launch. Each kv head gets a thread-block cluster of CTAs (16
 // at H_kv = 8; the largest power of two whose clusters all fit on the card
@@ -28,8 +36,15 @@
 // blk_idx order (selection row j is row j % bs of block blk_idx[h, j / bs])
 // and reads its block ids itself, turning each into the row range [lo, hi)
 // of its block to read (the valid rows, [0, n_cand), cut to the share; an
-// out-of-range block is an empty range; a local-window entry of the batched
-// path would be another range).
+// out-of-range block is an empty range). The local window is win_max more
+// selection rows after the selected blocks, entry nb_sel + i holding the
+// window's rows [i bs, (i + 1) bs): the contiguous range [n_cand + i bs,
+// ...) of the tail, cut to win_len. Candidates lie below n_cand and the
+// window at or above it, so no row is read twice, at the tail's end too
+// (the TPU kernel's clamped duplicate entries have no counterpart here).
+// The pair fetch of the TPU kernel (2 bs-row DMAs, the unselected half
+// masked) computes the same function; its rows are already contiguous
+// ranges here, so it has no separate path.
 //   * Loads: one producer thread packs the ranges into a ring of NSTAGE
 //     32 KB stages and fills them by TMA (cp.async.bulk.tensor over the
 //     layer's tail as a 2-D tensor of rows, boxes of 32 or 8 rows, byte
@@ -143,7 +158,9 @@ block_attn_kernel(const __grid_constant__ CUtensorMap tm_big,
                   const __grid_constant__ CUtensorMap tm_small,
                   const QT* __restrict__ q, int layer, int H_kv, int N,
                   const void* __restrict__ blk_idx, int idx64, int nb_sel,
-                  const int* __restrict__ n_cand_vec, int n_cand_scalar, int bs,
+                  const int* __restrict__ n_cand_vec, int n_cand_stride,
+                  int n_cand_scalar, int win_max, const int* __restrict__ win_vec,
+                  int win_stride, int win_scalar, int bs,
                   float scale, float* __restrict__ m_out,
                   float* __restrict__ l_out, float* __restrict__ acc_out) {
   using C = Cfg<KT, D>;
@@ -166,28 +183,42 @@ block_attn_kernel(const __grid_constant__ CUtensorMap tm_big,
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_big)) : "memory");
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_small)) : "memory");
   }
-  const long long total = (long long)nb_sel * bs;
+  const long long total = (long long)nb_sel * bs + win_max;
   const int j0 = (int)(total * rank / ncta);
   const int j1 = (int)(total * (rank + 1) / ncta);
   const int kb0 = j0 / bs;
   const int nblk = j1 > j0 ? (j1 - 1) / bs - kb0 + 1 : 0;
 
   // the share's blocks as row ranges [lo, hi) of the block to read: the
-  // valid range (candidates are [0, n_cand)) cut to the share
-  const long long lo = 0, hi = n_cand_vec ? n_cand_vec[h] : n_cand_scalar;
+  // valid range (candidates are [0, n_cand)) cut to the share; the window's
+  // entries: rows [n_cand, n_cand + win) of the tail, cut to the share
+  const long long n_c = n_cand_vec ? n_cand_vec[h * n_cand_stride] : n_cand_scalar;
+  long long win = 0;
+  if (win_max) {
+    win = win_vec ? win_vec[h * win_stride] : win_scalar;
+    win = max(0ll, min(win, min((long long)win_max, (long long)N - n_c)));
+  }
   for (int k = threadIdx.x; k < nblk; k += NTHREADS) {
-    const size_t i = (size_t)h * nb_sel + kb0 + k;
-    const long long blk = idx64 ? static_cast<const long long*>(blk_idx)[i]
-                                : static_cast<const int*>(blk_idx)[i];
-    const int first = (kb0 + k) * bs;         // its first selection row
+    const int kb = kb0 + k;
+    const int first = kb * bs;                // its first selection row
     int4 e = make_int4(0, 0, 0, 0);
-    if (blk >= 0 && (blk + 1) * bs <= N) {
-      const long long row0 = blk * bs;
-      e.x = (int)row0;
-      e.y = (int)max(max(0ll, lo - row0), (long long)(j0 - first));
-      e.z = (int)min(min((long long)bs, hi - row0), (long long)(j1 - first));
-      if (e.z < e.y) e.z = e.y;
+    if (kb < nb_sel) {
+      const size_t i = (size_t)h * nb_sel + kb;
+      const long long blk = idx64 ? static_cast<const long long*>(blk_idx)[i]
+                                  : static_cast<const int*>(blk_idx)[i];
+      if (blk >= 0 && (blk + 1) * bs <= N) {
+        const long long row0 = blk * bs;
+        e.x = (int)row0;
+        e.y = max(0, j0 - first);
+        e.z = (int)min(min((long long)bs, n_c - row0), (long long)(j1 - first));
+      }
+    } else {
+      const long long off = (long long)(kb - nb_sel) * bs;
+      e.x = (int)(n_c + off);
+      e.y = max(0, j0 - first);
+      e.z = (int)min(min((long long)bs, win - off), (long long)(j1 - first));
     }
+    if (e.z < e.y) e.z = e.y;
     tab[k] = e;
   }
   const uint32_t full0 = smem_u32(&bars[0]), empty0 = smem_u32(&bars[NSTAGE]);
@@ -497,11 +528,21 @@ int active_clusters(K kernel, int ctas, int threads, size_t smem) {
   return n;
 }
 
+// the per-head counts: a device vector read at h * stride (stride 0: one
+// value for every head), or a scalar by value when the pointer is null
+struct Counts {
+  const int* n_cand_vec;
+  int n_cand_stride, n_cand_scalar, win_max;
+  const int* win_vec;
+  int win_stride, win_scalar;
+};
+
+int last_ctas = 0;     // CTAs per kv head of the last launch
+
 template <typename QT, typename KT, int D, int G>
 cudaError_t launch(const void* q, const void* kv, int layer, int H_kv, int N,
-                   const void* blk_idx, int idx64, int nb_sel,
-                   const int* n_cand_vec, int n_cand_scalar, int bs, float* m,
-                   float* l, float* acc, cudaStream_t stream) {
+                   const void* blk_idx, int idx64, int nb_sel, Counts cnt,
+                   int bs, float* m, float* l, float* acc, cudaStream_t stream) {
   using C = Cfg<KT, D>;
   auto kernel = block_attn_kernel<QT, KT, D, G>;
   // once per process, so that a launch inside a CUDA-graph capture makes no
@@ -522,7 +563,7 @@ cudaError_t launch(const void* q, const void* kv, int layer, int H_kv, int N,
   // head and the selection's stages whose clusters, one per head, all fit
   // on the card at once (a cluster that waits for room doubles the time),
   // else 1
-  const long long total = (long long)nb_sel * bs;
+  const long long total = (long long)nb_sel * bs + cnt.win_max;
   const long long by_rows = (total + C::R - 1) / C::R;
   const int by_sms = max(1, sm_count() / H_kv);
   static int fits[MAX_CTAS + 1] = {};   // per size: clusters that fit, + 1
@@ -532,22 +573,23 @@ cudaError_t launch(const void* q, const void* kv, int layer, int H_kv, int N,
     if (!fits[c]) fits[c] = 1 + active_clusters(kernel, c, NTHREADS, 1024 + RING_BYTES);
     if (fits[c] - 1 >= H_kv || c == 1) ctas = c;
   }
+  last_ctas = ctas;
   const long long share = (total + ctas - 1) / ctas;
   const size_t smem = 1024 + RING_BYTES + (share / bs + 2) * sizeof(int4);
   if (smem > (size_t)optin_smem() - 16 * 1024) return cudaErrorInvalidValue;
   return launch_cluster(kernel, dim3(ctas, H_kv), NTHREADS, smem, stream, tm_big,
                         tm_small, static_cast<const QT*>(q), layer, H_kv, N,
-                        blk_idx, idx64, nb_sel, n_cand_vec, n_cand_scalar, bs,
-                        1.0f / sqrtf((float)D), m, l, acc);
+                        blk_idx, idx64, nb_sel, cnt.n_cand_vec, cnt.n_cand_stride,
+                        cnt.n_cand_scalar, cnt.win_max, cnt.win_vec, cnt.win_stride,
+                        cnt.win_scalar, bs, 1.0f / sqrtf((float)D), m, l, acc);
 }
 
 template <typename QT, typename KT, int D>
 cudaError_t by_group(int g, const void* q, const void* kv, int layer,
                      int H_kv, int N, const void* blk_idx, int idx64,
-                     int nb_sel, const int* n_cand_vec, int n_cand_scalar,
-                     int bs, float* m, float* l, float* acc, cudaStream_t s) {
-#define PQ_ARGS q, kv, layer, H_kv, N, blk_idx, idx64, nb_sel, n_cand_vec, \
-                n_cand_scalar, bs, m, l, acc, s
+                     int nb_sel, Counts c, int bs, float* m, float* l,
+                     float* acc, cudaStream_t s) {
+#define PQ_ARGS q, kv, layer, H_kv, N, blk_idx, idx64, nb_sel, c, bs, m, l, acc, s
   switch (g) {
     case 1: return launch<QT, KT, D, 1>(PQ_ARGS);
     case 2: return launch<QT, KT, D, 2>(PQ_ARGS);
@@ -561,10 +603,9 @@ cudaError_t by_group(int g, const void* q, const void* kv, int layer,
 template <typename QT, typename KT>
 cudaError_t by_dim(int D, int g, const void* q, const void* kv, int layer,
                    int H_kv, int N, const void* blk_idx, int idx64,
-                   int nb_sel, const int* n_cand_vec, int n_cand_scalar,
-                   int bs, float* m, float* l, float* acc, cudaStream_t s) {
-#define PQ_ARGS g, q, kv, layer, H_kv, N, blk_idx, idx64, nb_sel, n_cand_vec, \
-                n_cand_scalar, bs, m, l, acc, s
+                   int nb_sel, Counts c, int bs, float* m, float* l,
+                   float* acc, cudaStream_t s) {
+#define PQ_ARGS g, q, kv, layer, H_kv, N, blk_idx, idx64, nb_sel, c, bs, m, l, acc, s
   if (D == 64) return by_group<QT, KT, 64>(PQ_ARGS);
   if (D == 128) return by_group<QT, KT, 128>(PQ_ARGS);
   return cudaErrorInvalidValue;
@@ -575,23 +616,31 @@ cudaError_t by_dim(int D, int g, const void* q, const void* kv, int layer,
 
 // kv_dtype: 1 = bf16 (q bf16), 2 = int8 (q f32); g in {1, 2, 4, 8}; D in
 // {64, 128}. blk_idx int64 when idx64, else int32. n_cand_vec may be null
-// (then n_cand_scalar applies to every head). kv 16-byte aligned; all
-// buffers contiguous. One launch; writes m, l [H_kv, g] and acc
-// [H_kv, g, D] and nothing else. Returns a cudaError_t (0 = launched).
+// (then n_cand_scalar applies to every head), else head h reads
+// n_cand_vec[h * n_cand_stride]; win_vec / win_stride / win_scalar the same
+// for win_len when win_max > 0. kv 16-byte aligned; all buffers contiguous.
+// One launch; writes m, l [H_kv, g] and acc [H_kv, g, D] and nothing else.
+// Returns a cudaError_t (0 = launched).
 extern "C" int pq_block_attn(const void* q, const void* kv, int kv_dtype,
                              int H_kv, int N, int D, int g, int layer,
                              const void* blk_idx, int idx64, int nb_sel,
-                             const int* n_cand_vec, int n_cand_scalar, int bs,
-                             float* m, float* l, float* acc, void* stream) {
-  if (nb_sel < 1 || bs < 1 || H_kv < 1 || N < bs ||
-      (long long)nb_sel * bs > (1ll << 30) ||
+                             const int* n_cand_vec, int n_cand_stride,
+                             int n_cand_scalar, int win_max, const int* win_vec,
+                             int win_stride, int win_scalar, int bs, float* m,
+                             float* l, float* acc, void* stream) {
+  if (nb_sel < 1 || bs < 1 || H_kv < 1 || N < bs || win_max < 0 ||
+      (long long)nb_sel * bs + win_max > (1ll << 30) ||
       reinterpret_cast<uintptr_t>(kv) % 16)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PQ_ARGS D, g, q, kv, layer, H_kv, N, blk_idx, idx64, nb_sel, \
-                n_cand_vec, n_cand_scalar, bs, m, l, acc, s
+  const Counts c = {n_cand_vec, n_cand_stride, n_cand_scalar, win_max,
+                    win_vec, win_stride, win_scalar};
+#define PQ_ARGS D, g, q, kv, layer, H_kv, N, blk_idx, idx64, nb_sel, c, bs, m, l, acc, s
   if (kv_dtype == 1) return by_dim<__nv_bfloat16, __nv_bfloat16>(PQ_ARGS);
   if (kv_dtype == 2) return by_dim<float, int8_t>(PQ_ARGS);
   return cudaErrorInvalidValue;
 #undef PQ_ARGS
 }
+
+// CTAs per kv head that the last pq_block_attn launch chose
+extern "C" int pq_block_attn_ctas() { return last_ctas; }

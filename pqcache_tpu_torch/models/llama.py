@@ -1,6 +1,8 @@
 """Llama-family decoder (Llama-2 / Llama-3.1 / Mistral) in PyTorch.
 
-Counterpart of ``pqcache_tpu/models/llama.py`` on the single-sequence path.
+Counterpart of ``pqcache_tpu/models/llama.py``: the single-sequence path
+and the batch-as-heads decode (B slots folded into the policy's kv-head
+axis, per-slot positions).
 Parameters keep the JAX layout — a dict with weights stacked over layers
 (``layers/wq`` [L, E, H*D] ...) applied as ``x @ w`` — so
 ``bridge.params_from_numpy`` moves a JAX tree across unchanged. The layer
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 
 from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.config import ModelConfig
+from pqcache_tpu_torch.runtime.stages import stage
 
 _LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "gate", "up", "down")
 
@@ -209,3 +212,67 @@ def decode_loop(cfg: ModelConfig, params: dict, policy, state,
         tok = torch.argmax(logits)
         out.append(tok)
     return torch.stack(out)
+
+
+# ---------------------------------------------------------------------------
+# Batch-as-heads decode (llama.py:584-687): B sequence slots, the policy's
+# state folded over the kv-head axis, the MLP / embedding / LM head as
+# ordinary [B, E] matmuls.
+
+def _apply_rope_batched(x: torch.Tensor, cos, sin) -> torch.Tensor:
+    """x [B, Hx, D]; cos/sin [B, D/2] (per-slot positions)."""
+    return apply_rope(x, cos[:, None, :], sin[:, None, :])
+
+
+@torch.no_grad()
+def decode_step_batched(cfg: ModelConfig, params: dict, policy, state,
+                        tokens: torch.Tensor, pos: torch.Tensor):
+    """One greedy-decode step for B slots: tokens, pos [B] int tensors on
+    the device. Returns logits [B, V] f32. Every count stays on the device,
+    so the step can be captured into a CUDA graph."""
+    B = tokens.shape[0]
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    with stage("embed_rope"):
+        hidden = params["embed"][tokens]                     # [B, E]
+        cos, sin = rope_cos_sin(cfg, pos)                    # [B, D/2]
+        shared = policy.shared_pre_batched(state)
+    ks, vs = [], []
+    for idx in range(cfg.num_layers):
+        lp = _layer_params(params, idx)
+        with stage("qkv"):
+            h_norm = rms_norm(hidden, lp["ln1"], cfg.rms_norm_eps)
+            q = _apply_rope_batched((h_norm @ lp["wq"]).reshape(B, H, D),
+                                    cos, sin)
+            k = _apply_rope_batched((h_norm @ lp["wk"]).reshape(B, Hkv, D),
+                                    cos, sin)
+            v = (h_norm @ lp["wv"]).reshape(B, Hkv, D)
+        attn, (k_new, v_new) = policy.decode_attn_batched(state, idx, q, k, v,
+                                                          shared)
+        with stage("out_mlp"):
+            hidden = _finish_layer(cfg, lp, hidden, attn.reshape(B, H * D))
+        ks.append(k_new)
+        vs.append(v_new)
+    with stage("commit"):
+        policy.commit_appends_batched(
+            state, (torch.stack(ks), torch.stack(vs)), shared)
+        policy.shared_post_batched(state, shared)
+    with stage("lm_head"):
+        last = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
+        return (last @ params["lm_head"]).float()
+
+
+@torch.no_grad()
+def decode_loop_batched(cfg: ModelConfig, params: dict, policy, state,
+                        tokens: torch.Tensor, pos: torch.Tensor,
+                        n_steps: int) -> torch.Tensor:
+    """Greedy decode of n_steps tokens for B slots, eagerly: tokens, pos
+    [B]. Returns tokens [n_steps, B] int32 on the device. A policy with a
+    write-combining ring takes at most ring_k steps, and its ring is
+    flushed into the per-slot tails at the end, as the JAX package's one
+    program per chunk does. The eager mode of
+    ``runtime/decode_graph.BatchedDecoder``, which replays the same step
+    from a CUDA graph."""
+    from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
+    return BatchedDecoder(cfg, params, policy, state, chunk=n_steps,
+                          graph=False, device=tokens.device).decode(
+                              tokens, pos, n_steps)

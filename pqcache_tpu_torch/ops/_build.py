@@ -31,9 +31,11 @@ SIGNATURES = {
     "flash_attention": {"pq_flash_attention": [_P] * 6 + [_I] * 9 + [_P]},
     "flash_scores": {"pq_flash_scores": [_P] * 6 + [_I] * 8 + [_P]},
     "block_attn": {"pq_block_attn": [_P, _P] + [_I] * 6
-                   + [_P, _I, _I, _P, _I, _I] + [_P] * 4},
+                   + [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I] + [_P] * 4,
+                   "pq_block_attn_ctas": []},
     "adc": {"pq_adc_scores": [_P, _P] + [_I] * 6 + [_P, _P],
-            "pq_adc_block_scores": [_P, _P, _P] + [_I] * 9 + [_P] * 2},
+            "pq_adc_block_scores": [_P, _P, _P] + [_I] * 9 + [_P] * 2,
+            "pq_adc_block_scores_ctas": []},
     "gather": {"pq_gather_rows": [_P, _P] + [_I] * 6 + [_P, _P]},
 }
 

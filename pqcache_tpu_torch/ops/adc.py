@@ -154,3 +154,8 @@ def adc_block_scores(lut: torch.Tensor, codes: torch.Tensor, n_cand, *,
 
 
 adc_block_scores.launches = 0
+
+
+def block_scores_ctas() -> int:
+    """CTAs per (slot, kv head) that K3's last launch chose."""
+    return _build.lib("adc").pq_adc_block_scores_ctas()

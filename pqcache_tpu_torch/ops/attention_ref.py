@@ -223,6 +223,16 @@ def segment_partial(qg: torch.Tensor, k_seg: torch.Tensor,
     return m, l, acc
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b [H, M, N] in f32. Two bf16 operands on the card multiply as a
+    bf16 GEMM that accumulates and writes f32: a product of two bf16 values
+    is exact in f32, so this is the f32 product without f32 copies of the
+    operands (at decode, b is a layer's whole key or value cache)."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def decode_window_attention_segments(q: torch.Tensor, segments,
                                      partials=()) -> torch.Tensor:
     """Single-step attention over several key/value segments without
@@ -236,7 +246,7 @@ def decode_window_attention_segments(q: torch.Tensor, segments,
     H_kv = (segments[0][0] if segments else partials[0][0]).shape[0]
     group = H // H_kv
     scale = 1.0 / (D ** 0.5)
-    qg = q.reshape(H_kv, group, D).float()
+    qg = q.reshape(H_kv, group, D)
 
     m = torch.full((H_kv, group), NEG_INF, device=q.device)
     l = torch.zeros((H_kv, group), device=q.device)
@@ -249,7 +259,7 @@ def decode_window_attention_segments(q: torch.Tensor, segments,
         acc = acc * c_old[..., None] + pacc * c_p[..., None]
         m = m_new
     for k_seg, v_seg, mask in segments:
-        logits = torch.einsum("hgd,hwd->hgw", qg, k_seg.float()) * scale
+        logits = _bmm_f32(qg, k_seg.transpose(1, 2)) * scale
         if mask is not None:
             logits = torch.where(mask[:, None, :], logits, NEG_INF)
         m_new = torch.maximum(m, logits.amax(-1))
@@ -258,8 +268,7 @@ def decode_window_attention_segments(q: torch.Tensor, segments,
             p = torch.where(mask[:, None, :], p, 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "hgw,hwd->hgd", p.to(v_seg.dtype).float(), v_seg.float())
+        acc = acc * corr[..., None] + _bmm_f32(p.to(v_seg.dtype), v_seg)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(H, 1, D).to(q.dtype)

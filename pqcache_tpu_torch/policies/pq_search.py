@@ -1,6 +1,6 @@
-"""`pq_search` policy: PQCache retrieval, single sequence.
+"""`pq_search` policy: PQCache retrieval, single sequence and batch-as-heads.
 
-Counterpart of the single-sequence part of ``pqcache_tpu/policies/pq_search.py``:
+Counterpart of ``pqcache_tpu/policies/pq_search.py``:
 
   prefill  flash attention (K2) over the left-padded prompt; then, per layer,
            Lloyd k-means codebooks over the non-sink keys, the sink / tail /
@@ -19,6 +19,20 @@ Counterpart of the single-sequence part of ``pqcache_tpu/policies/pq_search.py``
            [sink | local | new] segments by online softmax. After all layers,
            ``commit_appends`` encodes and appends every layer's new token and
            joins one token into the histogram, where there is one.
+
+Batch-as-heads (``init_batched_state``, ``insert_slot``,
+``decode_attn_batched``, ``commit_appends_batched``, ``flush_ring_batched``):
+B sequence slots folded into the kv-head axis, per-slot counters on the
+device. Every layer's new token goes to one column of the write-combining
+ring, attended raw from there until the chunk's flush encodes (and, for an
+int8 tail, quantizes) the ring into the per-slot tails. The local window
+rides K1 on the block paths (win_len = local - ring_r rows from n_cand, the
+rest of the window being in the ring); on the per-token path it is a masked
+segment. The joint histogram joins one token per step, or, deferred
+(``jhist_defer``), the chunk's tokens at the flush, the scorer adding their
+exact pending mass meanwhile. Nothing on this path reads a count on the
+host, so a decode step can be captured into a CUDA graph
+(``runtime/decode_graph.py``).
 
 Kernel selection follows the JAX policy with the Mosaic alignment gates
 dropped: ``RuntimeConfig.kernels`` "auto"/"pallas" take the kernel wrappers,
@@ -42,13 +56,15 @@ from pqcache_tpu_torch.core import pq, quant
 from pqcache_tpu_torch.core.budget import Budget
 from pqcache_tpu_torch.ops.adc import (adc_block_scores, adc_scores,
                                        adc_scores_ref)
-from pqcache_tpu_torch.ops.attention_ref import decode_window_attention_segments
+from pqcache_tpu_torch.ops.attention_ref import (
+    decode_window_attention_segments, segment_partial)
 from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
                                               block_topk_attention_ref)
 from pqcache_tpu_torch.ops.dispatch import dense_prefill_attention
 from pqcache_tpu_torch.ops.gather import gather_rows
 from pqcache_tpu_torch.policies.base import register_policy, use_kernels
-from pqcache_tpu_torch.runtime.state import PQState, make_pq_state
+from pqcache_tpu_torch.runtime.stages import stage
+from pqcache_tpu_torch.runtime.state import PQState, make_pq_state, per_head
 
 
 def _later(what: str, slice_: str):
@@ -83,8 +99,15 @@ class PQSearchPolicy:
             _later("gqa=False", "non-default pq_search branches")
         if cfg.pq.fetch_mode != "gather":
             _later("fetch_mode='masked'", "non-default pq_search branches")
-        if cfg.pq.fetch_pair:
-            _later("fetch_pair", "batched path")
+        # the pair fetch needs a 2·block-aligned tail (pq_search.py:72-81);
+        # K1 computes the same function with it
+        if cfg.pq.fetch_pair and (not 1 < self.select_block <= 128
+                                  or 256 % (2 * self.select_block)):
+            raise ValueError(
+                f"fetch_pair requires 1 < select_block <= 128 with "
+                f"2*select_block dividing the 256-aligned tail (got "
+                f"select_block={self.select_block})")
+        self.fetch_pair = cfg.pq.fetch_pair
         if budget.n_tail_max % self.select_block:
             raise ValueError("n_tail_max must be divisible by select_block")
         self.kv_int8 = cfg.cache.kv_dtype == "int8"
@@ -96,6 +119,10 @@ class PQSearchPolicy:
         self.fused_blockscore = (self.use_kernel and self.adc_mode != "xla"
                                  and not self.use_jhist
                                  and self.select_block > 1)
+        # the batched write-combining ring (pq_search.py:121-132): at most
+        # `local` columns, so every ring token is still in the local window
+        self.ring_k = (min(cfg.pq.ring_cap, budget.local)
+                       if budget.local >= 1 else 0)
 
     # -- helpers ----------------------------------------------------------
 
@@ -126,13 +153,28 @@ class PQSearchPolicy:
     def _q_for_tail(self, q_flat, state: PQState, idx: int):
         """Fold the per-channel K scale into q for an int8 tail:
         q . (s * K_int8) = (q * s) . K_int8. [H, D] -> [H, 1, D] (f32 when
-        int8, else unchanged)."""
+        int8, else unchanged); H may be a folded B·H."""
         H = q_flat.shape[0]
         if not self.kv_int8:
             return q_flat.reshape(H, 1, self.D)
-        qs = (q_flat.float().reshape(self.H_kv, self.group, self.D)
+        qs = (q_flat.float().reshape(H // self.group, self.group, self.D)
               * state.k_scale[idx])
         return qs.reshape(H, 1, self.D)
+
+    def _retrieve_blocks(self, state: PQState, idx: int, q_flat, blk_idx,
+                         n_cand, win_len=None, win_max: int = 0):
+        """K1 (or its plain version) over the selected blocks and, with
+        win_max > 0, each head's local window; the V scale of an int8 tail
+        applied to acc (acc is linear in V)."""
+        attn = (block_topk_attention if self.use_kernel
+                else block_topk_attention_ref)
+        m_p, l_p, acc_p = attn(
+            self._q_for_tail(q_flat, state, idx), state.kv_tail, idx,
+            blk_idx, n_cand, block=self.select_block, pair=self.fetch_pair,
+            win_len=win_len, win_max=win_max)
+        if self.kv_int8:
+            acc_p = acc_p * state.v_scale[idx]
+        return m_p, l_p, acc_p
 
     # -- prefill ----------------------------------------------------------
 
@@ -204,8 +246,61 @@ class PQSearchPolicy:
             return pq.adc_gather_scores(lut, codes)
         H = lut.shape[0]
         fn = adc_scores if self.use_kernel else adc_scores_ref
-        return fn(lut.reshape(self.H_kv, self.group, self.S, -1), codes,
+        return fn(lut.reshape(H // self.group, self.group, self.S, -1), codes,
                   round_lut_bf16=self.adc_mode == "v2").reshape(H, -1)
+
+    def _select_blocks(self, state: PQState, idx: int, lut, n_cand,
+                       slot_counts=None, pending=None):
+        """Sorted block top-k [H_kv (or B·H_kv), kb] from the joint
+        histogram (plus the deferred joins' ``pending`` mass), the fused
+        ADC block scorer K3, or the plain route's gather-sum scores.
+        n_cand: per-kv-head count (int, or [B·H_kv]); slot_counts: a
+        batched state's per-slot counts [B], which K3 reads."""
+        b, bs = self.budget, self.select_block
+        codes = state.codes[idx]
+        if self.use_jhist:
+            if pending is None:
+                blk_mass = pq.joint_block_mass(lut, state.jhist[idx],
+                                               head_dim=self.D)
+            else:
+                raw = pq.joint_block_mass(lut, state.jhist[idx],
+                                          head_dim=self.D,
+                                          normalize=False) + pending
+                blk_mass = raw / torch.clamp(raw.sum(-1, keepdim=True),
+                                             min=1e-30)
+        elif self.fused_blockscore:
+            lead = () if slot_counts is None else (slot_counts.shape[0],)
+            blk_mass = adc_block_scores(
+                lut.reshape(*lead, self.H_kv, self.group, self.S, -1),
+                codes.reshape(*lead, self.H_kv, self.S, -1),
+                n_cand if slot_counts is None else slot_counts,
+                sel_block=bs, head_dim=self.D).reshape(lut.shape[0], -1)
+        else:
+            blk_mass = None
+        if blk_mass is not None:
+            blk_idx = pq.topk_from_block_mass(
+                blk_mass, n_cand, b.topk, group=self.group, block=bs,
+                approx=self.approx_topk)
+        else:
+            # the plain route of the block scorers (pq_search.py:409-417)
+            blk_idx, _ = pq.mips_topk_blocks(
+                pq.adc_gather_scores(lut, codes), n_cand, b.topk,
+                group=self.group, head_dim=self.D, block=bs,
+                approx=self.approx_topk)
+        return torch.sort(blk_idx, -1).values
+
+    def _gather_tail_rows(self, state: PQState, idx: int, rows):
+        """Tail rows [H_kv', k, 2D] of layer idx at per-head positions
+        rows [H_kv', k]: K6 with gather_mode "pallas", else advanced
+        indexing."""
+        L, Hf, N, D2 = state.kv_tail.shape
+        if self.use_kernel and self.gather_mode == "pallas":
+            # the stacked tail as [L * Hf, N, 2D] (a view): the layer is a
+            # head offset, nothing is copied
+            return gather_rows(state.kv_tail.view(L * Hf, N, D2), rows,
+                               idx * Hf)
+        heads = torch.arange(Hf, device=rows.device)
+        return state.kv_tail[idx][heads[:, None], rows]
 
     def decode_attn(self, state: PQState, idx: int, q, k_new, v_new, shared):
         """q [H, 1, D]; k/v_new [H_kv, 1, D]. Returns (out [H, 1, D],
@@ -217,36 +312,11 @@ class PQSearchPolicy:
         if self.select_block == 1:
             return self._decode_tokens(state, idx, q, k_new, v_new, n_cand,
                                        lut)
-        b, bs = self.budget, self.select_block
-        if self.use_jhist:
-            blk_mass = pq.joint_block_mass(lut, state.jhist[idx],
-                                           head_dim=self.D)
-        elif self.fused_blockscore:
-            blk_mass = adc_block_scores(
-                lut.reshape(self.H_kv, self.group, self.S, -1),
-                state.codes[idx], n_cand, sel_block=bs, head_dim=self.D)
-        else:
-            blk_mass = None
-        if blk_mass is not None:
-            blk_idx = pq.topk_from_block_mass(
-                blk_mass, n_cand, b.topk, group=self.group, block=bs,
-                approx=self.approx_topk)
-        else:
-            # the plain route of the block scorers (pq_search.py:409-417)
-            blk_idx, _ = pq.mips_topk_blocks(
-                pq.adc_gather_scores(lut, state.codes[idx]), n_cand, b.topk,
-                group=self.group, head_dim=self.D, block=bs,
-                approx=self.approx_topk)
-        blk_idx = torch.sort(blk_idx, -1).values
-        attn = block_topk_attention if self.use_kernel else \
-            block_topk_attention_ref
-        m_p, l_p, acc_p = attn(
-            self._q_for_tail(q.reshape(H, self.D), state, idx),
-            state.kv_tail, idx, blk_idx, n_cand, block=bs)
-        if self.kv_int8:
-            acc_p = acc_p * state.v_scale[idx]   # acc is linear in V
+        blk_idx = self._select_blocks(state, idx, lut, n_cand)
+        part = self._retrieve_blocks(state, idx, q.reshape(H, self.D),
+                                     blk_idx, n_cand)
         return self._finish_decode(state, idx, q, k_new, v_new, n_cand,
-                                   partials=[(m_p, l_p, acc_p)])
+                                   partials=[part])
 
     def _decode_tokens(self, state: PQState, idx: int, q, k_new, v_new,
                        n_cand: int, lut):
@@ -257,15 +327,7 @@ class PQSearchPolicy:
             self._adc(lut, state.codes[idx]), n_cand, self.budget.topk,
             group=self.group, head_dim=self.D, approx=self.approx_topk)
         topk_idx = torch.sort(topk_idx, -1).values          # [H_kv, topk]
-        if self.use_kernel and self.gather_mode == "pallas":
-            # the stacked tail as [L * H_kv, N, 2D] (a view): the layer is a
-            # head offset, nothing is copied
-            L, _, N, D2 = state.kv_tail.shape
-            kv_top = gather_rows(state.kv_tail.view(L * self.H_kv, N, D2),
-                                 topk_idx, idx * self.H_kv)
-        else:
-            heads = torch.arange(self.H_kv, device=topk_idx.device)
-            kv_top = state.kv_tail[idx][heads[:, None], topk_idx]
+        kv_top = self._gather_tail_rows(state, idx, topk_idx)
         if self.check_recall:
             # the recall oracle (pq_search.py:469-479): exact top-k over the
             # candidate keys against the PQ selection. Debug only: it reads
@@ -326,5 +388,290 @@ class PQSearchPolicy:
     def shared_post(self, state: PQState, shared) -> None:
         # one token appended per step: the oldest local token becomes a
         # retrieval candidate
+        state.n_cand += 1
+        state.pos += 1
+
+    # -- batch-as-heads ---------------------------------------------------
+    #
+    # B sequence slots folded into the kv-head axis: state [L, B·H_kv, ...],
+    # counters int32 [B] on the device (pq_search.py:626-1094). Every count
+    # the step needs is read on the card, so the step can be captured.
+
+    def _batched_alloc(self) -> dict:
+        """Allocation kwargs of the batched state. The tail is padded by
+        ring_k rounded up to 256 (so every select_block <= 256 still
+        divides it): the flush writes ring_k rows from the tail's valid
+        end minus ring_r, which then never runs past the buffer. The JAX
+        package pads a fixed 256 (pq_search.py:641), which a ring_cap above
+        256 overruns; the two agree whenever ring_k <= 256."""
+        pad = -(-self.ring_k // 256) * 256
+        return dict(
+            jhist_blocks=((self.budget.n_tail_max + pad) // self.select_block
+                          if self.use_jhist else 0),
+            ring_k=self.ring_k, tail_pad=pad)
+
+    def init_batched_state(self, B: int, dtype=torch.bfloat16) -> PQState:
+        return make_pq_state(self.cfg, self.budget, dtype=dtype,
+                             device=self.device, batch=B,
+                             **self._batched_alloc())
+
+    def insert_slot(self, bstate: PQState, state: PQState, slot: int) -> None:
+        """Write a prefilled single-sequence state into slot ``slot`` of a
+        batched state, in place. The batched buffers are wider on the token
+        and block axes (the tail pad): the state fills their leading part."""
+        Hk, S = self.H_kv, self.S
+        h = slice(slot * Hk, (slot + 1) * Hk)
+        N = state.kv_tail.shape[2]
+        bstate.k_sink[:, h] = state.k_sink
+        bstate.v_sink[:, h] = state.v_sink
+        bstate.kv_tail[:, h, :N] = state.kv_tail
+        bstate.codes[:, h, :, :N] = state.codes
+        bstate.centroids[:, h] = state.centroids
+        bstate.phi[:, slot * Hk * S:(slot + 1) * Hk * S] = state.phi
+        bstate.n_cand[slot] = state.n_cand
+        bstate.pos[slot] = state.pos
+        if self.use_jhist:
+            bstate.jhist[:, h, :state.jhist.shape[2]] = state.jhist
+        if self.kv_int8:
+            bstate.k_scale[:, h] = state.k_scale
+            bstate.v_scale[:, h] = state.v_scale
+
+    def _local_window(self, state: PQState, idx: int, q_flat, n_cand_h, r):
+        """The per-token path's local window as a partial: the contiguous
+        span [n_cand, n_cand + local) of each slot's tail (its start held
+        inside the tail as JAX's dynamic slice holds it), rows at or past
+        local - ring_r masked: those tokens are still in the ring."""
+        local = self.budget.local
+        N = state.kv_tail.shape[2]
+        start = torch.clamp(n_cand_h.long(), max=N - local)
+        rows = start[:, None] + torch.arange(local, device=start.device)
+        Hf = rows.shape[0]
+        kv = state.kv_tail[idx][torch.arange(Hf, device=rows.device)[:, None],
+                                rows]
+        k, v = self._split_rows(kv, state, idx)
+        mask = (None if r is None else
+                torch.arange(local, device=rows.device) < local - r)
+        return segment_partial(q_flat.reshape(Hf, self.group, self.D), k, v,
+                               mask)
+
+    def decode_attn_batched(self, state: PQState, idx: int, q, k_new, v_new,
+                            shared):
+        """q [B, H, D]; k/v_new [B, H_kv, D]. Returns (out [B, H, D],
+        (k_new, v_new) [B·H_kv, D] payload for commit_appends_batched)."""
+        b = self.budget
+        n_cand_h = shared["n_cand_h"]                        # [B·H_kv]
+        qf = q.reshape(-1, self.D)                           # [B·H, D]
+        ring = state.ring_kv is not None
+        r = state.ring_r if ring else None
+        partials, top = [], None
+        if self.select_block > 1:
+            with stage("scorer+topk"):
+                lut = pq.adc_lut_euc(qf.reshape(-1, self.S, self.d_sub),
+                                     state.centroids[idx])   # [B·H, S, C]
+                pending = (self._pending_mass(state, idx, lut, shared)
+                           if self._jhist_defer(state) else None)
+                blk_idx = self._select_blocks(state, idx, lut, n_cand_h,
+                                              slot_counts=shared["n_cand"],
+                                              pending=pending)
+            # the local window rides K1: its tail-resident part is
+            # [n_cand, n_cand + local - ring_r)
+            with stage("k1"):
+                partials.append(self._retrieve_blocks(
+                    state, idx, qf, blk_idx, n_cand_h,
+                    win_len=b.local - r if ring else b.local,
+                    win_max=b.local))
+        else:
+            with stage("scorer+topk"):
+                lut = pq.adc_lut_euc(qf.reshape(-1, self.S, self.d_sub),
+                                     state.centroids[idx])
+                topk_idx, _ = pq.mips_topk(
+                    self._adc(lut, state.codes[idx]), n_cand_h, b.topk,
+                    group=self.group, head_dim=self.D,
+                    approx=self.approx_topk)
+                topk_idx = torch.sort(topk_idx, -1).values   # [B·H_kv, k]
+            with stage("gather"):
+                partials.append(self._local_window(state, idx, qf, n_cand_h,
+                                                   r))
+                k_top, v_top = self._split_rows(
+                    self._gather_tail_rows(state, idx, topk_idx), state, idx)
+                top = (k_top, v_top, topk_idx < n_cand_h[:, None])
+        return self._merge_batched(state, idx, qf, k_new, v_new, partials,
+                                   top, r)
+
+    def _merge_batched(self, state: PQState, idx: int, qf, k_new, v_new,
+                       partials, top, r):
+        """[sink | ring | top-k | new] segments merged with the partials by
+        online softmax. Returns (out [B, H, D], (k_new, v_new)
+        [B·H_kv, D])."""
+        B, Hk, _ = k_new.shape
+        Hf = B * Hk
+        with stage("merge"):
+            dt = state.k_sink.dtype
+            segs = [(state.k_sink[idx], state.v_sink[idx], None)]
+            if r is not None:
+                # the chunk's tokens, raw in the ring's dtype until the flush
+                rkv = state.ring_kv[idx]                   # [B·H_kv, K, 2D]
+                rmask = torch.arange(self.ring_k, device=rkv.device) < r
+                segs.append((rkv[..., :self.D], rkv[..., self.D:],
+                             rmask[None].expand(Hf, -1)))
+            if top is not None:
+                segs.append(top)
+            k_new_f = k_new.reshape(Hf, 1, self.D).to(dt)
+            v_new_f = v_new.reshape(Hf, 1, self.D).to(dt)
+            out = decode_window_attention_segments(
+                qf.reshape(qf.shape[0], 1, self.D),
+                segs + [(k_new_f, v_new_f, None)], partials=partials)
+        return (out.reshape(B, -1, self.D), (k_new_f[:, 0], v_new_f[:, 0]))
+
+    def _jhist_defer(self, state: PQState) -> bool:
+        """Defer the per-step histogram join to the chunk's flush
+        (pq_search.py:869-882): "on"/"off", or "auto", which defers once the
+        histogram holds 480 MB or more."""
+        if not (self.use_jhist and state.ring_kv is not None
+                and state.jhist is not None):
+            return False
+        mode = self.cfg.pq.jhist_defer
+        if mode != "auto":
+            return mode == "on"
+        return state.jhist.numel() * state.jhist.element_size() \
+            >= 480_000_000
+
+    def _pending_span(self, state: PQState, n_cand_h, layer=None):
+        """The chunk's pending joins: positions n_cand - ring_r + t of each
+        folded head for t < ring_k, t < ring_r valid, and their codes
+        [(L,) B·H_kv, S, ring_k] (layer idx, or all layers)."""
+        K = self.ring_k
+        t = torch.arange(K, device=n_cand_h.device)
+        pos = (n_cand_h.long() - state.ring_r)[:, None] + t     # [Hf, K]
+        codes = state.codes if layer is None else state.codes[layer]
+        N = codes.shape[-1]
+        idx = pos.clamp(0, N - 1)[:, None, :].expand(-1, self.S, -1)
+        cp = codes.gather(-1, idx.expand(*codes.shape[:-1], K)).long()
+        return pos, cp, t < state.ring_r
+
+    def _pending_mass(self, state: PQState, idx: int, lut, shared):
+        """The exact deferred-join correction (pq_search.py:884-922): the
+        ring_r tokens at [n_cand - ring_r, n_cand) of each slot are
+        candidates that the lagging histogram misses; their exp-LUT pair
+        terms are added into the raw block mass. Returns [B·H, NB] f32."""
+        pos, cp, ok = self._pending_span(state, shared["n_cand_h"], idx)
+        g = self.group
+        e = pq.jhist_exp_lut(lut, self.D)                  # [B·H, 2, C]
+        c = per_head(cp, g)                                    # [B·H, 2, K]
+        val = torch.where(ok, e[:, 0].gather(1, c[:, 0])
+                          * e[:, 1].gather(1, c[:, 1]), 0.0)   # [B·H, K]
+        NB = state.jhist.shape[2]
+        cols = per_head(torch.div(pos, self.select_block,
+                                  rounding_mode="floor").clamp(0, NB - 1), g)
+        # a one-hot product sums each column in a fixed order
+        onehot = (cols[..., None] == torch.arange(NB, device=cols.device)
+                  ).float()                                # [B·H, K, NB]
+        return torch.bmm(val[:, None, :], onehot)[:, 0]
+
+    def _jhist_flush_join(self, state: PQState) -> None:
+        """Commit the chunk's deferred joins at once (pq_search.py:924-969):
+        a small per-(layer, head) histogram of the pending code pairs over
+        the W block columns a ring_k span touches, saturating-added into
+        the histogram."""
+        J = state.jhist
+        L, Hf, NB, CC = J.shape
+        bs = self.select_block
+        W = (self.ring_k - 1) // bs + 2
+        n_cand_h = per_head(state.n_cand, self.H_kv)
+        pos, cp, ok = self._pending_span(state, n_cand_h)  # cp [L, Hf, S, K]
+        pair = cp[:, :, 0] * self.C + cp[:, :, 1]          # [L, Hf, K]
+        # the region's first column, held inside the histogram as JAX's
+        # dynamic slice holds it
+        c0 = torch.clamp(torch.div(pos[:, 0], bs, rounding_mode="floor"),
+                         max=NB - W)
+        rel = torch.div(pos, bs, rounding_mode="floor") - c0[:, None]
+        cell = rel[None] * CC + pair                       # [L, Hf, K]
+        add = torch.zeros((L, Hf, W * CC), device=J.device).scatter_add_(
+            2, cell, ok.float().expand_as(cell))           # exact counts
+        cols = c0[:, None] + torch.arange(W, device=J.device)   # [Hf, W]
+        heads = torch.arange(Hf, device=J.device)[:, None]
+        region = J[:, heads, cols].int() + add.reshape(L, Hf, W, CC).int()
+        J[:, heads, cols] = torch.clamp(region, max=255).to(J.dtype)
+
+    def _jhist_join_batched(self, state: PQState, n_cand_h) -> None:
+        """Count each slot's joining token (tail position n_cand) into its
+        block's histogram, saturating (pq_search.py:971-990)."""
+        L, Hf = state.jhist.shape[:2]
+        N = state.codes.shape[-1]
+        heads = torch.arange(Hf, device=n_cand_h.device)
+        pos = n_cand_h.long().clamp(max=N - 1)
+        joins = state.codes[:, heads, :, pos].long()       # [Hf, L, S]
+        pair = (joins[..., 0] * self.C + joins[..., 1]).T  # [L, Hf]
+        blk = torch.div(pos, self.select_block, rounding_mode="floor")
+        pq.jhist_increment(state.jhist, (
+            torch.arange(L, device=heads.device)[:, None], heads[None],
+            blk[None], pair))
+
+    def _encode(self, state: PQState, keys):
+        """PQ codes [L, Hf, S, T] uint8 of keys [L, Hf, T, D] under each
+        (layer, head)'s codebooks."""
+        L, Hf, T, D = keys.shape
+        xg = self._to_groups(keys.reshape(L * Hf, T, D))
+        cent = state.centroids.reshape(L * Hf * self.S, self.C, -1)
+        return pq.pq_encode(xg, cent).reshape(L, Hf, self.S, T).to(
+            torch.uint8)
+
+    def commit_appends_batched(self, state: PQState, payloads,
+                               shared) -> None:
+        """Per-step append of every layer's new token: payloads = (k_new,
+        v_new) [L, B·H_kv, D]. With the ring (the default) every slot's
+        token lands at ring column ring_r, and the histogram joins one token
+        per slot unless the joins are deferred; without it the tokens are
+        encoded and written at n_cand + local of each slot."""
+        k_new, v_new = payloads
+        n_cand_h = shared["n_cand_h"]
+        if state.ring_kv is not None:
+            kv = torch.cat([k_new, v_new], -1).to(state.ring_kv.dtype)
+            state.ring_kv.index_copy_(2, state.ring_r.reshape(1).long(),
+                                      kv[:, :, None])
+            if self.use_jhist and not self._jhist_defer(state):
+                self._jhist_join_batched(state, n_cand_h)
+            state.ring_r += 1
+            return
+        L, Hf, D = k_new.shape
+        if self.use_jhist:        # reads the codes before this step's write
+            self._jhist_join_batched(state, n_cand_h)
+        N = state.kv_tail.shape[2]
+        pos = (n_cand_h.long() + self.budget.local).clamp(max=N - 1)
+        heads = torch.arange(Hf, device=pos.device)
+        state.kv_tail[:, heads, pos] = self._tail_kv(
+            k_new[:, :, None], v_new[:, :, None], state)[:, :, 0]
+        state.codes.transpose(2, 3)[:, heads, pos] = self._encode(
+            state, k_new[:, :, None])[..., 0]
+
+    def flush_ring_batched(self, state: PQState) -> None:
+        """Commit the ring into the per-slot tails once per decode chunk
+        (pq_search.py:1051-1088): encode the ring's keys, quantize for an
+        int8 tail, and write ring_k rows per slot from n_cand + local -
+        ring_r; rows past ring_r are overwritten by the next flush before
+        they become valid. The deferred joins commit first."""
+        if state.ring_kv is None:
+            return
+        if self._jhist_defer(state):
+            self._jhist_flush_join(state)
+        L, Hf, K, _ = state.ring_kv.shape
+        keys, vals = state.ring_kv[..., :self.D], state.ring_kv[..., self.D:]
+        src = (self._tail_kv(keys, vals, state) if self.kv_int8
+               else state.ring_kv.to(state.kv_tail.dtype))
+        N = state.kv_tail.shape[2]
+        start = (per_head(state.n_cand, self.H_kv).long() + self.budget.local
+                 - state.ring_r).clamp(0, N - K)
+        rows = start[:, None] + torch.arange(K, device=start.device)
+        heads = torch.arange(Hf, device=rows.device)[:, None]
+        state.kv_tail[:, heads, rows] = src
+        state.codes.transpose(2, 3)[:, heads, rows] = self._encode(
+            state, keys).transpose(2, 3)
+        state.ring_r.zero_()
+
+    def shared_pre_batched(self, state: PQState):
+        return {"n_cand": state.n_cand,
+                "n_cand_h": per_head(state.n_cand, self.H_kv)}
+
+    def shared_post_batched(self, state: PQState, shared) -> None:
         state.n_cand += 1
         state.pos += 1

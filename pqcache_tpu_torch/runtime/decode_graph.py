@@ -1,0 +1,183 @@
+"""Batched decode replayed from a CUDA graph.
+
+The JAX package runs a whole decode chunk as one compiled program
+(``pqcache_tpu/models/llama.py::decode_loop_batched``, jitted by the
+bench). Run op by op from Python, a decode step of the port issues
+thousands of launches, and the host, not the card, sets its pace. The
+port's counterpart of that program is a captured ``torch.cuda.CUDAGraph``
+of one decode step (every layer, the appends, the counters' advance and the
+greedy token), replayed once per step of a chunk; the chunk's ring flush
+then runs eagerly, as the JAX program ends with it.
+
+One step, not the whole chunk, is captured: a chunk graph would hold ring_k
+times the nodes and bake each step's ring column into them, while the step
+graph reads the ring column, like every other count, from the card
+(``ring_r``, ``n_cand``, the per-slot positions).
+
+The step's inputs and outputs are static device buffers: the tokens and
+positions [B], the batched state (updated in place) and the chunk's token
+buffer [chunk, B], row i holding step i's greedy token. The first step of
+the first chunk runs eagerly on a side stream, under
+``torch.cuda.set_sync_debug_mode("error")``: it builds the kernels and sets
+their attributes outside the capture and shows that the step reads nothing
+on the host. A failed capture raises; eager decoding is there only when
+asked for (``graph=False``), and a CPU device takes only that.
+
+Kernel wrappers count a launch when they are called, so a captured step
+adds its kernels to the counts once, at capture, and a replay adds nothing;
+``replays`` counts the replays.
+
+The state has room for the ``max_new_tokens`` its policy's budget reserved
+past each slot's prompt, and a write past the end would be clamped onto the
+last rows on the card without a word. The decoder counts its steps on the
+host and raises before it takes more.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from pqcache_tpu_torch import resolve_device
+from pqcache_tpu_torch.config import ModelConfig
+from pqcache_tpu_torch.models import llama
+from pqcache_tpu_torch.runtime.stages import stage
+
+
+class BatchedDecoder:
+    """Greedy batched decode of ``state`` in chunks of at most ``chunk``
+    steps (the policy's ring_k where it has a ring).
+
+    device: cuda unless given; ``graph=True`` (the default) needs a CUDA
+    device and replays each step from a CUDA graph, ``graph=False`` runs the
+    same step eagerly."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, policy, state, *,
+                 chunk: int = 0, graph: bool = True, device=None):
+        self.device = resolve_device(device)
+        if graph and self.device.type != "cuda":
+            raise ValueError("a CUDA graph needs a CUDA device; pass "
+                             "graph=False to decode eagerly")
+        ring_k = (getattr(policy, "ring_k", 0)
+                  if getattr(state, "ring_kv", None) is not None else 0)
+        chunk = chunk or ring_k
+        if chunk < 1 or (ring_k and chunk > ring_k):
+            raise ValueError(f"chunk {chunk} must be in [1, ring_k = "
+                             f"{ring_k}]" if ring_k else
+                             f"chunk {chunk} must be at least 1")
+        self.cfg, self.params, self.policy, self.state = (cfg, params, policy,
+                                                          state)
+        self.chunk, self.ring = chunk, bool(ring_k)
+        self.use_graph = graph
+        self.graph = None
+        self.capture_seconds = None
+        self.pool_bytes = None      # device memory the capture reserved
+        self.replays = 0
+        self.steps_left = policy.budget.max_new_tokens
+        B = state.pos.shape[0]
+        i32 = dict(dtype=torch.int32, device=self.device)
+        self.tok = torch.zeros(B, **i32)
+        self.pos = torch.zeros(B, **i32)
+        self.out = torch.zeros((chunk, B), **i32)
+        self.row = torch.zeros(1, dtype=torch.long, device=self.device)
+
+    def _step(self) -> None:
+        logits = llama.decode_step_batched(self.cfg, self.params, self.policy,
+                                           self.state, self.tok, self.pos)
+        with stage("argmax"):
+            nxt = torch.argmax(logits, -1).to(torch.int32)
+            self.out.index_copy_(0, self.row, nxt[None])
+            self.tok.copy_(nxt)
+            self.pos += 1
+            self.row += 1
+
+    def _warm_up_and_capture(self) -> None:
+        """Step once eagerly on a side stream (a real step), then capture
+        the step; the capture runs nothing."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self._step()
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+        cur.wait_stream(side)
+        # the capture starts by emptying the allocator's cache: so does the
+        # measurement of the pool it reserves
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._step()
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.graph = graph
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One decode step of the chunk begun: replayed, captured first if
+        need be, or eager."""
+        self._check_room(1)
+        if not self.use_graph:
+            self._step()
+        elif self.graph is None:
+            self._warm_up_and_capture()
+        else:
+            self.graph.replay()
+            self.replays += 1
+        self.steps_left -= 1
+
+    def _check_room(self, n_steps: int) -> None:
+        if n_steps > self.steps_left:
+            raise ValueError(
+                f"{n_steps} more steps exceed the state's room: the budget "
+                f"reserved max_new_tokens = "
+                f"{self.policy.budget.max_new_tokens}, {self.steps_left} left")
+
+    def begin(self, tokens: torch.Tensor, pos: torch.Tensor) -> None:
+        """Start a chunk from tokens and positions [B]."""
+        self.tok.copy_(tokens)
+        self.pos.copy_(pos)
+        self.row.zero_()
+
+    def finish(self, n_steps: int) -> torch.Tensor:
+        """End a chunk of n_steps steps: flush the ring. Returns the
+        chunk's tokens [n_steps, B]."""
+        if self.ring:
+            with stage("flush"):
+                self.policy.flush_ring_batched(self.state)
+        return self.out[:n_steps].clone()
+
+    @torch.no_grad()
+    def decode(self, tokens: torch.Tensor, pos: torch.Tensor,
+               n_steps: int) -> torch.Tensor:
+        """One chunk: n_steps greedy tokens for every slot from tokens and
+        positions [B]; the ring is flushed at the end. Returns [n_steps, B]
+        int32 on the device; nothing waits for the card."""
+        if not 1 <= n_steps <= self.chunk:
+            raise ValueError(f"a chunk takes 1 to {self.chunk} steps, not "
+                             f"{n_steps}")
+        self._check_room(n_steps)
+        self.begin(tokens, pos)
+        for _ in range(n_steps):
+            self.step()
+        return self.finish(n_steps)
+
+    def generate(self, tokens: torch.Tensor, pos: torch.Tensor,
+                 n_steps: int) -> torch.Tensor:
+        """n_steps tokens in chunks of ``chunk``, each chunk fed the last
+        token of the one before. Returns [n_steps, B] int32."""
+        out = []
+        tok, p = tokens.to(torch.int32), pos.to(torch.int32)
+        for i in range(0, n_steps, self.chunk):
+            n = min(self.chunk, n_steps - i)
+            out.append(self.decode(tok, p, n))
+            tok, p = out[-1][-1], p + n
+        return torch.cat(out)

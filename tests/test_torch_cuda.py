@@ -20,6 +20,8 @@ sums its bf16 tensor-core logits in another order and uses the fast exp
 (1e-4 of each head's largest entry); K6 copies bytes (exact).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -422,3 +424,171 @@ def test_score_policies_kernels_match_plain(dev, policy, score_func):
     toks = {kn: Engine(ecfg(kn), params).generate(ids, 8).tokens
             for kn in ("auto", "xla")}
     assert len(toks["auto"]) == 8 and toks["auto"][0] == toks["xla"][0]
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("case", ["vector", "zero", "tail-end", "scalar",
+                                  "pair"])
+def test_block_attn_window_matches_plain(dev, kv_dtype, case):
+    # K1's local-window coverage at the batched decode's widths (B 8 x 8
+    # kv heads folded: 64 heads, g 4, D 128, blocks of 256): win_len read
+    # from device memory, per head or one 0-d value for every head (the
+    # batched path passes local - ring_r); win_len 0; windows that end on
+    # the tail's last row; the pair fetch (blocks of 128)
+    H_kv, bs, N, win_max = 64, 256, 4096, 700
+    if case == "pair":
+        bs = 128
+    q, kv, blk = _block_attn_inputs(dev, kv_dtype, 128, bs, 5, 4, L=2,
+                                    H_kv=H_kv, N=N)
+    g = torch.Generator(device=dev).manual_seed(11)
+    nc = torch.randint(0, N - win_max, (H_kv,), generator=g, device=dev,
+                       dtype=torch.int32)
+    wl = torch.randint(0, win_max + 1, (H_kv,), generator=g, device=dev,
+                       dtype=torch.int32)
+    if case == "zero":
+        wl.zero_()
+    elif case == "tail-end":
+        nc = N - wl                 # every window ends on the last row
+    elif case == "scalar":
+        wl = torch.tensor(win_max - 3, dtype=torch.int32, device=dev)
+    kw = dict(block=bs, win_len=wl, win_max=win_max, pair=case == "pair")
+    n0 = block_topk_attention.launches
+    got = block_topk_attention(q, kv, 1, blk, nc, **kw)
+    torch.cuda.synchronize()
+    assert block_topk_attention.launches == n0 + 1
+    ref = block_topk_attention_ref(q, kv, 1, blk, nc, **kw)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, b.abs().max().item()))
+    # the same launch reads a changed window from the card: a graph replay
+    # after an in-place update of win_len follows it
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = block_topk_attention(q, kv, 1, blk, nc, **kw)
+    if isinstance(wl, torch.Tensor):
+        wl.copy_(torch.clamp(wl - 37, min=0))
+    graph.replay()
+    torch.cuda.synchronize()
+    ref = block_topk_attention_ref(q, kv, 1, blk, nc, **kw)
+    for a, b in zip(cap, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, b.abs().max().item()))
+
+
+def test_adc_scores_largest_lut_captures_into_a_graph(dev):
+    # K5 with the largest LUT (g 8, S 16, C 256: 128 KB of shared memory)
+    # sets its attribute once per process, so a launch inside a capture
+    # makes no attribute call: captured, replayed, and held to its plain
+    # version (S 16: its own summation order, 1e-6)
+    rng = np.random.default_rng(3)
+    lut = torch.from_numpy(rng.normal(size=(2, 8, 16, 256)).astype(
+        np.float32)).to(dev)
+    codes = torch.from_numpy(rng.integers(0, 256, size=(2, 16, 4096))
+                             .astype(np.uint8)).to(dev)
+    for rnd in (False, True):
+        adc_scores(lut, codes, round_lut_bf16=rnd)       # built, loaded
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = adc_scores(lut, codes, round_lut_bf16=rnd)
+        lut.mul_(0.5)                    # the replay reads the new values
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out, adc_scores_ref(lut, codes, round_lut_bf16=rnd), rtol=1e-6,
+            atol=1e-6)
+
+
+def _batched_setup(dev, policy, pq_kw, kv_dtype="int8", B=3):
+    """A 2-layer model at the kernels' smallest head dim, B slots prefilled
+    through the port (its own codebooks) and inserted into a batched state;
+    the slots' first tokens and positions."""
+    cfg = config.tiny_model_config(hidden_size=256, num_heads=4,
+                                   num_kv_heads=2, head_dim=64,
+                                   intermediate_size=512, num_layers=2)
+    ecfg = config.EngineConfig(
+        model=cfg, pq=config.PQConfig(n_subbits=4, kmeans_iters=4, **pq_kw),
+        budget=config.BudgetConfig(compress_ratio=0.3, sink_size=4),
+        cache=config.CacheConfig(kv_dtype=kv_dtype),
+        runtime=config.RuntimeConfig(policy=policy, max_new_tokens=24))
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    P = 1536
+    pol = get_policy(ecfg, compute_budget(ecfg.budget, P, 24), device=dev)
+    bstate = pol.init_batched_state(B)
+    rng = np.random.default_rng(0)
+    first, pos = [], []
+    for slot in range(B):
+        n = P - 61 * slot
+        ids = np.zeros(P, np.int64)
+        ids[P - n:] = rng.integers(0, cfg.vocab_size, size=n)
+        st = pol.init_state()
+        logits = llama.prefill(cfg, params, pol, st,
+                               torch.from_numpy(ids).to(dev), P - n, n)
+        pol.insert_slot(bstate, st, slot)
+        first.append(int(torch.argmax(logits)))
+        pos.append(n)
+    return (cfg, params, pol, bstate, torch.tensor(first, device=dev),
+            torch.tensor(pos, device=dev))
+
+
+BATCHED_GRAPH_CASES = {
+    "jhist": ("pq_search", dict(select_block=64)),
+    "jhist-deferred": ("pq_search", dict(select_block=64, jhist_defer="on")),
+    "k3": ("pq_search", dict(select_block=64, scorer="kernel")),
+    "per-token": ("pq_search", dict(select_block=1, gather_mode="pallas")),
+    "original": ("original", {}),
+}
+
+
+@pytest.mark.parametrize("case", list(BATCHED_GRAPH_CASES))
+def test_graph_replay_matches_eager_decode(dev, case):
+    # the batched decode replayed from a CUDA graph gives the eager decode's
+    # tokens over 2 chunks (a flush between them) and leaves the state where
+    # eager decoding leaves it: counters, ring, histogram, codes and tail
+    import copy
+    from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
+    policy, pq_kw = BATCHED_GRAPH_CASES[case]
+    cfg, params, pol, state, tok, pos = _batched_setup(dev, policy, pq_kw)
+    chunk = 6
+    twin = copy.deepcopy(state)
+    eager = BatchedDecoder(cfg, params, pol, twin, chunk=chunk, graph=False)
+    want = eager.generate(tok, pos, 2 * chunk)
+    replay = BatchedDecoder(cfg, params, pol, state, chunk=chunk)
+    got = replay.generate(tok, pos, 2 * chunk)
+    torch.cuda.synchronize()
+    assert replay.graph is not None and replay.capture_seconds > 0
+    assert torch.equal(got, want), (got, want)
+    for f in dataclasses.fields(state):
+        a, b = getattr(state, f.name), getattr(twin, f.name)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), f.name
+    if policy == "pq_search":
+        assert int(state.ring_r) == 0
+        assert torch.equal(state.n_cand.cpu(),
+                           twin.n_cand.cpu())
+
+
+def test_segment_merge_in_bf16_gemms_matches_f32_copies(dev):
+    # the decode segment merge multiplies bf16 q, keys and probabilities
+    # with bf16 values as bf16 GEMMs that write f32: the same products as
+    # f32 copies of the operands, summed in another order, and written in
+    # bf16 (bf16 resolution: 1e-2 of the largest entry); masked rows and a
+    # second segment as in the dense arm
+    from pqcache_tpu_torch.ops.attention_ref import (
+        decode_window_attention_segments)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    Hf, g, T, D = 16, 4, 3000, 128
+    q, k, v = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+               for s in ((Hf * g, 1, D), (Hf, T, D), (Hf, T, D)))
+    kn, vn = (torch.randn((Hf, 1, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    hi = torch.randint(1, T, (Hf,), generator=gen, device=dev)
+    mask = torch.arange(T, device=dev)[None] < hi[:, None]
+    got = decode_window_attention_segments(q, [(k, v, mask), (kn, vn, None)])
+    # the f32 route, with p rounded to bf16 before PV as the bf16 route does
+    f = decode_window_attention_segments(
+        q.float(), [(k.float(), v, mask), (kn.float(), vn, None)])
+    assert got.dtype == torch.bfloat16
+    err = (got.float() - f).abs().max().item()
+    assert err <= 1e-2 * f.abs().max().item(), err

@@ -389,7 +389,10 @@ def test_entry_points_default_to_cuda(model):
     budget = compute_budget(ecfg.budget, 1024, 16)
     from pqcache_tpu_torch.policies.base import policy_class
     from pqcache_tpu_torch.runtime import state as st
+    from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
     a = np.zeros((2, 3), np.float32)
+    cpu_pol = get_policy(ecfg, budget, device="cpu")
+    cpu_state = cpu_pol.init_batched_state(2, torch.float32)
     calls = [
         lambda: llama.init_params(cfg, torch.Generator()),
         lambda: llama.rope_inv_freq(cfg),
@@ -401,6 +404,13 @@ def test_entry_points_default_to_cuda(model):
         lambda: st.make_pq_state(ecfg, budget),
         lambda: st.make_dense_state(ecfg, 256),
         lambda: st.make_dense_state(ecfg, 256, with_scores=True),
+        lambda: st.make_pq_state(ecfg, budget, batch=2, ring_k=4,
+                                 tail_pad=256),
+        lambda: st.make_dense_state(ecfg, 256, batch=2),
+        lambda: policy_class("pq_search")(ecfg, budget).init_batched_state(2),
+        lambda: policy_class("original")(ecfg, budget).init_batched_state(2),
+        lambda: BatchedDecoder(cfg, params, cpu_pol, cpu_state),
+        lambda: BatchedDecoder(cfg, params, cpu_pol, cpu_state, graph=False),
         lambda: bridge.tensor_from_numpy(a),
         lambda: bridge.params_from_numpy({"embed": a, "layers": {"wq": a}}),
         lambda: bridge.pq_state_from_numpy(dict(
@@ -423,6 +433,9 @@ def test_entry_points_default_to_cuda(model):
     assert st.make_dense_state(ecfg, 256, device="cpu").k_cache.device.type \
         == "cpu"
     assert bridge.tensor_from_numpy(a, "cpu").device.type == "cpu"
+    assert cpu_state.n_cand.device.type == "cpu"
+    assert BatchedDecoder(cfg, params, cpu_pol, cpu_state, graph=False,
+                          device="cpu").tok.device.type == "cpu"
 
 
 def test_port_imports_no_jax():

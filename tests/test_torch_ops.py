@@ -191,14 +191,151 @@ def test_block_topk_attention_per_head_counts_and_later_options():
         torch.from_numpy(n_c), block=bs)
     for got, ref in ((m, mr), (l, lr), (acc, accr)):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32_TOL)
-    # head 0's block 3 (rows 384..511) is past n_cand=200: all masked there
-    with pytest.raises(NotImplementedError):
-        block_topk_attention(torch.from_numpy(q), torch.from_numpy(kv), 0,
-                             torch.from_numpy(blk), 300, block=bs,
-                             win_len=4, win_max=8)
-    with pytest.raises(NotImplementedError):
-        block_topk_attention(torch.from_numpy(q), torch.from_numpy(kv), 0,
-                             torch.from_numpy(blk), 300, block=bs, pair=True)
+    # head 0's block 3 (rows 384..511) is past n_cand=200: all masked there.
+    # The options the batched path passes: a window of per-head length
+    # (from a tensor, as the batched decode holds it) and the pair fetch
+    wl = np.asarray([4, 8], np.int32)
+    mr, lr, accr = block_topk_attention_xla(
+        jnp.asarray(q), jnp.asarray(kv), jnp.asarray(0), jnp.asarray(blk),
+        jnp.asarray(300), block=bs, win_len=jnp.asarray(wl), win_max=8)
+    for pair in (False, True):
+        got = block_topk_attention(
+            torch.from_numpy(q), torch.from_numpy(kv), 0,
+            torch.from_numpy(blk), torch.tensor(300), block=bs, pair=pair,
+            win_len=torch.from_numpy(wl), win_max=8)
+        for g, ref in zip(got, (mr, lr, accr)):
+            np.testing.assert_allclose(g.numpy(), np.asarray(ref), **F32_TOL)
+    with pytest.raises(ValueError, match="pair"):    # N % (2 * block) != 0
+        block_topk_attention(torch.from_numpy(q),
+                             torch.from_numpy(kv[:, :, :384]), 0,
+                             torch.from_numpy(blk[:, :1]), 300, block=bs,
+                             pair=True)
+
+
+def _window_inputs(seed, L, H_kv, group, N, D):
+    rng = np.random.default_rng(seed)
+    kv = np.array(jnp.asarray(_rand(rng, L, H_kv, N, 2 * D, scale=1.0))
+                  .astype(jnp.bfloat16).astype(jnp.float32))
+    q = _rand(rng, H_kv * group, 1, D, scale=1.0)
+    return rng, kv, q
+
+
+def _k1(q, kv, layer, blk, nc, bs, **kw):
+    """The port's K1 on the CPU (its plain version); numpy arrays among the
+    inputs become tensors."""
+    def t(x):
+        return torch.from_numpy(np.array(x)) if isinstance(x, np.ndarray) \
+            else x
+    return block_topk_attention(t(q), t(kv), layer, t(blk), t(nc), block=bs,
+                                **{k: t(v) for k, v in kw.items()})
+
+
+def _assert_partials(got, ref, tol=F32_TOL):
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **tol)
+
+
+@pytest.mark.parametrize("pair,n_par,win_len", [(False, 4, 200),
+                                                (False, 2, 0),
+                                                (True, 4, 257),
+                                                (False, 16, 384)])
+def test_block_topk_window_matches_jax(pair, n_par, win_len):
+    # the grid of tests/test_block_attn.py::test_window_coverage_matches_
+    # xla_reference: win_len 0, an unaligned span crossing block
+    # boundaries, block-unaligned per-head counts; against the XLA twin and
+    # the Pallas kernel in interpret mode
+    from pqcache_tpu.ops.block_attn_pallas import (
+        block_topk_attention as jpallas)
+    L, H_kv, group, N, D, bs, win_max = 2, 2, 4, 1024, 128, 128, 384
+    rng, kv, q = _window_inputs(7, L, H_kv, group, N, D)
+    blk = np.stack([rng.choice(N // bs, 3, replace=False)
+                    for _ in range(H_kv)]).astype(np.int32)
+    nc = np.asarray([300, 517], np.int32)
+    args = (jnp.asarray(q), jnp.asarray(kv).astype(jnp.bfloat16),
+            jnp.asarray(1), jnp.asarray(blk), jnp.asarray(nc))
+    wl = jnp.asarray(win_len, jnp.int32)
+    ref = block_topk_attention_xla(*args, block=bs, win_len=wl,
+                                   win_max=win_max)
+    pal = jpallas(*args, block=bs, n_par=n_par, pair=pair, win_len=wl,
+                  win_max=win_max, interpret=True)
+    got = _k1(q, kv, 1, blk, nc, bs, pair=pair, n_par=n_par,
+              win_len=torch.tensor(win_len), win_max=win_max)
+    _assert_partials(got, ref)
+    _assert_partials(got, pal, dict(rtol=1e-4, atol=1e-4))
+
+
+def test_block_topk_window_equals_separate_segment():
+    # tests/test_block_attn.py::test_window_coverage_equals_separate_window_
+    # segment: the window attended in K1's pass equals the blocks' partials
+    # merged with an explicit local-window segment
+    L, H_kv, group, N, D, bs, win = 1, 2, 2, 1024, 128, 128, 300
+    _, kv, q = _window_inputs(8, L, H_kv, group, N, D)
+    blk = np.asarray([[0, 1], [2, 0]], np.int32)
+    nc = np.asarray([290, 401], np.int32)
+    part = _k1(q, kv, 0, blk, nc, bs, win_len=win, win_max=win)
+    out = attention_ref.decode_window_attention_segments(
+        torch.from_numpy(q), [], partials=[part])
+    sel = _k1(q, kv, 0, blk, nc, bs)
+    qg = torch.from_numpy(q).reshape(H_kv, group, D)
+    kvt = torch.from_numpy(kv)
+    loc = [attention_ref.segment_partial(
+        qg[h:h + 1], kvt[0, h:h + 1, nc[h]:nc[h] + win, :D],
+        kvt[0, h:h + 1, nc[h]:nc[h] + win, D:]) for h in range(H_kv)]
+    loc = tuple(torch.cat([p[i] for p in loc]) for i in range(3))
+    ref = attention_ref.decode_window_attention_segments(
+        torch.from_numpy(q), [], partials=[sel, loc])
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+
+
+def test_block_topk_window_at_tail_counts_no_row_twice():
+    # tests/test_block_attn.py::test_window_at_tail_no_duplicate_block: a
+    # window that ends on the tail's last row (head 0: 411 + 100 < 512, its
+    # second aligned entry clamps onto the last block; head 1: 384 + 128 =
+    # 512, aligned) equals the blocks plus an explicit window segment, on
+    # the port and on JAX's XLA twin
+    L, H_kv, group, N, D, bs, win_max = 1, 2, 2, 512, 128, 128, 128
+    _, kv, q = _window_inputs(9, L, H_kv, group, N, D)
+    blk = np.asarray([[0, 1], [1, 0]], np.int32)
+    nc = np.asarray([411, 384], np.int32)
+    wl = np.asarray([100, 128], np.int32)
+    sel = _k1(q, kv, 0, blk, nc, bs)
+    qg = torch.from_numpy(q).reshape(H_kv, group, D)
+    kvt = torch.from_numpy(kv)
+    loc = [attention_ref.segment_partial(
+        qg[h:h + 1], kvt[0, h:h + 1, nc[h]:nc[h] + wl[h], :D],
+        kvt[0, h:h + 1, nc[h]:nc[h] + wl[h], D:]) for h in range(H_kv)]
+    loc = tuple(torch.cat([p[i] for p in loc]) for i in range(3))
+    ref = attention_ref.decode_window_attention_segments(
+        torch.from_numpy(q), [], partials=[sel, loc])
+    jref = block_topk_attention_xla(
+        jnp.asarray(q), jnp.asarray(kv), jnp.asarray(0), jnp.asarray(blk),
+        jnp.asarray(nc), block=bs, win_len=jnp.asarray(wl), win_max=win_max)
+    got = _k1(q, kv, 0, blk, nc, bs, win_len=wl, win_max=win_max)
+    _assert_partials(got, jref)
+    out = attention_ref.decode_window_attention_segments(
+        torch.from_numpy(q), [], partials=[got])
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **F32_TOL)
+
+
+@pytest.mark.parametrize("nb_sel,n_cand,n_par", [(3, 512, 1), (5, 700, 2),
+                                                 (7, 1024, 4), (4, 300, 16)])
+def test_block_topk_pair_fetch_matches_jax(nb_sel, n_cand, n_par):
+    # tests/test_block_attn.py::test_pair_fetch_matches_xla_reference: the
+    # pair fetch gives the partials of the per-block fetch
+    from pqcache_tpu.ops.block_attn_pallas import (
+        block_topk_attention as jpallas)
+    L, H_kv, group, N, D, bs = 2, 2, 4, 1024, 128, 128
+    rng, kv, q = _window_inputs(2, L, H_kv, group, N, D)
+    blk = np.sort(np.stack([rng.choice(N // bs, nb_sel, replace=False)
+                            for _ in range(H_kv)]), -1).astype(np.int32)
+    args = (jnp.asarray(q), jnp.asarray(kv).astype(jnp.bfloat16),
+            jnp.asarray(1), jnp.asarray(blk), jnp.asarray(n_cand))
+    ref = block_topk_attention_xla(*args, block=bs)
+    pal = jpallas(*args, block=bs, n_par=n_par, pair=True, interpret=True)
+    got = _k1(q, kv, 1, blk, n_cand, bs, pair=True, n_par=n_par)
+    _assert_partials(got, ref)
+    _assert_partials(got, pal, dict(rtol=1e-4, atol=1e-4))
+    _assert_partials(got, _k1(q, kv, 1, blk, n_cand, bs))
 
 
 def test_decode_segments_with_partials_matches_jax():
