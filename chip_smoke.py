@@ -13,13 +13,14 @@ launched exactly the kernels of its path, profiles a few decode steps of
 each path (device time and launches per step), then holds the kernels
 against the plain versions end to end at reduced depth. Then bench.py's
 batched protocol at 8 layers: one 32k prompt inserted into B = 8 and B = 1
-slots, pq_search (int8 tail, K1 with the local window) and `original`,
-one chunk decoded eagerly and replayed from a CUDA graph with identical
-tokens and states, launches per step by stage, device busy share, capture
-time and peak memory; K1 at the batched shapes (the kernels line carries
-it) with a sweep of its CTAs per head, K3 at B 8, and 2-layer batched
-kernels-vs-plain checks. Any failure exits non-zero. Without CUDA it exits
-1 and prints no result.
+slots, pq_search (int8 tail, K1 with the local window), its per-token arm
+(BENCH_PQ_BLOCK=1: K5 at 64 folded heads) and `original`, one chunk
+decoded eagerly and replayed from a CUDA graph with identical tokens and
+states, launches per step by stage, device busy share, capture time and
+peak memory; K1 at the batched shapes, K3 at B 8, and 2-layer batched
+kernels-vs-plain checks. The kernels line takes K1 and K5 at the batched
+shapes. Any failure exits non-zero. Without CUDA it exits 1 and prints no
+result.
 
 Output: the card's name and power limit, per-phase results, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -475,58 +476,98 @@ def k1_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 # K5, K3 and K6 against their plain versions
 
-def _lut_codes(dev, L: int):
+def _lut_codes(dev, L: int, B: int = 1):
     """A LUT at the main path's shapes ([8 kv heads, 4 q heads, 2 subvecs,
     64 centroids], values of the size q . centroid takes) and L layers of
-    uint8 codes [8, 2, N_TAIL]."""
+    uint8 codes [8, 2, N_TAIL]; with B > 1 the batched path's, B slots
+    folded into the kv-head axis: [8 B, 4, 2, 64] and [8 B, 2,
+    N_TAIL_BATCH]."""
     m = config.LLAMA31_8B
     H_kv, g = m.num_kv_heads, m.num_heads // m.num_kv_heads
+    T = N_TAIL if B == 1 else N_TAIL_BATCH
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    lut = torch.randn((H_kv, g, 2, 64), generator=gen, device=dev) * 8
-    codes = torch.randint(0, 64, (L, H_kv, 2, N_TAIL), generator=gen,
+    lut = torch.randn((B * H_kv, g, 2, 64), generator=gen, device=dev) * 8
+    codes = torch.randint(0, 64, (L, B * H_kv, 2, T), generator=gen,
                           device=dev, dtype=torch.uint8)
     return lut, codes
 
 
+def _k5_library(lut, codes, rnd):
+    """One PyTorch call for K5's function, its yardstick: embedding_bag
+    (sum) over the flat indices h*S*C + s*C + code of each token's S codes,
+    with the LUT as a [Hf*S*C, g] weight. Returns (call, scores): call(i)
+    runs it on layer i of the codes, whose indices are built here, outside
+    any timed region; scores are its output on layer 3, [Hf, g, T]."""
+    Hf, g, S, C = lut.shape
+    L, T = codes.shape[0], codes.shape[-1]
+    base = (torch.arange(Hf, device=lut.device)[:, None, None] * S * C
+            + torch.arange(S, device=lut.device)[None, :, None] * C)
+    idx = [(codes[i].long() + base).permute(0, 2, 1).reshape(Hf * T, S)
+           for i in range(L)]
+    w = ((lut.bfloat16().float() if rnd else lut).permute(0, 2, 3, 1)
+         .reshape(Hf * S * C, g).contiguous())
+
+    def call(i):
+        return torch.nn.functional.embedding_bag(idx[i], w, mode="sum")
+    return call, call(3).reshape(Hf, T, g).transpose(1, 2)
+
+
 def k5_phase(dev) -> dict:
-    """K5 at the 32k decode shapes, v1 (f32 LUT) and v2 (LUT rounded to
-    bf16). Exact against the plain version (S = 2: one f32 add per score).
-    The timed launches cycle over 32 layers of codes; each call writes 4.2
-    MB of scores, so a cycle writes 135 MB, above the 50 MB L2."""
-    L = 32
-    lut, codes = _lut_codes(dev, L)
+    """K5 at the Engine's 32k decode shapes (8 kv heads, T N_TAIL) and at
+    bench.py's batched per-token shapes (B 8 x 8 kv heads folded, T
+    N_TAIL_BATCH), v1 (f32 LUT) and v2 (LUT rounded to bf16); exact against
+    the plain version (S = 2: one f32 add per score), and the library call
+    (embedding_bag) too. Device time by CUDA-graph replay, the codes cycled
+    over 32 layers (17 MB) at 8 heads and 16 layers (69 MB) at 64 heads,
+    so they arrive cold; the library call cycles over 32 and 8 layers of
+    int64 indices (135 and 275 MB). The kernels line takes the 64-head v2
+    entry."""
     entry = None
-    for mode, rnd in (("v1", False), ("v2", True)):
-        got = adc_scores(lut, codes[3], round_lut_bf16=rnd)
-        torch.cuda.synchronize()
-        ref = adc_scores_ref(lut, codes[3], round_lut_bf16=rnd)
-        err = (got - ref).abs().max().item()
-        log(f"K5 {mode}: max_abs_err {err:.3e} (tol 0: exact)")
-        if err != 0 or not torch.isfinite(got).all():
-            raise SystemExit(f"K5 {mode} disagrees with its plain version")
-        layer = iter(range(10 ** 9))
-        ms = graph_ms(lambda: adc_scores(lut, codes[next(layer) % L],
-                                         round_lut_bf16=rnd), 4 * L)
-        plain_ms = graph_ms(lambda: adc_scores_ref(
-            lut, codes[next(layer) % L], round_lut_bf16=rnd), L)
-        call_ms = cuda_ms(lambda: adc_scores(lut, codes[next(layer) % L],
-                                             round_lut_bf16=rnd), 400,
-                          warmup=16)
-        nbytes = (codes[0].numel() + lut.numel() * 4 + got.numel() * 4)
-        bound_ms = nbytes / PEAK_BYTES * 1e3
-        log(f"K5 {mode}: kernel {ms * 1e3:.2f} us of device time per call "
-            f"({nbytes / ms / 1e6:.0f} GB/s), {call_ms * 1e3:.2f} us per "
-            f"call from Python; plain {plain_ms * 1e3:.2f} us; bound "
-            f"{bound_ms * 1e3:.2f} us (bytes); library call: none")
-        if mode == "v2":
-            entry = dict(name="adc_scores", route="cuda",
-                         source="pqcache_tpu_torch/csrc/adc.cu",
-                         replaces="pqcache_tpu/ops/adc_pallas.py:327",
-                         max_abs_err=err,
-                         max_row_rel_err=row_rel_err(got, ref), ms=ms,
-                         call_ms=call_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by="bytes",
-                         library_ms=None)
+    for B, L in ((1, 32), (8, 16)):
+        lut, codes = _lut_codes(dev, L, B)
+        Hf, T = lut.shape[0], codes.shape[-1]
+        for mode, rnd in (("v1", False), ("v2", True)):
+            got = adc_scores(lut, codes[3], round_lut_bf16=rnd)
+            torch.cuda.synchronize()
+            ref = adc_scores_ref(lut, codes[3], round_lut_bf16=rnd)
+            err = (got - ref).abs().max().item()
+            lib_L = L if B == 1 else 8
+            library, lib_out = _k5_library(lut, codes[:lib_L], rnd)
+            lib_same = torch.equal(lib_out, ref)
+            log(f"K5 {mode} {Hf} heads T={T}: max_abs_err {err:.3e} (tol 0: "
+                f"exact); embedding_bag equal to the plain version: {lib_same}")
+            if err != 0 or not torch.isfinite(got).all() or not lib_same:
+                raise SystemExit(f"K5 {mode} ({Hf} heads) disagrees with its "
+                                 f"plain version")
+            layer = iter(range(10 ** 9))
+            ms = graph_ms(lambda: adc_scores(lut, codes[next(layer) % L],
+                                             round_lut_bf16=rnd), 4 * L)
+            plain_ms = graph_ms(lambda: adc_scores_ref(
+                lut, codes[next(layer) % L], round_lut_bf16=rnd), 8)
+            lib_ms = graph_ms(lambda: library(next(layer) % lib_L), 2 * lib_L)
+            call_ms = cuda_ms(lambda: adc_scores(lut, codes[next(layer) % L],
+                                                 round_lut_bf16=rnd), 400,
+                              warmup=16)
+            nbytes = (codes[0].numel() + lut.numel() * 4 + got.numel() * 4)
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            log(f"K5 {mode} {Hf} heads: kernel {ms * 1e3:.2f} us of device "
+                f"time per call ({nbytes / ms / 1e6:.0f} GB/s, "
+                f"{bound_ms / ms:.1%} of its bound), {call_ms * 1e3:.2f} us "
+                f"per call from Python; plain {plain_ms * 1e3:.2f} us; library"
+                f" (embedding_bag) {lib_ms * 1e3:.2f} us; bound "
+                f"{bound_ms * 1e3:.2f} us (bytes)")
+            if mode == "v2" and B > 1:
+                entry = dict(name="adc_scores", route="cuda",
+                             source="pqcache_tpu_torch/csrc/adc.cu",
+                             replaces="pqcache_tpu/ops/adc_pallas.py:327",
+                             max_abs_err=err,
+                             max_row_rel_err=row_rel_err(got, ref), ms=ms,
+                             call_ms=call_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by="bytes",
+                             library_ms=lib_ms)
+            del got, ref, library, lib_out
+        del lut, codes
+        torch.cuda.empty_cache()
     return entry
 
 
@@ -973,8 +1014,19 @@ BATCH_PROFILE = 4         # profiled steps (a short chunk of its own)
 # profiled steps, a whole profiled chunk), reserved as max_new_tokens
 BATCH_STEPS = 3 * BATCH_GEN + BATCH_PROFILE
 BATCH_SEGMENT = 16        # steps per profile of a whole replayed chunk
-# the kernels of each batched path, and the name of each in the profiler
-PATH_KERNELS = {"pq_search": ("block_topk_attention",), "original": ()}
+# the batched arms: bench.py's default (select_block 256, the jhist scorer,
+# K1), its BENCH_PQ_BLOCK=1 per-token arm (K5, GQA top-k, advanced-index
+# row gather) and `original`; policy, PQConfig overrides, path kernels
+BATCH_ARMS = {
+    "pq_search": ("pq_search", {}, ("block_topk_attention",)),
+    "pq_search-token": ("pq_search", dict(select_block=1, adc_mode="v2",
+                                          gather_mode="xla"),
+                        ("adc_scores",)),
+    "original": ("original", {}, ()),
+}
+# the batched tail: the budget's rows (prompt - sink + the reserved steps,
+# rounded up to 256) plus the ring pad (ring_k 128 rounded up to 256)
+N_TAIL_BATCH = 33536
 DEVICE_NAMES = {"block_topk_attention": "::block_attn_kernel<",
                 "adc_block_scores": "::block_scores_kernel<",
                 "adc_scores": "::adc_scores_kernel<",
@@ -1015,7 +1067,9 @@ def _profile(run, steps: int) -> dict:
     """torch.profiler over run() (a chunk of `steps` steps and its flush):
     device kernels per step by name and their device ms per step; host
     launches per step (kernel launches, graph launches) attributed to the
-    stage ranges that hold them (runtime/stages.py)."""
+    stage ranges that hold them (runtime/stages.py), and device ms per
+    step attributed to the stage ranges' device spans that hold each
+    kernel's start (marked steps only: an eager run under recording())."""
     import bisect
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1050,6 +1104,17 @@ def _profile(run, steps: int) -> dict:
     dev_t = {}
     for e in dev_ev:
         dev_t[e.name] = dev_t.get(e.name, 0.0) + e.self_device_time_total
+    spans = sorted((e.time_range.start, e.time_range.end,
+                    e.name[len(stages.PREFIX):]) for e in evs
+                   if e.device_type == DeviceType.CUDA
+                   and e.name.startswith(stages.PREFIX))
+    span_starts = [r[0] for r in spans]
+    dev_stage = {}
+    for e in dev_ev:
+        i = bisect.bisect_right(span_starts, e.time_range.start) - 1
+        st = (spans[i][2] if i >= 0 and e.time_range.start < spans[i][1]
+              else "other")
+        dev_stage[st] = dev_stage.get(st, 0.0) + e.self_device_time_total
     top = sorted(dev_t.items(), key=lambda kv: -kv[1])[:8]
     return dict(
         kernels=len(dev_ev) / steps,
@@ -1058,6 +1123,7 @@ def _profile(run, steps: int) -> dict:
         host_launches=sum(by_stage.values()) / steps,
         graph_launches=graph_launches / steps,
         by_stage={k: v / steps for k, v in sorted(by_stage.items())},
+        dev_stage={k: v / 1e3 / steps for k, v in sorted(dev_stage.items())},
         by_name=by_name)
 
 
@@ -1125,14 +1191,14 @@ def batched_run(dev, model, params, pol, state, first: int, B: int,
     prof_replay = _profile(lambda: replay.decode(
         got[-1], pos + 2 * n, steps), steps)
     replay_counted = _counts()
-    path = PATH_KERNELS[pol.cfg.runtime.policy]
+    path = BATCH_ARMS[name][2]
 
     def path_seen(profiles):
         return {k: sum(c for pr in profiles for nm, c in pr["by_name"].items()
                        if DEVICE_NAMES[k] in nm) for k in path}
     seen = path_seen([prof_replay])
     whole = ""
-    if pol.cfg.runtime.policy == "pq_search" and B == 8:
+    if name == "pq_search" and B == 8:
         replay.begin(got[-1], pos + 2 * n + steps)
         segs = [_profile(lambda: [replay.step()
                                   for _ in range(BATCH_SEGMENT)],
@@ -1157,7 +1223,10 @@ def batched_run(dev, model, params, pol, state, first: int, B: int,
         f"kernels/step, {prof_eager['host_launches']:.0f} host launches/step "
         f"by stage " + json.dumps({k: round(v, 2) for k, v in
                                     prof_eager["by_stage"].items()})
-        + f"; device under the profiler {prof_eager['dev_ms']:.3f} ms/step; "
+        + f"; device under the profiler {prof_eager['dev_ms']:.3f} ms/step, "
+        f"by stage (ms/step) " + json.dumps(
+            {k: round(v, 3) for k, v in prof_eager["dev_stage"].items()})
+        + "; "
         f"busy (the replayed step's device time over the eager step) "
         f"{prof_replay['dev_ms'] / eager_ms:.1%}; top kernels (ms/step): "
         + prof_eager["top"])
@@ -1286,12 +1355,11 @@ def k3_batched(dev, n_cand) -> None:
 
 
 def batched_phase(dev, params, model) -> tuple:
-    """bench.py's protocol through the port at BATCH_LAYERS layers: the
-    pq_search arm (int8 tail) and then, with the pq state freed, the
-    `original` arm (bf16 cache), each prefilled once from one 32k prompt
-    (TTFT), then decoded at B = 8 and at B = 1, eagerly and replayed.
-    Returns (the K1 entry at the batched shapes, the launches the wrappers
-    counted, the launches replayed from the graphs)."""
+    """bench.py's protocol through the port at BATCH_LAYERS layers, arm by
+    arm (BATCH_ARMS), each arm's state freed before the next: prefilled once
+    from one 32k prompt (TTFT), then decoded at B = 8 and at B = 1, eagerly
+    and replayed. Returns (the K1 entry at the batched shapes, the launches
+    the wrappers counted, the launches replayed from the graphs)."""
     model = dataclasses.replace(model, num_layers=BATCH_LAYERS)
     params = dict(params, layers={k: v[:BATCH_LAYERS]
                                   for k, v in params["layers"].items()})
@@ -1301,8 +1369,8 @@ def batched_phase(dev, params, model) -> tuple:
     launches = dict.fromkeys(KERNELS, 0)
     replayed = dict.fromkeys(KERNELS, 0)
     entry = None
-    for policy in ("pq_search", "original"):
-        cfg = batched_cfg(model, policy)
+    for name, (policy, pq_kw, _) in BATCH_ARMS.items():
+        cfg = batched_cfg(model, policy, **pq_kw)
         pol = get_policy(cfg, compute_budget(cfg.budget, BATCH_CTX,
                                              BATCH_STEPS), dev)
         state = pol.init_state()
@@ -1314,19 +1382,25 @@ def batched_phase(dev, params, model) -> tuple:
         ttft = time.perf_counter() - t
         for k, v in _counts().items():
             launches[k] += v
-        log(f"batched {policy}: TTFT {ttft * 1e3:.1f} ms ({BATCH_LAYERS} "
+        log(f"batched {name}: TTFT {ttft * 1e3:.1f} ms ({BATCH_LAYERS} "
             f"layers, prompt {BATCH_CTX}); ring_k {getattr(pol, 'ring_k', 0)}")
         for B in (8, 1):
-            r = batched_run(dev, model, params, pol, state, first, B,
-                            policy)
+            r = batched_run(dev, model, params, pol, state, first, B, name)
             for counts in (r["counts"], r["capture_counts"]):
                 for k, v in counts.items():
                     launches[k] += v
             for k, v in r["replayed"].items():
                 replayed[k] += v
-            if policy == "pq_search" and B == 8:
+            if name == "pq_search" and B == 8:
                 entry = k1_batched_entry(dev, pol, r["bstate"])
                 k3_batched(dev, r["bstate"].n_cand)
+            if name == "pq_search-token" and B == 8:
+                T = r["bstate"].codes.shape[-1]
+                log(f"batched {name}: K5 at {r['bstate'].codes.shape[1]} "
+                    f"folded heads, T {T} (the K5 phase timed T "
+                    f"{N_TAIL_BATCH})")
+                if T != N_TAIL_BATCH:
+                    raise SystemExit("the K5 phase timed another tail length")
             del r
             torch.cuda.empty_cache()
         del state, pol
@@ -1430,9 +1504,12 @@ def main() -> int:
         launches[k] += v
     batched_self_check(dev, params, model, "jhist", jhist_defer="on")
     batched_self_check(dev, params, model, "k3", scorer="kernel")
+    batched_self_check(dev, params, model, "token", select_block=1,
+                       adc_mode="v2")
     log(f"batched phase done at {time.perf_counter() - t0:.0f} s; launches "
         f"{batched} from the wrappers, {replayed} replayed from the graphs")
-    # the kernels line takes K1 at the batched path's shapes
+    # the kernels line takes K1 at the batched path's shapes (K5's entry
+    # is already the K5 phase's batched one)
     entries = [k1_entry if e["name"] == k1_entry["name"] else e
                for e in entries]
     del params

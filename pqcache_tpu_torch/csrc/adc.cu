@@ -16,15 +16,36 @@
 // What bounds K5: each token reads S code bytes and writes g f32 scores, with
 // S lookups per score and no other arithmetic: bytes. At the 32k decode
 // shapes (8 kv heads x 4 q heads, S 2, T 33024) that is 528 KB of codes and
-// 4.23 MB of scores, 1.42 us at 3.35 TB/s.
+// 4.23 MB of scores, 1.42 us at 3.35 TB/s; at bench.py's batched per-token
+// shapes (64 folded heads, T 33536) 4.3 MB and 34.3 MB, 11.5 us.
 //
 // K5 design: the TPU kernel built a one-hot matrix and ran an MXU matmul, its
-// way around a slow scalar gather. Here the lookup is direct: one CTA per
-// (folded kv head, chunk of TOK_CTA tokens) stages that head's g*S*C LUT in
-// shared memory (2 KB at the main shapes), and each thread takes tokens
-// t = chunk + threadIdx.x + k*NTHREADS: it reads their S code bytes and writes
-// g sums. Neighbouring threads take neighbouring t, so the code loads and the
-// [.., g, T] score stores coalesce.
+// way around a slow scalar gather. Here the lookup is direct, and the kernel
+// is a stream: codes in, scores out, each moved once in 16-byte pieces.
+// - A warp takes units of 512 tokens of one folded head. Each lane copies 16
+//   consecutive tokens' codes of each subvector (16 bytes, cp.async) into
+//   the warp's buffer in shared memory; the first unit's copies are issued
+//   before the CTA stages the LUT, so they fly during the stage, and the
+//   next unit's before the current one is computed (two buffers).
+// - A lane then takes 4-token words at 4 lane + 128 k (k < 4) of the unit,
+//   so each 16-byte score store of the warp writes 512 contiguous bytes of
+//   one q head's row. (A lane writing its own 16 consecutive tokens puts
+//   its stores 64 bytes apart: 6.2 us at the Engine's shapes on an H100 at
+//   700 W, twice the one-token-per-thread kernel this one replaced.)
+// - The LUT is staged once per CTA as float4 rows [S][C][g/4] (rounded to
+//   bf16 for v2), so one (subvector, code) lookup reads 4 q heads' entries
+//   in one 16-byte shared load, and replicated R times (8 at the main
+//   shapes, 16 KB): lane l reads copy l % 8, so the 8 lanes of a
+//   quarter-warp each read their own bank group and random codes cause no
+//   bank conflict (on an H100 at 700 W, 3.09 us against 3.23 with one
+//   copy at the Engine's shapes; the same at 64 heads). g not a multiple of 4 keeps one
+//   [S][C][g] copy and scalar lookups.
+// - The grid is sized from the SM count: at most K5_WAVE_CTAS CTAs per SM,
+//   all resident at once, each looping over its warps' share of units.
+// - T % 16 != 0, or a codes or scores pointer off 16 bytes, takes the scalar
+//   path, chosen at launch: byte code loads straight from device memory and
+//   4-byte score stores.
+// No atomics, no scratch in device memory.
 //
 // K3 replaces pqcache_tpu/ops/adc_pallas.py::adc_block_scores_pallas and
 // adc_block_scores_pallas_batched (_adc_block_call, body k2):
@@ -69,8 +90,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int TOK_CTA = 1024;          // K5 tokens per CTA
+constexpr int K5_THREADS = 128;        // K5: threads per CTA
+constexpr int K5_WARPS = K5_THREADS / 32;
+constexpr int K5_UNIT = 512;           // K5: tokens of one warp's unit
+constexpr int K5_WAVE_CTAS = 4;        // K5: CTAs per SM the grid aims for
+constexpr int K5_COPIES = 8;           // K5: LUT copies, at most
+constexpr int K5_COPIES_SMEM = 32 * 1024;   // K5: bytes the copies may take
 constexpr int MAX_SMEM = 227 * 1024;
 constexpr int K3_THREADS = 256;        // K3: also the chunks of one round
 constexpr int K3_MAX_CTAS = 8;         // K3: CTAs per (b, kv head), at most
@@ -89,49 +114,179 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// stage lut[0 : n] (one kv head's g*S*C entries) in shared memory
 template <bool ROUND>
-__device__ __forceinline__ void stage_lut(float* s_lut, const float* lut, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float v = lut[i];
-    if (ROUND) v = __bfloat162float(__float2bfloat16_rn(v));
-    s_lut[i] = v;
-  }
-  __syncthreads();
+__device__ __forceinline__ float lut_entry(float v) {
+  return ROUND ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
-// the S codes of token t, clamped into the LUT
-template <int S>
-__device__ __forceinline__ void load_codes(int (&c)[S], const uint8_t* codes,
-                                           int T, int t, int C) {
-#pragma unroll
-  for (int s = 0; s < S; ++s) c[s] = min((int)codes[(size_t)s * T + t], C - 1);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait for all but the newest group of copies
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-template <int S>
-__device__ __forceinline__ float adc(const float* lj, const int (&c)[S], int C) {
-  float acc = lj[c[0]];
-#pragma unroll
-  for (int s = 1; s < S; ++s) acc += lj[s * C + c[s]];
-  return acc;
-}
-
-// grid (ceil(T / TOK_CTA), Hf), NTHREADS threads, g*S*C floats of shared memory
+// stage one kv head's LUT [g][S][C] in shared memory: g % 4 == 0 as float4
+// rows [S][C][g/4], each row R times side by side (a thread per row, its
+// copies written from copy row % R on, so that neighbouring threads write
+// distinct bank groups); otherwise one copy [S][C][g]
 template <int S, bool ROUND>
-__global__ void __launch_bounds__(NTHREADS)
+__device__ __forceinline__ void stage_lut(float* s_lut, const float* lut_h, int g, int C,
+                                          int R) {
+  if ((g & 3) == 0) {
+    const int G4 = g / 4;
+    float4* rows = reinterpret_cast<float4*>(s_lut);
+    for (int row = threadIdx.x; row < S * C * G4; row += K5_THREADS) {
+      const int q = row % G4, c = (row / G4) % C, s = row / (G4 * C);
+      const float* src = lut_h + ((size_t)(4 * q) * S + s) * C + c;
+      const float4 v = make_float4(lut_entry<ROUND>(src[0]), lut_entry<ROUND>(src[S * C]),
+                                   lut_entry<ROUND>(src[2 * S * C]),
+                                   lut_entry<ROUND>(src[3 * S * C]));
+      for (int r = 0; r < R; ++r) rows[row * R + (row + r) % R] = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < g * S * C; i += K5_THREADS) {
+      const int c = i % C, js = i / C;
+      s_lut[((js % S) * C + c) * g + js / S] = lut_entry<ROUND>(lut_h[i]);
+    }
+  }
+}
+
+__device__ __forceinline__ int code_of(uint32_t cw, int i, int C) {
+  return min((int)((cw >> (8 * i)) & 0xffu), C - 1);
+}
+
+// the scores of the n <= 4 tokens [t, t + n) for every q head, from their
+// code words cw[s] (byte i: token t + i); subvector 0 first, the others
+// added in order. `vec`: n == 4 and every score row 16-byte aligned
+template <int S>
+__device__ __forceinline__ void word_scores(const uint32_t (&cw)[S], const float* s_lut,
+                                            int g, int C, int R, int copy, float* out_h,
+                                            int T, int t, int n, bool vec) {
+  if ((g & 3) == 0) {
+    const float4* rows = reinterpret_cast<const float4*>(s_lut);
+    const int G4 = g / 4;
+    for (int q = 0; q < G4; ++q) {
+      float4 a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = rows[(code_of(cw[0], i, C) * G4 + q) * R + copy];
+#pragma unroll
+        for (int s = 1; s < S; ++s) {
+          const float4 b = rows[((s * C + code_of(cw[s], i, C)) * G4 + q) * R + copy];
+          a[i].x += b.x;
+          a[i].y += b.y;
+          a[i].z += b.z;
+          a[i].w += b.w;
+        }
+      }
+      float* o = out_h + (size_t)(4 * q) * T + t;
+      if (vec) {
+        *reinterpret_cast<float4*>(o) = make_float4(a[0].x, a[1].x, a[2].x, a[3].x);
+        *reinterpret_cast<float4*>(o + T) = make_float4(a[0].y, a[1].y, a[2].y, a[3].y);
+        *reinterpret_cast<float4*>(o + 2 * (size_t)T) =
+            make_float4(a[0].z, a[1].z, a[2].z, a[3].z);
+        *reinterpret_cast<float4*>(o + 3 * (size_t)T) =
+            make_float4(a[0].w, a[1].w, a[2].w, a[3].w);
+      } else {
+        for (int i = 0; i < n; ++i) {
+          o[i] = a[i].x;
+          o[T + i] = a[i].y;
+          o[2 * (size_t)T + i] = a[i].z;
+          o[3 * (size_t)T + i] = a[i].w;
+        }
+      }
+    }
+  } else {
+    for (int j = 0; j < g; ++j) {
+      float a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = s_lut[code_of(cw[0], i, C) * g + j];
+#pragma unroll
+        for (int s = 1; s < S; ++s) a[i] += s_lut[(s * C + code_of(cw[s], i, C)) * g + j];
+      }
+      float* o = out_h + (size_t)j * T + t;
+      if (vec) {
+        *reinterpret_cast<float4*>(o) = make_float4(a[0], a[1], a[2], a[3]);
+      } else {
+        for (int i = 0; i < n; ++i) o[i] = a[i];
+      }
+    }
+  }
+}
+
+// copy the codes of the unit at token u0 into a warp buffer [S][K5_UNIT]:
+// lane l the 16 bytes at u0 + 16 l of each subvector
+template <int S>
+__device__ __forceinline__ void copy_unit(uint8_t* buf, const uint8_t* codes_h, int T, int u0,
+                                          int lane) {
+  const int t0 = u0 + 16 * lane;
+  if (t0 < T)
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      cp_async16(buf + s * K5_UNIT + 16 * lane, codes_h + (size_t)s * T + t0);
+}
+
+// K5: grid (CTAs per folded head, Hf), K5_THREADS threads. Dynamic shared
+// memory: the staged LUT (R copies when g % 4 == 0), then with VEC each
+// warp's two code buffers [2][S][K5_UNIT]. Warp w of CTA b takes units
+// b * K5_WARPS + w, stepping by the grid's warps per head. VEC: T % 16 == 0
+// and 16-byte aligned codes and scores
+template <int S, bool ROUND, bool VEC>
+__global__ void __launch_bounds__(K5_THREADS, K5_WAVE_CTAS)
 adc_scores_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ codes,
-                  int g, int C, int T, float* __restrict__ out) {
-  extern __shared__ float s_lut[];
-  const int h = blockIdx.y;
-  stage_lut<ROUND>(s_lut, lut + (size_t)h * g * S * C, g * S * C);
+                  int g, int C, int T, int R, float* __restrict__ out) {
+  extern __shared__ __align__(16) float s_lut[];
+  const int h = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_units = (T + K5_UNIT - 1) / K5_UNIT;
+  const int step = (int)gridDim.x * K5_WARPS;
+  int u = (int)blockIdx.x * K5_WARPS + warp;
   const uint8_t* codes_h = codes + (size_t)h * S * T;
   float* out_h = out + (size_t)h * g * T;
-  const int t0 = (int)blockIdx.x * TOK_CTA;
-  const int t_end = min(T, t0 + TOK_CTA);
-  for (int t = t0 + (int)threadIdx.x; t < t_end; t += NTHREADS) {
-    int c[S];
-    load_codes<S>(c, codes_h, T, t, C);
-    for (int j = 0; j < g; ++j) out_h[(size_t)j * T + t] = adc<S>(s_lut + j * S * C, c, C);
+  const int n_lut = ((g & 3) == 0 ? R : 1) * g * S * C;
+  uint8_t* bufs = reinterpret_cast<uint8_t*>(s_lut + ((n_lut + 3) & ~3)) +
+                  (size_t)warp * 2 * S * K5_UNIT;
+  if constexpr (VEC) {
+    if (u < n_units) copy_unit<S>(bufs, codes_h, T, u * K5_UNIT, lane);
+    cp_async_commit();
+  }
+  stage_lut<S, ROUND>(s_lut, lut + (size_t)h * g * S * C, g, C, R);
+  __syncthreads();
+  const int copy = lane % R;
+  for (int b = 0; u < n_units; u += step, b ^= 1) {
+    const uint8_t* buf = bufs + b * S * K5_UNIT;
+    if constexpr (VEC) {
+      if (u + step < n_units)
+        copy_unit<S>(bufs + (b ^ 1) * S * K5_UNIT, codes_h, T, (u + step) * K5_UNIT, lane);
+      cp_async_commit();
+      cp_async_wait_prior();
+      __syncwarp();
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int t = u * K5_UNIT + 128 * k + 4 * lane;
+      if (t >= T) continue;
+      uint32_t cw[S];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        if constexpr (VEC) {
+          cw[s] = *reinterpret_cast<const uint32_t*>(buf + s * K5_UNIT + 128 * k + 4 * lane);
+        } else {
+          const uint8_t* p = codes_h + (size_t)s * T + t;
+          cw[s] = 0u;
+          for (int i = 0; i < 4 && t + i < T; ++i) cw[s] |= (uint32_t)p[i] << (8 * i);
+        }
+      }
+      word_scores<S>(cw, s_lut, g, C, R, copy, out_h, T, t, min(4, T - t), VEC);
+    }
+    // every lane has read the buffer before the next unit's copies refill it
+    if constexpr (VEC) __syncwarp();
   }
 }
 
@@ -353,27 +508,44 @@ block_scores_kernel(const float* __restrict__ lut, const uint8_t* __restrict__ c
   }
 }
 
-template <int S, bool RND>
-cudaError_t scores_launch_rnd(const float* lut, const uint8_t* codes, int Hf, int g,
+template <int S, bool RND, bool VEC>
+cudaError_t scores_launch_vec(const float* lut, const uint8_t* codes, int Hf, int g,
                               int C, int T, float* out, cudaStream_t st) {
-  auto kernel = adc_scores_kernel<S, RND>;
+  auto kernel = adc_scores_kernel<S, RND, VEC>;
   // the LUT may take all the shared memory a block can opt in to: allowed
   // once per process and instantiation, so that a launch inside a CUDA-graph
   // capture makes no attribute call
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
   if (attr != cudaSuccess) return attr;
-  const int smem = g * S * C * (int)sizeof(float);
+  const int lut_bytes = g * S * C * (int)sizeof(float);
+  int R = 1;
+  if ((g & 3) == 0)
+    while (R < K5_COPIES && 2 * R * lut_bytes <= K5_COPIES_SMEM) R *= 2;
+  const int smem = ((R * lut_bytes + 15) & ~15) + (VEC ? K5_WARPS * 2 * S * K5_UNIT : 0);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  kernel<<<dim3((T + TOK_CTA - 1) / TOK_CTA, Hf), NTHREADS, smem, st>>>(lut, codes, g, C, T, out);
+  // CTAs per folded head: K5_WAVE_CTAS per SM over the grid, and no more
+  // than keep every warp on at least one whole unit (at 8 heads and T 33024
+  // that is 16, 1 per SM: on an H100 17 took 3.5 us against 3.1 with 16;
+  // at 64 heads 8)
+  const int n_units = (T + K5_UNIT - 1) / K5_UNIT;
+  const int ctas = max(1, min(n_units / K5_WARPS, sm_count() * K5_WAVE_CTAS / Hf));
+  kernel<<<dim3(ctas, Hf), K5_THREADS, smem, st>>>(lut, codes, g, C, T, R, out);
   return cudaGetLastError();
 }
 
 template <int S>
 cudaError_t scores_launch(const float* lut, const uint8_t* codes, int Hf, int g, int C,
                           int T, int round_bf16, float* out, cudaStream_t st) {
-  return round_bf16 ? scores_launch_rnd<S, true>(lut, codes, Hf, g, C, T, out, st)
-                    : scores_launch_rnd<S, false>(lut, codes, Hf, g, C, T, out, st);
+  const bool vec = T % 16 == 0 && reinterpret_cast<uintptr_t>(codes) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+#define PQ_ARGS lut, codes, Hf, g, C, T, out, st
+  if (round_bf16)
+    return vec ? scores_launch_vec<S, true, true>(PQ_ARGS)
+               : scores_launch_vec<S, true, false>(PQ_ARGS);
+  return vec ? scores_launch_vec<S, false, true>(PQ_ARGS)
+             : scores_launch_vec<S, false, false>(PQ_ARGS);
+#undef PQ_ARGS
 }
 
 int last_block_ctas = 0;   // K3: CTAs per (slot, kv head) of the last launch
@@ -410,10 +582,11 @@ cudaError_t block_launch(const float* lut, const uint8_t* codes, const int* n_ca
 
 // K5. lut [Hf, g, S, C] f32, codes [Hf, S, T] uint8, out [Hf, g, T] f32, all
 // contiguous; S in {1, 2, 4, 8, 16}, 1 <= C <= 256, g*S*C*4 bytes of LUT per
-// CTA within shared memory. Returns a cudaError_t (0 = launched).
+// CTA within shared memory; Hf <= 65535. Returns a cudaError_t (0 = launched).
 extern "C" int pq_adc_scores(const float* lut, const uint8_t* codes, int Hf, int g, int S,
                              int C, int T, int round_bf16, float* out, void* stream) {
-  if (Hf < 1 || g < 1 || C < 1 || C > 256 || T < 1) return cudaErrorInvalidValue;
+  if (Hf < 1 || Hf > 65535 || g < 1 || C < 1 || C > 256 || T < 1)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (S) {
     case 1: return scores_launch<1>(lut, codes, Hf, g, C, T, round_bf16, out, st);

@@ -222,16 +222,28 @@ def test_block_attn_kernel_matches_plain(dev, kv_dtype, idx_dtype, D, bs,
 
 
 @pytest.mark.parametrize("round_bf16", [False, True])
-@pytest.mark.parametrize("lead,H_kv,g,S,C,T", [
-    ((), 8, 4, 2, 64, 33024), ((), 2, 8, 1, 256, 300), ((3,), 2, 2, 4, 16, 1000),
-    ((), 1, 1, 16, 256, 77)])
-def test_adc_scores_kernel_matches_plain(dev, lead, H_kv, g, S, C, T,
+@pytest.mark.parametrize("lead,H_kv,g,S,C,T,off", [
+    ((), 8, 4, 2, 64, 33024, 0), ((), 2, 8, 1, 256, 300, 0),
+    ((3,), 2, 2, 4, 16, 1000, 0), ((), 1, 1, 16, 256, 77, 0),
+    # T not a multiple of 16 (the scalar path, and a last unit cut short);
+    # codes one byte into a larger buffer (the scalar path at T % 16 == 0);
+    # g 3 (scalar LUT loads); bench.py's batched per-token shapes, 64
+    # folded heads
+    ((), 8, 4, 2, 64, 33023, 0), *[((), 2, 4, 2, 64, t, 0) for t in range(1, 16)],
+    ((), 8, 4, 2, 64, 4096, 1), ((), 4, 3, 2, 64, 2000, 0),
+    ((8,), 8, 4, 2, 64, 33280, 0)])
+def test_adc_scores_kernel_matches_plain(dev, lead, H_kv, g, S, C, T, off,
                                          round_bf16):
     rng = np.random.default_rng(T + S)
     lut = torch.from_numpy(rng.normal(size=(*lead, H_kv, g, S, C)).astype(
         np.float32)).to(dev)
-    codes = torch.from_numpy(rng.integers(0, C, size=(*lead, H_kv, S, T))
-                             .astype(np.uint8)).to(dev)
+    shape = (*lead, H_kv, S, T)
+    codes_np = rng.integers(0, C, size=shape).astype(np.uint8)
+    # a contiguous view `off` bytes into a larger buffer
+    buf = torch.zeros(off + codes_np.size, dtype=torch.uint8, device=dev)
+    codes = buf[off:].view(shape)
+    codes.copy_(torch.from_numpy(codes_np))
+    assert codes.is_contiguous() and codes.data_ptr() % 16 == off
     n0 = adc_scores.launches
     got = adc_scores(lut, codes, round_lut_bf16=round_bf16)
     torch.cuda.synchronize()
@@ -497,6 +509,31 @@ def test_adc_scores_largest_lut_captures_into_a_graph(dev):
         torch.testing.assert_close(
             out, adc_scores_ref(lut, codes, round_lut_bf16=rnd), rtol=1e-6,
             atol=1e-6)
+
+
+def test_adc_scores_batched_shapes_capture_into_a_graph(dev):
+    # K5 at bench.py's batched per-token shapes (B 8 x 8 kv heads folded,
+    # T 33280) captured into a CUDA graph: the replay reads new LUT values
+    # and new codes in place and gives the eager launch's scores, bit for bit
+    rng = np.random.default_rng(5)
+    lut = torch.from_numpy(rng.normal(size=(8, 8, 4, 2, 64)).astype(
+        np.float32)).to(dev)
+    codes = torch.from_numpy(rng.integers(0, 64, size=(8, 8, 2, 33280))
+                             .astype(np.uint8)).to(dev)
+    for rnd in (False, True):
+        adc_scores(lut, codes, round_lut_bf16=rnd)       # built, loaded
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = adc_scores(lut, codes, round_lut_bf16=rnd)
+        lut.mul_(0.5)
+        codes.copy_(codes.flip(-1))
+        graph.replay()
+        eager = adc_scores(lut, codes, round_lut_bf16=rnd)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert torch.equal(out, adc_scores_ref(lut, codes,
+                                               round_lut_bf16=rnd))
 
 
 def _batched_setup(dev, policy, pq_kw, kv_dtype="int8", B=3):
