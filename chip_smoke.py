@@ -18,9 +18,16 @@ slots, pq_search (int8 tail, K1 with the local window), its per-token arm
 decoded eagerly and replayed from a CUDA graph with identical tokens and
 states, launches per step by stage, device busy share, capture time and
 peak memory; K1 at the batched shapes, K3 at B 8, and 2-layer batched
-kernels-vs-plain checks. The kernels line takes K1 and K5 at the batched
-shapes. Any failure exits non-zero. Without CUDA it exits 1 and prints no
-result.
+kernels-vs-plain checks. The W8 kernel (weight-only int8 decode products)
+is held against its plain version at every weight shape of the path at M 1
+and 8, and timed per batched step; the Engine also serves a W8 request, a
+chunked-prefill request (K2 at q_offset) and a prefix request, held to the
+one-pass requests' first-token logits; the batched phase adds bench.py's
+default W8 arm; then the port's bench driver runs at bench.py's defaults
+(and at its 128k chunked-prefill case when time allows) and prints its
+JSON line. The kernels line takes K1 and K5 at the batched shapes and W8
+per batched step. Any failure exits non-zero. Without CUDA it exits 1 and
+prints no result.
 
 Output: the card's name and power limit, per-phase results, a
 ``{"kernels": [...]}`` JSON line, and as the last line
@@ -40,11 +47,11 @@ import time
 import numpy as np
 import torch
 
-from pqcache_tpu_torch import config
-from pqcache_tpu_torch.core import pq
+from pqcache_tpu_torch import bench, config
+from pqcache_tpu_torch.core import pq, quant
 from pqcache_tpu_torch.core.budget import compute_budget
 from pqcache_tpu_torch.models import llama
-from pqcache_tpu_torch.ops import _build, adc, block_attn, dispatch
+from pqcache_tpu_torch.ops import _build, adc, block_attn, dispatch, w8
 from pqcache_tpu_torch.ops.adc import (adc_block_scores, adc_block_scores_ref,
                                        adc_scores, adc_scores_ref)
 from pqcache_tpu_torch.ops.attention_ref import (chunked_attention,
@@ -54,6 +61,7 @@ from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
 from pqcache_tpu_torch.ops.flash_attention import flash_attention
 from pqcache_tpu_torch.ops.flash_scores import flash_scores
 from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
+from pqcache_tpu_torch.ops.w8 import w8_matmul, w8_matmul_ref
 from pqcache_tpu_torch.policies import h2o, infllm
 from pqcache_tpu_torch.policies.base import get_policy
 from pqcache_tpu_torch.runtime import stages
@@ -73,7 +81,9 @@ NEW_TOKENS = 32
 # scorer + K1; "token" the per-token path (select_block 1, the default
 # PQConfig) with K5, "token-pallas" adds K6; "k3" the fused ADC block scorer
 # + K1 (select_block 512 would need a tail that is a multiple of 512, and
-# 33024 is not); h2o and infllm read K4's scores at prefill.
+# 33024 is not); h2o and infllm read K4's scores at prefill. "block-w8" is
+# bench.py's pq arm (weight-only int8 through the W8 kernel, an int8 tail);
+# "chunked" prefills in chunks of 8192 (K2 at q_offset).
 ENGINES = {
     "block-bf16": dict(kv="bf16", pq=dict(select_block=256)),
     "block-int8": dict(kv="int8", pq=dict(select_block=256)),
@@ -84,6 +94,9 @@ ENGINES = {
     "h2o-sum": dict(policy="h2o", score_func="sum"),
     "h2o-max": dict(policy="h2o", score_func="max"),
     "infllm": dict(policy="infllm"),
+    "block-w8": dict(kv="int8", pq=dict(select_block=256), w8=True),
+    "chunked": dict(kv="bf16", pq=dict(select_block=256),
+                    prefill_chunk=8192),
 }
 SCORE_POLICIES = ("h2o", "infllm")
 # (prompt tokens, engine): the 100-token request is short enough that the
@@ -92,6 +105,13 @@ REQUESTS = [(2000, "block-bf16"), (16000, "block-int8"),
             (32000, "block-bf16"), (100, "block-bf16"),
             (32000, "token"), (16000, "token-pallas"), (32000, "k3"),
             (32000, "h2o-sum"), (16000, "h2o-max"), (32000, "infllm")]
+# the prefill family on the prompt of the (32000, "block-bf16") request:
+# "block-w8" and "chunked" (four chunks, K2 at q_offset 0, 8192, 16384 and
+# 24576; first-token logits within LOGIT_TOL of the one-pass request's);
+# then a prefix request, a PREFIX-token prefill_prefix continued by a
+# SUFFIX-token suffix, held to LOGIT_TOL of the one-shot request of the
+# joined prompt (both bucket to 32768: the same budget)
+PREFIX, SUFFIX = 16384, 16000
 # K2 is held row by row: ||out - ref|| / ||ref|| of each query row. Rounding
 # P to bf16 for PV and the output to bf16 costs a few 1e-3 there at any
 # depth, while a key tile of 64 dropped from a row that sees n keys moves it
@@ -117,6 +137,17 @@ SELF_TOKENS = 16
 # |logit| difference, kernels vs plain: the logits are the bf16 lm-head
 # output, whose ulp is 0.03125 for |logit| in [4, 8): 4 ulps there
 LOGIT_TOL = 0.125
+# W8 against its plain version: the same exact bf16 products (int8 is exact
+# in bf16) summed in another f32 order, rounded at the same points, so an
+# entry near a bf16 rounding boundary lands one bf16 unit (2^-8 relative)
+# apart, and the scale's rounding another: |y - ref| relative to the
+# largest |ref|
+W8_TOL = 2e-2
+# the weight products of a decode step at Llama-3.1-8B width: (K, N, uses
+# per layer); the LM head once per step
+W8_LAYER = {"wq/wo": (4096, 4096, 2), "wk/wv": (4096, 1024, 2),
+            "gate/up": (4096, 14336, 2), "down": (14336, 4096, 1)}
+W8_HEAD = (4096, 128256)
 
 
 def log(*a):
@@ -678,13 +709,131 @@ def k6_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# W8 against its plain version
+
+def _w8_weights(dev, g, K: int, N: int, copies: int):
+    """`copies` int8 weights [K, N] as quantize_weight_mat makes them
+    (-127..127) and bf16 column scales [1, N] of 0.02-scale weights."""
+    w = torch.randint(-127, 128, (copies, K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = (torch.rand((copies, 1, N), generator=g, device=dev) * 4e-4
+         + 1e-4).bfloat16()
+    return w, s
+
+
+def w8_phase(dev) -> float:
+    """The W8 kernel at every weight shape of the decode path (W8_LAYER and
+    the LM head) at M = 1 (the Engine) and M = 8 (bench.py's B): held
+    against its plain version at W8_TOL, and captured into a CUDA graph
+    whose replay must give the eager output bit for bit. Device time by
+    CUDA-graph replay with the weights cycled over at least 200 MB (past
+    the 50 MB L2), beside the byte bound, the plain route (dequantize to a
+    bf16 copy, torch.matmul, scale) and torch.matmul on a bf16 copy of the
+    same weights (the yardstick: bf16 weights, 2 bytes each). Returns the
+    largest |error|."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    shapes = [(k, K, N, False) for k, (K, N, _) in W8_LAYER.items()]
+    worst = 0.0
+    for name, K, N, head in shapes + [("lm_head", *W8_HEAD, True)]:
+        copies = max(2, -(-200 * 2 ** 20 // (K * N)))
+        w, s = _w8_weights(dev, g, K, N, copies)
+        wb = w.to(torch.bfloat16)
+        for M in (1, 8):
+            x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+            got = w8_matmul(x, w[0], s[0], lm_head=head)
+            ref = w8_matmul_ref(x, w[0], s[0], lm_head=head)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = w8_matmul(x, w[0], s[0], lm_head=head)
+            graph.replay()
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            rel = err / ref.float().abs().max().item()
+            same = torch.equal(replayed, got)
+            worst = max(worst, err)
+            it = iter(range(10 ** 9))
+
+            def cycled(fn):
+                def call():
+                    i = next(it) % copies
+                    return fn(x, w[i], s[i], lm_head=head)
+                return call
+            ms = graph_ms(cycled(w8_matmul), 2 * copies)
+            plain_ms = graph_ms(cycled(w8_matmul_ref), 2 * copies)
+            lib_ms = graph_ms(lambda: x @ wb[next(it) % copies], 2 * copies)
+            nbytes = K * N + 2 * (M * K + N) + M * N * got.element_size()
+            bound_ms = nbytes / PEAK_BYTES * 1e3
+            mt, nb, splits = w8.plan(M, N, K, torch.cuda.get_device_properties(
+                dev).multi_processor_count, w[0].data_ptr())
+            splits = f"{splits} CTAs per cluster along K" if splits > 1 \
+                else "no split"
+            log(f"W8 {name} K={K} N={N} M={M}: max_abs_err {err:.3e}, "
+                f"{rel:.3e} of the largest |entry| (tol {W8_TOL}); replayed "
+                f"from a graph identical: {same}; kernel {ms * 1e3:.2f} us "
+                f"({nbytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%} of its "
+                f"bound {bound_ms * 1e3:.2f} us, bytes; {splits}, "
+                f"{nb}-byte loads); plain route {plain_ms * 1e3:.2f} us; "
+                f"torch.matmul bf16 {lib_ms * 1e3:.2f} us")
+            if not rel <= W8_TOL or not same or not torch.isfinite(got).all():
+                raise SystemExit(f"W8 disagrees with its plain version "
+                                 f"({name}, M={M})")
+        del w, s, wb
+        torch.cuda.empty_cache()
+    return worst
+
+
+def w8_step_entry(dev, worst: float) -> dict:
+    """One batched decode step's weight products at BATCH_LAYERS layers and
+    B 8 (7 per layer and the LM head: 57 launches, 2.27 GB of int8 weights,
+    more than the L2 holds), timed by CUDA-graph replay of the whole step:
+    the W8 kernel, the plain route (the device ms per step it would cost)
+    and torch.matmul on bf16 copies. The kernels line's W8 entry."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    B = 8
+    mats = []
+    for _ in range(BATCH_LAYERS):
+        for K, N, uses in W8_LAYER.values():
+            w, s = _w8_weights(dev, g, K, N, uses)
+            mats += [(w[i], s[i], False) for i in range(uses)]
+    w, s = _w8_weights(dev, g, *W8_HEAD, 1)
+    mats.append((w[0], s[0], True))
+    xs = {K: torch.randn((B, K), generator=g, device=dev).bfloat16()
+          for K in (4096, 14336)}
+    bf = [w.to(torch.bfloat16) for w, _, _ in mats]
+
+    def step(fn):
+        for w, s, head in mats:
+            fn(xs[w.shape[0]], w, s, lm_head=head)
+    ms = graph_ms(lambda: step(w8_matmul), 1)
+    plain_ms = graph_ms(lambda: step(w8_matmul_ref), 1)
+    lib_ms = graph_ms(lambda: [xs[b.shape[0]] @ b for b in bf], 1)
+    nbytes = sum(w.numel() + 2 * (B * w.shape[0] + w.shape[1])
+                 + B * w.shape[1] * (4 if head else 2) for w, _, head in mats)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    log(f"W8 per batched step (B {B}, {BATCH_LAYERS} layers, {len(mats)} "
+        f"products, {nbytes / 1e9:.2f} GB): kernel {ms:.3f} ms of device "
+        f"time ({nbytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%} of its "
+        f"bound {bound_ms:.3f} ms, bytes); plain route (dequantize + "
+        f"torch.matmul) {plain_ms:.3f} ms; torch.matmul on bf16 copies "
+        f"{lib_ms:.3f} ms")
+    del mats, bf
+    torch.cuda.empty_cache()
+    return dict(name="w8_matmul", route="cuda",
+                source="pqcache_tpu_torch/csrc/w8_matmul.cu",
+                replaces="pqcache_tpu/models/llama.py:69",
+                max_abs_err=worst, max_row_rel_err=None, ms=ms,
+                call_ms=None, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=lib_ms)
+
+
+# ---------------------------------------------------------------------------
 # The main path through Engine.generate
 
 KERNELS = {"flash_attention": flash_attention,
            "flash_scores": flash_scores,
            "block_topk_attention": block_topk_attention,
            "adc_scores": adc_scores, "adc_block_scores": adc_block_scores,
-           "gather_rows": gather_rows}
+           "gather_rows": gather_rows, "w8_matmul": w8_matmul}
 
 
 def engine_cfg(model, engine: str, kernels: str = "auto",
@@ -700,13 +849,18 @@ def engine_cfg(model, engine: str, kernels: str = "auto",
         runtime=config.RuntimeConfig(
             policy=e.get("policy", "pq_search"),
             score_func=e.get("score_func", "sum"), prefill_bucket=1024,
-            max_new_tokens=64, max_seq_len=33000, kernels=kernels))
+            max_new_tokens=64, max_seq_len=33000, kernels=kernels,
+            prefill_chunk=e.get("prefill_chunk", 0)))
 
 
-def _expected_launches(engine: str, policy: str, L: int, steps: int) -> dict:
-    """The launches of one request: K2 once per layer at prefill, K4 too
-    for the score-reading policies, and per layer and decode step the
-    kernels of this engine's pq_search decode."""
+def _expected_launches(engine: str, policy: str, L: int, steps: int,
+                       k2: int = 1) -> dict:
+    """The launches of one request: K2 k2 times per layer at prefill (the
+    chunks of a chunked prefill, or the prefix snapshot and the suffix), K4
+    once per layer for the score-reading policies, per layer and decode
+    step the kernels of this engine's pq_search decode; with W8 weights
+    the W8 kernel for the prefill's LM head row and, per decode step, for
+    each layer's 7 products and the LM head."""
     pq_kw = ENGINES[engine].get("pq", {})
     dec = set()
     if policy == "pq_search" and pq_kw["select_block"] == 1:
@@ -715,45 +869,120 @@ def _expected_launches(engine: str, policy: str, L: int, steps: int) -> dict:
     elif policy == "pq_search":
         dec = {"block_topk_attention"} | ({"adc_block_scores"} if pq_kw.get(
             "scorer") == "kernel" else set())
-    pre = {"flash_attention"} | ({"flash_scores"} if policy in SCORE_POLICIES
-                                 else set())
-    return {k: L * (k in pre) + L * steps * (k in dec) for k in KERNELS}
+    pre = {"flash_scores"} if policy in SCORE_POLICIES else set()
+    out = {k: L * (k in pre) + L * steps * (k in dec) for k in KERNELS}
+    out["flash_attention"] = k2 * L
+    if ENGINES[engine].get("w8"):
+        out["w8_matmul"] = 1 + steps * (7 * L + 1)
+    return out
+
+
+class _PrefillLogits:
+    """While active, keeps the logits of the last prefill that
+    Engine.generate ran (one pass, chunked or from a prefix) in .last."""
+    NAMES = ("prefill", "prefill_chunked", "prefill_with_prefix")
+
+    def __enter__(self):
+        self.last, self._orig = None, {n: getattr(llama, n)
+                                       for n in self.NAMES}
+        for n, fn in self._orig.items():
+            def rec(*a, _fn=fn, **kw):
+                self.last = _fn(*a, **kw)
+                return self.last
+            setattr(llama, n, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(llama, n, fn)
+
+
+def _serve(engines, eng: str, ids, L: int, model, total: dict,
+           prefix_len: int = 0, k2: int = 1):
+    """One request: every kernel count set to 0 just before it and read just
+    after; with prefix_len, Engine.prefill_prefix of the first prefix_len
+    tokens and the rest as the suffix. Checks the launches, the tokens and
+    the policy; adds the launches to ``total``. Returns the result."""
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    w8.w8_dequant_matmul.launches = 0
+    t = time.perf_counter()
+    engine = engines[eng]
+    prefix = engine.prefill_prefix(ids[:prefix_len]) if prefix_len else None
+    prefix_s = time.perf_counter() - t
+    res = engine.generate(ids[prefix_len:], NEW_TOKENS, prefix=prefix)
+    got = _counts()
+    steps = len(res.tokens) - 1
+    log(f"request prompt={len(ids)}"
+        + (f" (prefix {prefix_len} prefilled in {prefix_s * 1e3:.1f} ms, "
+           f"suffix {len(ids) - prefix_len})" if prefix_len else "")
+        + f" engine={eng} policy={res.policy_name}: TTFT "
+        f"{res.prefill_seconds * 1e3:.1f} ms, decode "
+        f"{res.decode_seconds / steps * 1e3:.2f} ms/token over {steps} "
+        f"steps, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+        f"launches " + " ".join(f"{k} {v}" for k, v in got.items())
+        + (f"; prefill products through dequantized copies "
+           f"{w8.w8_dequant_matmul.launches}" if ENGINES[eng].get("w8")
+           else ""))
+    want = _expected_launches(eng, res.policy_name, L, steps, k2)
+    if (len(res.tokens) != NEW_TOKENS or got != want
+            or not all(0 <= t < model.vocab_size for t in res.tokens)):
+        raise SystemExit(f"main path check failed for prompt {len(ids)} "
+                         f"({eng}): launches {got}, expected {want}")
+    policy = ("original" if len(ids) < 1000
+              else ENGINES[eng].get("policy", "pq_search"))
+    if res.policy_name != policy:
+        raise SystemExit(f"unexpected policy {res.policy_name}")
+    for k in total:
+        total[k] += got[k]
+    return res
+
+
+def _hold_logits(what: str, got, ref, toks, ref_toks) -> None:
+    """First-token logits within LOGIT_TOL of a reference request's; the
+    greedy tokens that agree are printed (decode from states built apart
+    may part at a near tie)."""
+    d = (got - ref).abs().max().item()
+    same = next((i for i, (a, b) in enumerate(zip(toks, ref_toks))
+                 if a != b), len(toks))
+    log(f"{what}: first-token |logit diff| {d:.4f} (tol {LOGIT_TOL}); greedy "
+        f"tokens equal for the first {same} of {len(toks)}")
+    if not d <= LOGIT_TOL or not torch.isfinite(got).all():
+        raise SystemExit(f"{what}: logits disagree")
 
 
 def main_path(dev, params, model) -> dict:
-    """Serves REQUESTS; every kernel count is set to 0 just before each
-    request and read just after it. Returns the launches summed over all
-    requests."""
+    """Serves REQUESTS, then the prefill family (PREFIX, SUFFIX); every
+    kernel count is set to 0 just before each request and read just after
+    it. Returns the launches summed over all requests."""
     L = model.num_layers
     rng = np.random.default_rng(SEED)
-    engines = {e: Engine(engine_cfg(model, e), params, device=dev)
-               for e in ENGINES}
+    w8_params = quant.quantize_weight_tree(params)
+    engines = {e: Engine(engine_cfg(model, e),
+                         w8_params if ENGINES[e].get("w8") else params,
+                         device=dev) for e in ENGINES}
     total = dict.fromkeys(KERNELS, 0)
-    for n_prompt, eng in REQUESTS:
-        ids = rng.integers(0, model.vocab_size, size=n_prompt)
-        torch.cuda.reset_peak_memory_stats()
-        for fn in KERNELS.values():
-            fn.launches = 0
-        res = engines[eng].generate(ids, NEW_TOKENS)
-        got = {k: fn.launches for k, fn in KERNELS.items()}
-        steps = len(res.tokens) - 1
-        log(f"request prompt={n_prompt} engine={eng} "
-            f"policy={res.policy_name}: TTFT {res.prefill_seconds * 1e3:.1f} "
-            f"ms, decode {res.decode_seconds / steps * 1e3:.2f} ms/token over "
-            f"{steps} steps, peak "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; launches "
-            + " ".join(f"{k} {v}" for k, v in got.items()))
-        want = _expected_launches(eng, res.policy_name, L, steps)
-        if (len(res.tokens) != NEW_TOKENS or got != want
-                or not all(0 <= t < model.vocab_size for t in res.tokens)):
-            raise SystemExit(f"main path check failed for prompt {n_prompt} "
-                             f"({eng}): launches {got}, expected {want}")
-        policy = ("original" if n_prompt < 1000
-                  else ENGINES[eng].get("policy", "pq_search"))
-        if res.policy_name != policy:
-            raise SystemExit(f"unexpected policy {res.policy_name}")
-        for k in total:
-            total[k] += got[k]
+    with _PrefillLogits() as rec:
+        for n_prompt, eng in REQUESTS:
+            ids = rng.integers(0, model.vocab_size, size=n_prompt)
+            res = _serve(engines, eng, ids, L, model, total)
+            if (n_prompt, eng) == (32000, "block-bf16"):
+                base = (ids, rec.last, res.tokens)
+        ids, ref, ref_toks = base
+        _serve(engines, "block-w8", ids, L, model, total)
+        res = _serve(engines, "chunked", ids, L, model, total, k2=4)
+        _hold_logits("chunked request (4 chunks of 8192) against one pass",
+                     rec.last, ref, res.tokens, ref_toks)
+        ids = rng.integers(0, model.vocab_size, size=PREFIX + SUFFIX)
+        one = _serve(engines, "block-bf16", ids, L, model, total)
+        ref = rec.last
+        res = _serve(engines, "block-bf16", ids, L, model, total,
+                     prefix_len=PREFIX, k2=2)
+        _hold_logits(f"prefix request ({PREFIX} + {SUFFIX}) against the "
+                     f"joined prompt in one shot", rec.last, ref, res.tokens,
+                     one.tokens)
+    del engines, w8_params
+    torch.cuda.empty_cache()
     return total
 
 
@@ -1015,10 +1244,14 @@ BATCH_PROFILE = 4         # profiled steps (a short chunk of its own)
 BATCH_STEPS = 3 * BATCH_GEN + BATCH_PROFILE
 BATCH_SEGMENT = 16        # steps per profile of a whole replayed chunk
 # the batched arms: bench.py's default (select_block 256, the jhist scorer,
-# K1), its BENCH_PQ_BLOCK=1 per-token arm (K5, GQA top-k, advanced-index
-# row gather) and `original`; policy, PQConfig overrides, path kernels
+# K1), the same with bench.py's default W8 weights (BENCH_W_INT8=1: the W8
+# kernel for every weight product), its BENCH_PQ_BLOCK=1 per-token arm (K5,
+# GQA top-k, advanced-index row gather) and `original`; policy, PQConfig
+# overrides, path kernels (W8 weights where w8_matmul is one)
 BATCH_ARMS = {
     "pq_search": ("pq_search", {}, ("block_topk_attention",)),
+    "pq_search-w8": ("pq_search", {}, ("block_topk_attention",
+                                       "w8_matmul")),
     "pq_search-token": ("pq_search", dict(select_block=1, adc_mode="v2",
                                           gather_mode="xla"),
                         ("adc_scores",)),
@@ -1030,7 +1263,14 @@ N_TAIL_BATCH = 33536
 DEVICE_NAMES = {"block_topk_attention": "::block_attn_kernel<",
                 "adc_block_scores": "::block_scores_kernel<",
                 "adc_scores": "::adc_scores_kernel<",
-                "gather_rows": "::gather_kernel<"}
+                "gather_rows": "::gather_kernel<",
+                "w8_matmul": "::w8_kernel<"}
+
+
+def _per_step(kernel: str, L: int) -> int:
+    """Launches of a path kernel per batched decode step: once per layer,
+    the W8 kernel 7 times per layer and once for the LM head."""
+    return 7 * L + 1 if kernel == "w8_matmul" else L
 
 
 def batched_cfg(model, policy: str, kernels: str = "auto",
@@ -1038,8 +1278,8 @@ def batched_cfg(model, policy: str, kernels: str = "auto",
     """bench.py's configuration: select_block 256 with the joint-histogram
     scorer, an int8 tail for pq_search (bf16 for `original`), ring_cap 128,
     jhist_defer "auto", fetch_par 32 (accepted, no effect on the card),
-    budget 0.2 / 0.5 / sink 32; bf16 weights. Where bench.py reserves gen
-    + 2 new tokens, this reserves the BATCH_STEPS the phase decodes."""
+    budget 0.2 / 0.5 / sink 32. Where bench.py reserves gen + 2 new
+    tokens, this reserves the BATCH_STEPS the phase decodes."""
     kw = dict(n_subvec_per_head=2, n_subbits=6, kmeans_iters=6,
               select_block=256, fetch_par=32, ring_cap=128)
     kw.update(pq_kw)
@@ -1141,8 +1381,8 @@ def batched_run(dev, model, params, pol, state, first: int, B: int,
     the capture); tokens and the states after the flush must be identical.
     A second replayed chunk is timed; profiles of BATCH_PROFILE steps
     attribute the launches by stage (eager) and count the replayed path
-    kernels on the card, which must be BATCH_PROFILE x L while the
-    wrappers' counters stay at 0. Kernel counts are zeroed before and read
+    kernels on the card, which must be BATCH_PROFILE x their launches per
+    step while the wrappers' counters stay at 0. Kernel counts are zeroed before and read
     after the eager chunk and the capture; the replayed launches are the
     replays times the profiled launches per step."""
     from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
@@ -1239,11 +1479,11 @@ def batched_run(dev, model, params, pol, state, first: int, B: int,
         f"replayed step; path kernels seen {seen}, counted by the wrappers "
         f"during the replays {replay_counted}; top kernels (ms/step): "
         + prof_replay["top"] + whole)
-    want_eager = {k: L * n * (k in path) for k in KERNELS}
-    want_capture = {k: 2 * L * (k in path) for k in KERNELS}
+    want_eager = {k: n * _per_step(k, L) * (k in path) for k in KERNELS}
+    want_capture = {k: 2 * _per_step(k, L) * (k in path) for k in KERNELS}
     if (not same_tokens or not same_state or eager_counts != want_eager
             or capture_counts != want_capture
-            or any(seen[k] != L * steps for k in path)
+            or any(seen[k] != _per_step(k, L) * steps for k in path)
             or any(replay_counted.values())
             or not bool(((got >= 0) & (got < model.vocab_size)).all())):
         raise SystemExit(
@@ -1369,7 +1609,9 @@ def batched_phase(dev, params, model) -> tuple:
     launches = dict.fromkeys(KERNELS, 0)
     replayed = dict.fromkeys(KERNELS, 0)
     entry = None
-    for name, (policy, pq_kw, _) in BATCH_ARMS.items():
+    for name, (policy, pq_kw, path) in BATCH_ARMS.items():
+        arm_params = (quant.quantize_weight_tree(params)
+                      if "w8_matmul" in path else params)
         cfg = batched_cfg(model, policy, **pq_kw)
         pol = get_policy(cfg, compute_budget(cfg.budget, BATCH_CTX,
                                              BATCH_STEPS), dev)
@@ -1377,15 +1619,16 @@ def batched_phase(dev, params, model) -> tuple:
         _zero_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        first = int(torch.argmax(llama.prefill(model, params, pol, state,
-                                               toks, 0, BATCH_CTX)))
+        first = int(torch.argmax(llama.prefill(model, arm_params, pol,
+                                               state, toks, 0, BATCH_CTX)))
         ttft = time.perf_counter() - t
         for k, v in _counts().items():
             launches[k] += v
         log(f"batched {name}: TTFT {ttft * 1e3:.1f} ms ({BATCH_LAYERS} "
             f"layers, prompt {BATCH_CTX}); ring_k {getattr(pol, 'ring_k', 0)}")
         for B in (8, 1):
-            r = batched_run(dev, model, params, pol, state, first, B, name)
+            r = batched_run(dev, model, arm_params, pol, state, first, B,
+                            name)
             for counts in (r["counts"], r["capture_counts"]):
                 for k, v in counts.items():
                     launches[k] += v
@@ -1403,7 +1646,7 @@ def batched_phase(dev, params, model) -> tuple:
                     raise SystemExit("the K5 phase timed another tail length")
             del r
             torch.cuda.empty_cache()
-        del state, pol
+        del state, pol, arm_params
         torch.cuda.empty_cache()
     return entry, launches, replayed
 
@@ -1468,6 +1711,43 @@ def batched_self_check(dev, params, model, name: str, **pq_kw) -> None:
                          f"({name})")
 
 
+BENCH_128K_AFTER = 600    # seconds: past this, the 128k bench run is left out
+
+
+def bench_phase(t0: float) -> dict:
+    """The port's bench driver (``pqcache_tpu_torch/bench.py``) at bench.py's
+    defaults (32k, B 8, 8 layers, W8 weights and an int8 tail against the
+    bf16 `original` arm), then, unless the script has run past
+    BENCH_128K_AFTER seconds, at bench.py's chunked-prefill case
+    (BENCH_CTX=131072 BENCH_BATCH=1 BENCH_SKIP_BASE=1). Each prints its JSON
+    line; counts are set to 0 before each run and read after it. Returns
+    the launches."""
+    total = dict.fromkeys(KERNELS, 0)
+    runs = [dict(), dict(BENCH_CTX="131072", BENCH_BATCH="1",
+                         BENCH_SKIP_BASE="1")]
+    for env in runs:
+        if env and time.perf_counter() - t0 > BENCH_128K_AFTER:
+            log(f"bench at {env}: left out, the script has run "
+                f"{time.perf_counter() - t0:.0f} s")
+            continue
+        kw = bench.settings(env)
+        model = bench.bench_model(kw.pop("layers"), kw.pop("mlp_chunk"))
+        _zero_counts()
+        t = time.perf_counter()
+        line = bench.run(model, **kw)
+        got = _counts()
+        log(f"bench {env or 'defaults'} ({time.perf_counter() - t:.0f} s, "
+            f"launches {got}):")
+        log(json.dumps(line))
+        if not (line["value"] > 0 and got["w8_matmul"] > 0
+                and got["flash_attention"] > 0):
+            raise SystemExit(f"bench run at {env} failed: {line}")
+        for k in total:
+            total[k] += got[k]
+        torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1479,6 +1759,7 @@ def main() -> int:
     environment()
     entries = [k2_phase(dev), k4_phase(dev), k1_phase(dev), k3_phase(dev),
                k5_phase(dev), k6_phase(dev)]
+    entries.append(w8_step_entry(dev, w8_phase(dev)))
     log(f"kernel phases done at {time.perf_counter() - t0:.0f} s")
 
     model = dataclasses.replace(config.LLAMA31_8B, num_layers=LAYERS)
@@ -1513,6 +1794,9 @@ def main() -> int:
     entries = [k1_entry if e["name"] == k1_entry["name"] else e
                for e in entries]
     del params
+    torch.cuda.empty_cache()
+    for k, v in bench_phase(t0).items():
+        launches[k] += v
     # launches: the wrappers' counts (eager calls and captures);
     # replayed_launches: the kernels the batched graphs' replays ran
     for e in entries:

@@ -1,11 +1,16 @@
-"""Per-channel int8 quantization for the KV tail.
+"""Int8 quantization: the KV tail's per-channel codes and weight-only int8.
 
-Counterpart of the KV half of ``pqcache_tpu/core/quant.py``. Scales are per
-(layer, head, channel), computed once from the prefill keys/values
-(absmax/127 over the valid tokens) and frozen; generated tokens quantize
-with the same scales and clip. The K scale folds into the query and the V
-scale out of the attention partials, so the block-retrieval kernel reads
-int8 rows with no scale arithmetic. Weight-only int8 comes in a later slice.
+Counterpart of ``pqcache_tpu/core/quant.py``. KV scales are per (layer,
+head, channel), computed once from the prefill keys/values (absmax/127 over
+the valid tokens) and frozen; generated tokens quantize with the same scales
+and clip. The K scale folds into the query and the V scale out of the
+attention partials, so the block-retrieval kernel reads int8 rows with no
+scale arithmetic.
+
+Weight-only int8 (W8A16): per-output-column scales, so that
+x @ (W8 * s) = (x @ W8) * s and the scale applies to the small output
+(``models/llama.py::_mm``, ``ops/w8.py``). Codes and scales are those of the
+JAX package bit for bit (float32 arithmetic, rounding half to even).
 """
 
 from __future__ import annotations
@@ -47,3 +52,40 @@ def dequant_kv(kv: torch.Tensor, k_scale, v_scale, dtype=torch.bfloat16):
     k = kv[..., :D].float() * k_scale
     v = kv[..., D:].float() * v_scale
     return k.to(dtype), v.to(dtype)
+
+
+# weight matrices of a layer that quantize_weight_tree turns into int8
+W_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+
+
+def quantize_weight_mat(w: torch.Tensor):
+    """[..., in, out] float -> (int8 weights, per-out-column scales
+    [..., 1, out] in w's dtype): absmax/127 over ``in``, floored at 1e-12.
+    A stacked [L, in, out] matrix is quantized one layer at a time, so the
+    float32 transient never exceeds one layer's matrix."""
+    if w.dim() > 2:
+        qs = [quantize_weight_mat(x) for x in w]
+        return torch.stack([q for q, _ in qs]), torch.stack([s for _, s in qs])
+    wf = w.float()
+    s = torch.clamp(wf.abs().amax(-2, keepdim=True) / 127.0, min=1e-12)
+    q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+    return q, s.to(w.dtype)
+
+
+def quantize_weight_tree(params: dict, *, embed: bool = True) -> dict:
+    """A new params dict with the layer matrices (W_KEYS) and the LM head
+    in int8 beside '<name>_s' scale siblings, and with ``embed`` the
+    embedding in int8 with per-ROW scales ('embed_s' [V, 1]). The model
+    (``models/llama.py`` ``_mm``, ``embed_lookup``, ``lm_head_logits``)
+    takes either layout."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for k in W_KEYS:
+        layers[k], layers[k + "_s"] = quantize_weight_mat(layers[k])
+    out["layers"] = layers
+    out["lm_head"], out["lm_head_s"] = quantize_weight_mat(params["lm_head"])
+    if embed:
+        e = params["embed"]
+        q, s = quantize_weight_mat(e.T)              # per row of [V, E]
+        out["embed"], out["embed_s"] = q.T.contiguous(), s.T.contiguous()
+    return out

@@ -9,6 +9,12 @@ Parameters keep the JAX layout — a dict with weights stacked over layers
 scan becomes a Python loop; the attention policy (``policies/``) plugs in at
 the attention site and updates its state in place. Matmuls run in the
 weights' dtype; normalization and softmax in f32.
+
+Every weight product goes through ``_mm``, ``embed_lookup`` and
+``lm_head_logits``, which take float weights or the weight-only int8 layout
+of ``core/quant.quantize_weight_tree`` (int8 matrices beside '<name>_s'
+scales): decode rows through the W8 kernel (``ops/w8.py``), prefill rows
+through a dequantized copy and ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -20,9 +26,10 @@ import torch.nn.functional as F
 
 from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.config import ModelConfig
+from pqcache_tpu_torch.ops import w8
+from pqcache_tpu_torch.ops.dispatch import (dense_prefill_attention,
+                                            prefill_chunk_attention)
 from pqcache_tpu_torch.runtime.stages import stage
-
-_LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "gate", "up", "down")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -59,6 +66,47 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params["lm_head"] = (params["embed"].T.contiguous()
                          if cfg.tie_word_embeddings else n(E, V))
     return params
+
+
+def _mm(x: torch.Tensor, lp: dict, name: str) -> torch.Tensor:
+    """x @ lp[name]. An int8 weight (quantize_weight_tree) is multiplied as
+    (x @ W8) * s with its per-column scale lp[name + "_s"]: on the card, up
+    to w8.MAX_ROWS rows (decode) by the W8 kernel, which reads the int8
+    weights once; more rows (prefill, bound by operations) by a dequantized
+    bf16 copy and torch.matmul (w8.w8_dequant_matmul, counted apart)."""
+    w = lp[name]
+    if w.dtype != torch.int8:
+        return x @ w
+    if x.is_cuda and x.numel() // x.shape[-1] > w8.MAX_ROWS:
+        return w8.w8_dequant_matmul(x, w, lp[name + "_s"])
+    return w8.w8_matmul(x, w, lp[name + "_s"])
+
+
+def embed_lookup(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of ``tokens``; an int8 table carries per-row scales
+    ('embed_s' [V, 1]), applied in the scale's dtype."""
+    e = params["embed"]
+    h = e[tokens]
+    if e.dtype == torch.int8:
+        s = params["embed_s"][tokens]
+        h = h.to(s.dtype) * s
+    return h
+
+
+def lm_head_logits(params: dict, last: torch.Tensor) -> torch.Tensor:
+    """last [., E] @ lm_head -> f32 logits [., V]; an int8 head is scaled
+    after the product, in f32."""
+    w = params["lm_head"]
+    if w.dtype == torch.int8:
+        return w8.w8_matmul(last, w, params["lm_head_s"], lm_head=True)
+    return (last @ w).float()
+
+
+def lm_head_params(params: dict) -> dict:
+    """The final norm and the LM head, with the int8 head's scale row when
+    there is one."""
+    return {k: params[k] for k in ("final_norm", "lm_head", "lm_head_s")
+            if k in params}
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -111,7 +159,8 @@ def mlp(lp: dict, x: torch.Tensor, chunk: int = 16384) -> torch.Tensor:
     """SwiGLU MLP, token-chunked to bound the [T, I] activations (chunk 0 or
     a T that chunk does not divide runs unchunked, as in the JAX package)."""
     def one(xc):
-        return (F.silu(xc @ lp["gate"]) * (xc @ lp["up"])) @ lp["down"]
+        return _mm(F.silu(_mm(xc, lp, "gate")) * _mm(xc, lp, "up"), lp,
+                   "down")
 
     T = x.shape[0]
     if chunk <= 0 or T <= chunk or T % chunk:
@@ -124,21 +173,35 @@ def _finish_layer(cfg: ModelConfig, lp: dict, hidden: torch.Tensor,
     """Post-attention half of one decoder layer — the single copy of the
     residual / norm / MLP tail that prefill and decode both call.
     att: [T, H*D] flattened head outputs."""
-    hidden = hidden + att @ lp["wo"]
+    hidden = hidden + _mm(att, lp, "wo")
     return hidden + mlp(lp, rms_norm(hidden, lp["ln2"], cfg.rms_norm_eps),
                         chunk=cfg.mlp_chunk)
+
+
+def _q_proj(cfg: ModelConfig, lp: dict, h_norm: torch.Tensor, cos, sin):
+    """Rope'd queries [H, T, D] of the normed rows h_norm [T, E]."""
+    T = h_norm.shape[0]
+    return apply_rope(_mm(h_norm, lp, "wq").reshape(
+        T, cfg.num_heads, cfg.head_dim).transpose(0, 1), cos, sin)
+
+
+def _kv_proj(cfg: ModelConfig, lp: dict, h_norm: torch.Tensor, cos, sin):
+    """Rope'd keys and values [H_kv, T, D] of the normed rows h_norm."""
+    T = h_norm.shape[0]
+    Hkv, D = cfg.num_kv_heads, cfg.head_dim
+    k = apply_rope(_mm(h_norm, lp, "wk").reshape(T, Hkv, D).transpose(0, 1),
+                   cos, sin)
+    v = _mm(h_norm, lp, "wv").reshape(T, Hkv, D).transpose(0, 1).contiguous()
+    return k, v
 
 
 def _layer_fwd(cfg: ModelConfig, lp: dict, hidden, attn_fn, cos, sin):
     """One decoder layer; attn_fn(q, k, v) -> (attn [H, T, D], extra)."""
     T = hidden.shape[0]
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, D = cfg.num_heads, cfg.head_dim
     h_norm = rms_norm(hidden, lp["ln1"], cfg.rms_norm_eps)
-    q = apply_rope((h_norm @ lp["wq"]).reshape(T, H, D).transpose(0, 1),
-                   cos, sin)
-    k = apply_rope((h_norm @ lp["wk"]).reshape(T, Hkv, D).transpose(0, 1),
-                   cos, sin)
-    v = (h_norm @ lp["wv"]).reshape(T, Hkv, D).transpose(0, 1).contiguous()
+    k, v = _kv_proj(cfg, lp, h_norm, cos, sin)
+    q = _q_proj(cfg, lp, h_norm, cos, sin)
     attn, extra = attn_fn(q, k, v)
     hidden = _finish_layer(cfg, lp, hidden,
                            attn.transpose(0, 1).reshape(T, H * D))
@@ -146,12 +209,14 @@ def _layer_fwd(cfg: ModelConfig, lp: dict, hidden, attn_fn, cos, sin):
 
 
 def _layer_params(params: dict, idx: int) -> dict:
-    return {k: params["layers"][k][idx] for k in _LAYER_KEYS}
+    """Layer idx of every stacked array, the int8 weights' scales too."""
+    return {k: v[idx] for k, v in params["layers"].items()}
 
 
 def _logits(cfg: ModelConfig, params: dict, last: torch.Tensor):
+    """f32 logits [V] of one row last [1, E]."""
     last = rms_norm(last, params["final_norm"], cfg.rms_norm_eps)
-    return (last @ params["lm_head"]).float()[0]
+    return lm_head_logits(params, last)[0]
 
 
 @torch.no_grad()
@@ -160,7 +225,7 @@ def prefill(cfg: ModelConfig, params: dict, policy, state,
     """Process a LEFT-padded prompt: tokens [P] (positions [0, pad_len) are
     padding). Fills ``state`` and returns the last token's logits [V] f32."""
     P = tokens.shape[0]
-    hidden = params["embed"][tokens]
+    hidden = embed_lookup(params, tokens)
     positions = torch.clamp(torch.arange(P, device=tokens.device) - pad_len,
                             min=0)
     cos, sin = rope_cos_sin(cfg, positions)
@@ -173,6 +238,126 @@ def prefill(cfg: ModelConfig, params: dict, policy, state,
     return _logits(cfg, params, hidden[P - 1:P])
 
 
+def kv_full_chunked(cfg: ModelConfig, lp: dict, hidden: torch.Tensor,
+                    cos, sin, chunk: int):
+    """Pass A of chunked prefill: one layer's rope'd K/V [H_kv, P, D] over
+    all P rows, computed ``chunk`` rows at a time so the normed rows stay
+    bounded at [chunk, E]."""
+    P = hidden.shape[0]
+    Hkv, D = cfg.num_kv_heads, cfg.head_dim
+    k = torch.empty((Hkv, P, D), dtype=hidden.dtype, device=hidden.device)
+    v = torch.empty_like(k)
+    for c0 in range(0, P, chunk):
+        c1 = c0 + chunk
+        h_norm = rms_norm(hidden[c0:c1], lp["ln1"], cfg.rms_norm_eps)
+        k[:, c0:c1], v[:, c0:c1] = _kv_proj(cfg, lp, h_norm, cos[c0:c1],
+                                            sin[c0:c1])
+    return k, v
+
+
+def attn_mlp_chunk(cfg: ModelConfig, lp: dict, h_c: torch.Tensor, cos_c,
+                   sin_c, k: torch.Tensor, v: torch.Tensor, pad_len, c0: int,
+                   *, use_kernel: bool = True) -> torch.Tensor:
+    """Pass B of chunked prefill: the attention of one chunk of rows h_c
+    [ch, E], whose first row is key index c0, against the keys k/v
+    [H_kv, Tk, D] (K2 at q_offset = c0; keys past the chunk are masked by
+    causality), then the MLP. Returns the chunk's new rows [ch, E]."""
+    ch = h_c.shape[0]
+    h_norm = rms_norm(h_c, lp["ln1"], cfg.rms_norm_eps)
+    q = _q_proj(cfg, lp, h_norm, cos_c, sin_c)
+    att = prefill_chunk_attention(q, k, v, pad_len, q_offset=c0,
+                                  use_kernel=use_kernel)
+    return _finish_layer(cfg, lp, h_c, att.transpose(0, 1).reshape(ch, -1))
+
+
+@torch.no_grad()
+def prefill_chunked(cfg: ModelConfig, params: dict, policy, state,
+                    tokens: torch.Tensor, pad_len: int, true_len: int, *,
+                    chunk: int):
+    """``prefill`` with its transients bounded at ``chunk`` rows (the JAX
+    package's ``prefill_chunked``): per layer (A) the full-length K/V from
+    row chunks, (B) each chunk's queries against the keys before it through
+    K2 at q_offset, then its MLP, and (C) the policy's ``prefill_tail`` on
+    the full K/V. Needs P % chunk == 0 and a policy with ``prefill_tail``.
+
+    Each chunk's output overwrites its own rows of ``hidden`` in place:
+    chunk c + 1 reads only rows [c0 + chunk, ...), which no earlier chunk
+    wrote, and pass A has already taken this layer's K/V from the old rows,
+    so they are dead once their chunk is done. Returns the last token's
+    logits [V] f32."""
+    P = tokens.shape[0]
+    if P % chunk:
+        raise ValueError(f"prefill length {P} not a multiple of chunk "
+                         f"{chunk}")
+    use_kernel = getattr(policy, "use_kernel", True)
+    hidden = embed_lookup(params, tokens)
+    positions = torch.clamp(torch.arange(P, device=tokens.device) - pad_len,
+                            min=0)
+    cos, sin = rope_cos_sin(cfg, positions)
+    for idx in range(cfg.num_layers):
+        lp = _layer_params(params, idx)
+        k, v = kv_full_chunked(cfg, lp, hidden, cos, sin, chunk)
+        for c0 in range(0, P, chunk):
+            c1 = c0 + chunk
+            hidden[c0:c1] = attn_mlp_chunk(
+                cfg, lp, hidden[c0:c1], cos[c0:c1], sin[c0:c1], k, v,
+                pad_len, c0, use_kernel=use_kernel)
+        policy.prefill_tail(state, idx, k, v, pad_len, true_len)
+    return _logits(cfg, params, hidden[P - 1:P])
+
+
+@torch.no_grad()
+def prefill_capture_kv(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+                       *, use_kernel: bool = True):
+    """Prefix-cache snapshot: the rope'd K/V [L, H_kv, T_pre, D] of an
+    unpadded prefix prompt tokens [T_pre], by dense causal attention (K2).
+    No policy: the snapshot is raw K/V, and the policy's codebooks and state
+    are trained later over [prefix | suffix] in ``prefill_with_prefix``."""
+    P = tokens.shape[0]
+    hidden = embed_lookup(params, tokens)
+    cos, sin = rope_cos_sin(cfg, torch.arange(P, device=tokens.device))
+    ks, vs = [], []
+    for idx in range(cfg.num_layers):
+        def attn_fn(q, k, v):
+            ks.append(k)
+            vs.append(v)
+            return dense_prefill_attention(q, k, v, 0,
+                                           use_kernel=use_kernel)[0], None
+        hidden, _ = _layer_fwd(cfg, _layer_params(params, idx), hidden,
+                               attn_fn, cos, sin)
+    return torch.stack(ks), torch.stack(vs)
+
+
+@torch.no_grad()
+def prefill_with_prefix(cfg: ModelConfig, params: dict, policy, state,
+                        pre_k: torch.Tensor, pre_v: torch.Tensor,
+                        tokens: torch.Tensor, true_suf: int):
+    """Prefill continuing from a prefix snapshot (``prefill_capture_kv``):
+    pre_k/pre_v [L, H_kv, T_pre, D]; tokens [P_suf] is the suffix, RIGHT-
+    padded (rows >= true_suf are padding, whose keys no real row sees).
+    Per layer the suffix is one chunk at q_offset = T_pre against
+    [prefix | suffix] (``attn_mlp_chunk``), then the policy's
+    ``prefill_tail`` over the joined K/V with pad_len 0 and true_len =
+    T_pre + true_suf: the inputs of a one-shot prefill of the joined
+    prompt. Returns the logits [V] f32 of the last real row."""
+    P_suf = tokens.shape[0]
+    T_pre = pre_k.shape[2]
+    use_kernel = getattr(policy, "use_kernel", True)
+    hidden = embed_lookup(params, tokens)
+    cos, sin = rope_cos_sin(
+        cfg, T_pre + torch.arange(P_suf, device=tokens.device))
+    for idx in range(cfg.num_layers):
+        lp = _layer_params(params, idx)
+        h_norm = rms_norm(hidden, lp["ln1"], cfg.rms_norm_eps)
+        k_suf, v_suf = _kv_proj(cfg, lp, h_norm, cos, sin)
+        k = torch.cat([pre_k[idx], k_suf], 1)
+        v = torch.cat([pre_v[idx], v_suf], 1)
+        hidden = attn_mlp_chunk(cfg, lp, hidden, cos, sin, k, v, 0, T_pre,
+                                use_kernel=use_kernel)
+        policy.prefill_tail(state, idx, k, v, 0, T_pre + int(true_suf))
+    return _logits(cfg, params, hidden[int(true_suf) - 1:int(true_suf)])
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: dict, policy, state,
                 token: torch.Tensor, pos: int):
@@ -180,7 +365,7 @@ def decode_step(cfg: ModelConfig, params: dict, policy, state,
     the token's absolute position. Returns logits [V] f32. A policy with
     ``deferred_appends`` gets all layers' new tokens committed to ``state``
     after the layer loop; the others wrote theirs inside decode_attn."""
-    hidden = params["embed"][token.reshape(1)]               # [1, E]
+    hidden = embed_lookup(params, token.reshape(1))          # [1, E]
     cos, sin = rope_cos_sin(
         cfg, torch.arange(pos, pos + 1, device=hidden.device))
     shared = policy.shared_pre(state)
@@ -233,7 +418,7 @@ def decode_step_batched(cfg: ModelConfig, params: dict, policy, state,
     B = tokens.shape[0]
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     with stage("embed_rope"):
-        hidden = params["embed"][tokens]                     # [B, E]
+        hidden = embed_lookup(params, tokens)                # [B, E]
         cos, sin = rope_cos_sin(cfg, pos)                    # [B, D/2]
         shared = policy.shared_pre_batched(state)
     ks, vs = [], []
@@ -241,11 +426,11 @@ def decode_step_batched(cfg: ModelConfig, params: dict, policy, state,
         lp = _layer_params(params, idx)
         with stage("qkv"):
             h_norm = rms_norm(hidden, lp["ln1"], cfg.rms_norm_eps)
-            q = _apply_rope_batched((h_norm @ lp["wq"]).reshape(B, H, D),
+            q = _apply_rope_batched(_mm(h_norm, lp, "wq").reshape(B, H, D),
                                     cos, sin)
-            k = _apply_rope_batched((h_norm @ lp["wk"]).reshape(B, Hkv, D),
-                                    cos, sin)
-            v = (h_norm @ lp["wv"]).reshape(B, Hkv, D)
+            k = _apply_rope_batched(
+                _mm(h_norm, lp, "wk").reshape(B, Hkv, D), cos, sin)
+            v = _mm(h_norm, lp, "wv").reshape(B, Hkv, D)
         attn, (k_new, v_new) = policy.decode_attn_batched(state, idx, q, k, v,
                                                           shared)
         with stage("out_mlp"):
@@ -258,7 +443,7 @@ def decode_step_batched(cfg: ModelConfig, params: dict, policy, state,
         policy.shared_post_batched(state, shared)
     with stage("lm_head"):
         last = rms_norm(hidden, params["final_norm"], cfg.rms_norm_eps)
-        return (last @ params["lm_head"]).float()
+        return lm_head_logits(params, last)
 
 
 @torch.no_grad()

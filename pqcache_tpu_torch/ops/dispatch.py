@@ -1,7 +1,8 @@
 """Prefill attention dispatch: the CUDA kernels K2 (+ K4) or their plain
 versions.
 
-Counterpart of ``pqcache_tpu/ops/dispatch.py::dense_prefill_attention``.
+Counterpart of ``pqcache_tpu/ops/dispatch.py::dense_prefill_attention`` and
+``prefill_chunk_attention``.
 There is no head-dim gate: the kernel wrappers take the head dims they
 support and raise on any other.
 """
@@ -38,3 +39,16 @@ def dense_prefill_attention(q: torch.Tensor, k: torch.Tensor,
     scores = flash_scores if use_kernel else flash_scores_ref
     return out, scores(q, k, valid_lo=pad_len, score_mode=score_mode,
                        row_stats=(m, l))
+
+
+def prefill_chunk_attention(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, pad_len, *, q_offset: int,
+                            use_kernel: bool = True) -> torch.Tensor:
+    """Causal attention of one prefill q chunk [H, Tq, D], whose row 0 sits
+    at key index q_offset, against the keys k/v [H_kv, Tk, D] (keys before
+    ``pad_len`` masked; keys past q_offset + Tq - 1 are masked by causality,
+    so k may run past the chunk). Returns [H, Tq, D]: K2 at ``q_offset``,
+    or with use_kernel=False its plain version, which the JAX package's
+    ``chunked_attention_rect`` computes too."""
+    attn = flash_attention if use_kernel else chunked_attention
+    return attn(q, k, v, valid_lo=pad_len, causal=True, q_offset=q_offset)

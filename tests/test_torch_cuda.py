@@ -17,7 +17,13 @@ relative to each row's largest entry, and the same block selection); K1 and
 K3 merge on chip in a fixed order, so two calls give bitwise the same
 output, and each call is one CUDA kernel; K4
 sums its bf16 tensor-core logits in another order and uses the fast exp
-(1e-4 of each head's largest entry); K6 copies bytes (exact).
+(1e-4 of each head's largest entry); K6 copies bytes (exact). The W8
+kernel sums the same exact bf16 products as its plain version (int8 is exact
+in bf16) in another f32 order, then rounds at the same points: a sum near a
+bf16 rounding boundary may land one bf16 unit (2^-8 relative) apart, and
+the scale's rounding another, so it is held at 2e-2 relative and 2e-2 of
+the largest |entry| absolute; its cluster adds the split-K partials in rank
+order, so two calls give bitwise the same output.
 """
 
 import dataclasses
@@ -40,6 +46,7 @@ from pqcache_tpu_torch.ops.flash_attention import flash_attention
 from pqcache_tpu_torch.ops.flash_attention import row_stats as k2_row_stats
 from pqcache_tpu_torch.ops.flash_scores import flash_scores
 from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
+from pqcache_tpu_torch.ops.w8 import w8_matmul, w8_matmul_ref
 from pqcache_tpu_torch.policies.base import get_policy
 from pqcache_tpu_torch.runtime.generate import Engine
 
@@ -629,3 +636,110 @@ def test_segment_merge_in_bf16_gemms_matches_f32_copies(dev):
     assert got.dtype == torch.bfloat16
     err = (got.float() - f).abs().max().item()
     assert err <= 1e-2 * f.abs().max().item(), err
+
+
+def _w8_inputs(dev, M, N, K, seed=0):
+    """bf16 x [M, K] of unit scale, int8 w [K, N] over the whole int8 range,
+    bf16 scales [1, N] of the size quantize_weight_mat gives 0.02-scale
+    weights."""
+    g = torch.Generator(device=dev).manual_seed(seed + M + N + K)
+    x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+    w = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = (torch.rand((1, N), generator=g, device=dev) * 4e-4 + 1e-4).bfloat16()
+    return x, w, s
+
+
+def _assert_w8_close(got, ref):
+    torch.testing.assert_close(got.float(), ref.float(), rtol=2e-2,
+                               atol=2e-2 * ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("lm_head", [False, True], ids=["layer", "head"])
+@pytest.mark.parametrize("K", [4096, 14336])
+@pytest.mark.parametrize("N", [1024, 4096, 14336, 128256, 1000])
+@pytest.mark.parametrize("M", [1, 2, 8, 16, 64])
+def test_w8_kernel_matches_plain(dev, M, N, K, lm_head):
+    # the path's shapes at Llama-3.1-8B width (wk/wv, wq/wo, gate/up, down,
+    # the LM head) at the Engine's and bench.py's rows and up to 64, split
+    # along K in clusters of 1 to 16 CTAs; N 1000 is no multiple of a
+    # tile's columns nor of 16 bytes; the layer epilogue writes bf16, the
+    # head's f32
+    x, w, s = _w8_inputs(dev, M, N, K)
+    n0 = w8_matmul.launches
+    got = w8_matmul(x, w, s, lm_head=lm_head)
+    again = w8_matmul(x, w, s, lm_head=lm_head)
+    torch.cuda.synchronize()
+    assert w8_matmul.launches == n0 + 2
+    assert got.shape == (M, N)
+    assert got.dtype == (torch.float32 if lm_head else torch.bfloat16)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    _assert_w8_close(got, w8_matmul_ref(x, w, s, lm_head=lm_head))
+
+
+@pytest.mark.parametrize("M", [1, 8, 40])
+def test_w8_kernel_narrowest_loads(dev, M):
+    # N 4100: a multiple of 4, not of 8 (4-byte loads at every M)
+    x, w, s = _w8_inputs(dev, M, 4100, 14336, seed=1)
+    got = w8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    _assert_w8_close(got, w8_matmul_ref(x, w, s))
+
+
+def test_w8_kernel_captures_into_a_graph(dev):
+    # captured (a cluster launch splitting K), replayed on new inputs
+    # written in place: the eager call's output, bit for bit
+    x, w, s = _w8_inputs(dev, 8, 4096, 14336, seed=2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        w8_matmul(x, w, s)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = w8_matmul(x, w, s)
+    x.mul_(-0.5)
+    w.copy_(w.flip(0))
+    graph.replay()
+    eager = w8_matmul(x, w, s)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    _assert_w8_close(out, w8_matmul_ref(x, w, s))
+
+
+def test_w8_kernel_refuses_what_it_does_not_take(dev):
+    x, w, s = _w8_inputs(dev, 65, 1024, 4096)
+    with pytest.raises(ValueError, match="rows"):
+        w8_matmul(x, w, s)                       # prefill rows
+    with pytest.raises(ValueError, match="device"):
+        w8_matmul(x[:8], w.cpu(), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        w8_matmul(x[:8], w.t().contiguous().t(), s)
+    with pytest.raises(TypeError):
+        w8_matmul(x[:8].float(), w, s)
+
+
+def test_w8_graph_replay_matches_eager_decode(dev):
+    # the batched decode with W8 weights replayed from a CUDA graph gives
+    # the eager decode's tokens and state; the W8 kernel ran in both
+    import copy
+    from pqcache_tpu_torch.core import quant
+    from pqcache_tpu_torch.ops import w8
+    from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
+    cfg, params, pol, state, tok, pos = _batched_setup(
+        dev, "pq_search", dict(select_block=64))
+    params = quant.quantize_weight_tree(params)
+    twin = copy.deepcopy(state)
+    n0 = w8.w8_matmul.launches
+    want = BatchedDecoder(cfg, params, pol, twin, chunk=6,
+                          graph=False).generate(tok, pos, 12)
+    assert w8.w8_matmul.launches - n0 == 12 * (7 * cfg.num_layers + 1)
+    got = BatchedDecoder(cfg, params, pol, state, chunk=6).generate(tok, pos,
+                                                                    12)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for f in dataclasses.fields(state):
+        a, b = getattr(state, f.name), getattr(twin, f.name)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), f.name

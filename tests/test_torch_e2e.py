@@ -314,7 +314,7 @@ def test_infllm_clamped_windows_match_jax():
 
 
 def test_engine_device_default_and_unported_options(model):
-    _, _, cfg, params, _ = model
+    jcfg, jparams, cfg, params, ids = model
     ecfg = config.EngineConfig(model=cfg)
     if torch.cuda.is_available():
         assert Engine(ecfg, params).device.type == "cuda"
@@ -326,11 +326,18 @@ def test_engine_device_default_and_unported_options(model):
             ecfg.runtime, **rt))
         with pytest.raises(ValueError):
             Engine(bad, params, device="cpu")
-    for rt in (dict(temperature=0.7), dict(prefill_chunk=512)):
-        bad = dataclasses.replace(ecfg, runtime=dataclasses.replace(
-            ecfg.runtime, **rt))
-        with pytest.raises(NotImplementedError):
-            Engine(bad, params, device="cpu")
+    bad = dataclasses.replace(ecfg, runtime=dataclasses.replace(
+        ecfg.runtime, temperature=0.7))
+    with pytest.raises(NotImplementedError):
+        Engine(bad, params, device="cpu")
+    # chunked prefill is ported: prefill_chunk=512 (the 1152-token bucket
+    # planned as 3 chunks of 512) gives the JAX Engine's tokens
+    jecfg, ecfg_c = (dataclasses.replace(e, runtime=dataclasses.replace(
+        e.runtime, prefill_chunk=512))
+        for e in _ecfgs(jcfg, cfg, "original", 16, "bf16"))
+    want = JEngine(jecfg, jparams, dtype=jnp.float32).generate(ids, 8)
+    assert Engine(ecfg_c, params, dtype=torch.float32,
+                  device="cpu").generate(ids, 8).tokens == want.tokens
     budget = compute_budget(ecfg.budget, 1024, 16)
     # select_block 1 and the kernel scorer now serve; these still raise
     for section, kw in (("pq", dict(metric="ip", select_block=16)),
