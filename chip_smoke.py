@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pqcache_tpu_torch/csrc``, holds each
-(K1–K6) against its plain PyTorch version at the main path's shapes, serves
-requests through ``Engine.generate`` at Llama-3.1-8B width (random weights
-from a seeded generator) on the block path (joint-histogram scorer + K1),
+(K1–K6) against its plain PyTorch version at the main path's shapes (K2
+also on the serving path's admission slabs at q_offset), serves requests
+through ``Engine.generate`` at Llama-3.1-8B width and 8 layers (random
+weights from a seeded generator) on the block path (joint-histogram scorer + K1),
 the per-token path (select_block 1: K5, and K6 with gather_mode "pallas"),
 the fused block-scorer path (K3 + K1) and the score-reading policies h2o
 ("sum" and "max") and infllm (K2 + K4 at prefill), checks that each request
@@ -23,9 +24,17 @@ is held against its plain version at every weight shape of the path at M 1
 and 8, and timed per batched step; the Engine also serves a W8 request, a
 chunked-prefill request (K2 at q_offset) and a prefix request, held to the
 one-pass requests' first-token logits; the batched phase adds bench.py's
-default W8 arm; then the port's bench driver runs at bench.py's defaults
-(and at its 128k chunked-prefill case when time allows) and prints its
-JSON line. The kernels line takes K1 and K5 at the batched shapes and W8
+default W8 arm. The serving phase drives ``BatchEngine`` under load
+through ``harness/serving.py`` at its defaults (8 layers, 32k prompts,
+pool 8, a burst of 16 requests, 64 new tokens, interleaved admission: K2
+at q_offset, K1 replayed from the decode graph) for `pq_search`,
+`original` and the W8 + int8-tail arm, with each row's launches, peak
+memory and its split into admission slabs, tails and decode chunks; holds
+interleaved admission to the monolithic one (identical token streams),
+sampled decode replayed from the graph to eager decode from one seed, and
+runs ``harness/latency.py`` at 32k (K5 on the pq arm). Then the port's
+bench driver runs at bench.py's defaults (and at its 128k chunked-prefill
+case when time allows) and prints its JSON line. The kernels line takes K1 and K5 at the batched shapes and W8
 per batched step. Any failure exits non-zero. Without CUDA it exits 1 and
 prints no result.
 
@@ -74,7 +83,9 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
 SEED = 0
-LAYERS = 32                     # full depth of Llama-3.1-8B
+# depth of the Engine request phase: cut from Llama-3.1-8B's 32 to
+# bench.py's 8 to make room for the serving phase in the script's time
+LAYERS = 8
 NEW_TOKENS = 32
 # The engines of the main path: policy (pq_search unless named), kv tail
 # dtype, PQConfig overrides, score_func. "block" is the joint-histogram
@@ -118,6 +129,9 @@ PREFIX, SUFFIX = 16384, 16000
 # by about sqrt(64 / n): 4.5% at n = 32k. An absolute limit would not see
 # that: the deep rows' entries are ~0.01.
 K2_TOL = 1e-2
+# the serving path's interleaved admission: slabs of SLAB rows; K2 is held
+# at the first and the deepest slab of a 32k prompt
+SLAB, SLAB_OFFSETS = 8192, (0, 24576)
 K1_TOL = 1e-4     # float32 both sides, relative to the largest |entry|
 # K3 sums exp terms per block, then rescales, where its plain version takes
 # one softmax: float32 summation order, relative to each row's largest entry
@@ -249,7 +263,9 @@ def k2_phase(dev) -> dict:
     """K2 held row by row against its plain version at T 2048 (pad 48), at
     T 2100 (pad 77: ragged against the 128-row tiles) and at the main
     prefill shape T 32768 (pad 768), with and without its row statistics,
-    which are held against chunked_attention(return_stats=True). At 32768
+    which are held against chunked_attention(return_stats=True), and at
+    32768 on the serving path's admission slabs (8192 rows at q_offset 0
+    and 24576, SLAB_OFFSETS). At 32768
     the device time comes from CUDA-graph replay cycling over 2 layers of
     inputs (768 MB, far above the 50 MB L2). The library yardstick is one
     SDPA call with is_causal on the valid slice [pad:] with GQA-expanded K/V
@@ -287,6 +303,26 @@ def k2_phase(dev) -> dict:
             raise SystemExit(f"K2 disagrees with its plain version at T={T}")
         if T < 32768:
             continue
+        # the serving path's admission slab: SLAB query rows at q_offset c0
+        # against the whole admission buffer (keys past the slab masked by
+        # causality), as prefill_chunk_step gives K2
+        for c0 in SLAB_OFFSETS:
+            qs = q[0][:, c0:c0 + SLAB].contiguous()
+            got = flash_attention(qs, k[0], v[0], valid_lo=pad, q_offset=c0)
+            torch.cuda.synchronize()
+            want = chunked_attention(qs, k[0], v[0], valid_lo=pad,
+                                     q_offset=c0)
+            s_rel = row_rel_err(got, want)
+            s_fin = bool(torch.isfinite(got).all())
+            log(f"K2 slab q [{H}, {SLAB}, {D}] at q_offset {c0}, keys T={T} "
+                f"pad={pad}: max_abs_err "
+                f"{(got.float() - want.float()).abs().max().item():.3e}, "
+                f"worst row ||err||/||ref|| {s_rel:.3e} (tol {K2_TOL}); "
+                f"finite {s_fin}")
+            if not s_fin or not s_rel <= K2_TOL:
+                raise SystemExit(f"K2 disagrees with its plain version on "
+                                 f"the slab at q_offset {c0}")
+            del qs, got, want
         layer = iter(range(10 ** 9))
 
         def call(stats=False):
@@ -1711,6 +1747,259 @@ def batched_self_check(dev, params, model, name: str, **pq_kw) -> None:
                          f"({name})")
 
 
+# ---------------------------------------------------------------------------
+# The serving path: BatchEngine under load, through the port's harnesses
+
+# harness/serving.py's defaults, spelled out: Llama-3.1-8B widths at 8
+# layers, 32k prompts, pool 8, a burst of 16 requests, 64 new tokens,
+# decode chunks of 16, interleaved admission in slabs of 8192, block path
+SERVE_ARGS = ["--ctx", "32768", "--layers", "8", "--pool", "8",
+              "--requests", "16", "--stagger", "0", "--gen", "64",
+              "--chunk", "16", "--prefill-chunk", "8192",
+              "--select-block", "256"]
+# the rows: (policy, extra flags, the path kernels that must launch)
+SERVE_ROWS = [
+    ("pq_search", [], ("flash_attention", "block_topk_attention")),
+    ("original", [], ("flash_attention",)),
+    ("pq_search", ["--kv-dtype", "int8", "--weight-int8"],
+     ("flash_attention", "block_topk_attention", "w8_matmul")),
+]
+# interleaved against monolithic admission: pool 2, 4 prompts of different
+# lengths, 32 new tokens
+MONO_LENGTHS, MONO_GEN = (32768, 30001, 24577, 17000), 32
+SAMPLE_CTX, SAMPLE_B, SAMPLE_STEPS = 4096, 4, 32
+
+
+class _Spans:
+    """While active, CUDA events around the BatchEngine's admission and
+    decode calls (no host wait added), kept for the last ``run``; and that
+    run's results."""
+    KINDS = {"_admission_step": "slab", "_admission_finish": "tail",
+             "_admit": "admission", "_decode_chunk": "decode chunk"}
+
+    def __enter__(self):
+        from pqcache_tpu_torch.runtime.batch_engine import BatchEngine
+        self.events, self.results, self.replays = [], None, 0
+        self._orig = {n: getattr(BatchEngine, n)
+                      for n in (*self.KINDS, "run")}
+        for n, kind in self.KINDS.items():
+            def timed(eng, *a, _fn=self._orig[n], _kind=kind, **kw):
+                s, e = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(2))
+                s.record()
+                out = _fn(eng, *a, **kw)
+                e.record()
+                self.events.append((_kind, s, e))
+                return out
+            setattr(BatchEngine, n, timed)
+
+        def run(eng, *a, **kw):
+            self.events = []
+            self.results = self._orig["run"](eng, *a, **kw)
+            self.replays = eng.decoder.replays   # over the engine's life
+            return self.results
+        BatchEngine.run = run
+        return self
+
+    def __exit__(self, *exc):
+        from pqcache_tpu_torch.runtime.batch_engine import BatchEngine
+        for n, fn in self._orig.items():
+            setattr(BatchEngine, n, fn)
+
+    def breakdown(self) -> dict:
+        """kind -> (calls, seconds between its events summed, the most)."""
+        torch.cuda.synchronize()
+        out = {}
+        for kind, s, e in self.events:
+            n, tot, most = out.get(kind, (0, 0.0, 0.0))
+            t = s.elapsed_time(e) / 1e3
+            out[kind] = (n + 1, tot + t, max(most, t))
+        return out
+
+
+def serving_rows(dev) -> tuple:
+    """(a) harness/serving.py at its defaults for each of SERVE_ROWS: every
+    request returns gen tokens, ttft_p95 >= wait_p95 >= 0, the path's
+    kernels launched (counts set to 0 just before the row, read just
+    after). Prints each row's JSON line, its peak memory and where its
+    timed run's time went. Returns the launches the wrappers counted and
+    those the decode graph's replays ran (replays x launches per step)."""
+    from pqcache_tpu_torch.harness import serving
+    total = dict.fromkeys(KERNELS, 0)
+    replayed = dict.fromkeys(KERNELS, 0)
+    for policy, extra, path in SERVE_ROWS:
+        args = serving.parse_args(SERVE_ARGS + extra + ["--policies",
+                                                        policy])
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t = time.perf_counter()
+        with _Spans() as spans:
+            (row,) = serving.run(args)
+        got = _counts()
+        split = spans.breakdown()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"serving {policy} {' '.join(extra) or '(bf16)'}: "
+            f"{time.perf_counter() - t:.0f} s with the warm-up, peak "
+            f"{peak:.1f} GiB; launches {got}")
+        log(f"serving {policy}: timed run {row['wall_s']} s, of it "
+            + "; ".join(f"{k} {n} x, {s:.3f} s (most {m * 1e3:.1f} ms)"
+                        for k, (n, s, m) in split.items()))
+        res = spans.results
+        if (sorted(res) != list(range(args.requests))
+                or any(len(v) != args.gen for v in res.values())
+                or not row["ttft_p95_s"] >= row["wait_p95_s"] >= 0
+                or not all(got[k] > 0 for k in path)):
+            raise SystemExit(f"serving row {policy} {extra} failed")
+        for k in total:
+            total[k] += got[k]
+        for k in path[1:]:            # the decode kernels of the step
+            replayed[k] += spans.replays * _per_step(k, args.layers)
+    return total, replayed
+
+
+def interleave_check(dev) -> dict:
+    """(b) interleaved against monolithic admission on the card: the
+    8-layer model, pool 2, MONO_LENGTHS prompts, MONO_GEN new tokens; the
+    token streams must be identical. Returns the launches."""
+    from pqcache_tpu_torch.harness import serving
+    from pqcache_tpu_torch.runtime.batch_engine import BatchEngine
+    model = bench.bench_model(8)
+    params = serving.build_params(model, False, dev)
+    cfg = batched_cfg(model, "pq_search")
+    cfg = dataclasses.replace(cfg, cache=config.CacheConfig(kv_dtype="bf16"),
+                              runtime=dataclasses.replace(
+                                  cfg.runtime, max_new_tokens=MONO_GEN,
+                                  prefill_chunk=8192))
+    rng = np.random.default_rng(SEED + 11)
+    reqs = [(i, rng.integers(0, model.vocab_size, n))
+            for i, n in enumerate(MONO_LENGTHS)]
+    out, total = {}, dict.fromkeys(KERNELS, 0)
+    for mode in ("on", "off"):
+        _zero_counts()
+        t = time.perf_counter()
+        be = BatchEngine(cfg, params, batch_size=2, prefill_len=BATCH_CTX,
+                         max_new_tokens=MONO_GEN, interleave=mode)
+        out[mode] = be.run(reqs, chunk=16)
+        got = _counts()
+        log(f"admission interleave={mode}: {time.perf_counter() - t:.1f} s "
+            f"for {len(reqs)} prompts {MONO_LENGTHS}, pool 2; launches "
+            f"{got}")
+        for k in total:
+            total[k] += got[k]
+        del be
+        torch.cuda.empty_cache()
+    same = out["on"] == out["off"]
+    log(f"interleaved = monolithic token streams: {same}")
+    if not same or any(len(v) != MONO_GEN for v in out["on"].values()):
+        raise SystemExit("interleaved and monolithic admission disagree")
+    return total
+
+
+def sampling_check(dev) -> None:
+    """(c) sampling on the batched decoder at 2 layers: SAMPLE_B prompts of
+    SAMPLE_CTX tokens, one per slot; temperature 0.8, top_k 50, top_p 0.9
+    replayed from the graph against eager from the same generator seed
+    (tokens and states identical); top_k 1 replayed against eager, and at
+    every eager step and slot the token is the plain rule's: of the tokens
+    tied at the largest logit (top_k keeps every tied logit, as JAX's
+    `>= kth` does), the one with the largest noise; greedy, unless bf16
+    logits tie."""
+    from pqcache_tpu_torch.core.sampling import GumbelNoise, make_sampler
+    from pqcache_tpu_torch.harness import serving
+    from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
+    model = bench.bench_model(2)
+    params = serving.build_params(model, False, dev)
+    cfg = batched_cfg(model, "pq_search")
+    pol = get_policy(cfg, compute_budget(cfg.budget, SAMPLE_CTX,
+                                         SAMPLE_STEPS), dev)
+    rng = np.random.default_rng(SEED + 12)
+    bstate = pol.init_batched_state(SAMPLE_B)
+    first = []
+    for slot in range(SAMPLE_B):
+        ids = torch.from_numpy(rng.integers(0, model.vocab_size,
+                                            SAMPLE_CTX)).to(dev)
+        st = pol.init_state()
+        first.append(int(torch.argmax(llama.prefill(
+            model, params, pol, st, ids, 0, SAMPLE_CTX))))
+        pol.insert_slot(bstate, st, slot)
+        del st
+    states = [bstate] + [copy.deepcopy(bstate) for _ in range(3)]
+    tok = torch.tensor(first, dtype=torch.int32, device=dev)
+    pos = torch.full((SAMPLE_B,), SAMPLE_CTX, dtype=torch.int32, device=dev)
+    one_hot = make_sampler(0.8, 1)
+    seen = []
+
+    def recording(lg, noise):    # top_k 1, keeping each step's inputs
+        seen.append((lg.float().clone(), noise.clone()))
+        return one_hot(lg, noise)
+
+    def run(state, sample, graph):
+        d = BatchedDecoder(model, params, pol, state, chunk=16, graph=graph,
+                           sample=sample, noise=GumbelNoise(SEED + 5, dev))
+        return d.generate(tok, pos, SAMPLE_STEPS)
+    hot = make_sampler(0.8, 50, 0.9)
+    replayed, eager = run(states[0], hot, True), run(states[1], hot, False)
+    one, one_eager = (run(states[2], one_hot, True),
+                      run(states[3], recording, False))
+    same_state = _same_state(states[0], states[1])
+    distinct = len(set(replayed[:, 0].tolist()))
+    lg = torch.stack([x for x, _ in seen])             # [steps, B, V]
+    noise = torch.stack([g for _, g in seen])
+    tied = lg == lg.amax(-1, keepdim=True)
+    rule = torch.where(tied, noise, -torch.inf).argmax(-1).to(torch.int32)
+    greedy = lg.argmax(-1).to(torch.int32)
+    n_tied = int((tied.sum(-1) > 1).sum())
+    rule_ok = torch.equal(one_eager, rule)
+    log(f"sampling (T 0.8, top_k 50, top_p 0.9; 2 layers, B {SAMPLE_B} "
+        f"prompts, {SAMPLE_STEPS} steps): replayed = eager tokens "
+        f"{torch.equal(replayed, eager)}, states {same_state}; {distinct} "
+        f"distinct tokens in slot 0; top_k 1: replayed = eager "
+        f"{torch.equal(one, one_eager)}, the plain rule at every step and "
+        f"slot {rule_ok} ({n_tied} of {lg.shape[0] * SAMPLE_B} steps x "
+        f"slots had tied largest logits; the token was greedy's argmax at "
+        f"{int((one_eager == greedy).sum())})")
+    if not (torch.equal(replayed, eager) and same_state
+            and torch.equal(one, one_eager) and rule_ok):
+        raise SystemExit("sampled decode: replayed and eager disagree, or "
+                         "top_k 1 is not greedy up to ties")
+
+
+def latency_rows(dev) -> dict:
+    """(d) harness/latency.py at 32k: pq_search with W8 weights and an int8
+    tail at select_block 1 (K5), and `original`. Prints its rows; returns
+    the launches."""
+    from pqcache_tpu_torch.harness import latency
+    args = latency.parse_args(["--ctx", "32768", "--policies", "pq_search",
+                               "original", "--weight-int8", "--kv-dtype",
+                               "int8"])
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    rows = latency.run(args)
+    got = _counts()
+    log(f"latency harness: {time.perf_counter() - t:.0f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; launches "
+        f"{got}")
+    if not (len(rows) == 2 and all(r["per_token_ms"] > 0 for r in rows)
+            and got["adc_scores"] > 0 and got["w8_matmul"] > 0
+            and got["flash_attention"] > 0):
+        raise SystemExit("latency harness failed")
+    return got
+
+
+def serving_phase(dev) -> tuple:
+    """(a)-(d); returns the launches the wrappers counted and those the
+    serving rows' decode graphs replayed."""
+    total, replayed = serving_rows(dev)
+    for part in (interleave_check(dev), latency_rows(dev)):
+        for k in total:
+            total[k] += part[k]
+    sampling_check(dev)
+    return total, replayed
+
+
 BENCH_128K_AFTER = 600    # seconds: past this, the 128k bench run is left out
 
 
@@ -1795,6 +2084,13 @@ def main() -> int:
                for e in entries]
     del params
     torch.cuda.empty_cache()
+    served, served_replayed = serving_phase(dev)
+    for k, v in served.items():
+        launches[k] += v
+        replayed[k] += served_replayed[k]
+    log(f"serving phase done at {time.perf_counter() - t0:.0f} s; launches "
+        f"{served} from the wrappers, {served_replayed} replayed from the "
+        f"graphs (replays x launches per step)")
     for k, v in bench_phase(t0).items():
         launches[k] += v
     # launches: the wrappers' counts (eager calls and captures);

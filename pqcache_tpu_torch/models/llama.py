@@ -1,8 +1,9 @@
 """Llama-family decoder (Llama-2 / Llama-3.1 / Mistral) in PyTorch.
 
 Counterpart of ``pqcache_tpu/models/llama.py``: the single-sequence path
-and the batch-as-heads decode (B slots folded into the policy's kv-head
-axis, per-slot positions).
+(one-pass, chunked, chunk-major slab and prefix prefill; greedy or sampled
+decode) and the batch-as-heads decode (B slots folded into the policy's
+kv-head axis, per-slot positions).
 Parameters keep the JAX layout — a dict with weights stacked over layers
 (``layers/wq`` [L, E, H*D] ...) applied as ``x @ w`` — so
 ``bridge.params_from_numpy`` moves a JAX tree across unchanged. The layer
@@ -307,6 +308,53 @@ def prefill_chunked(cfg: ModelConfig, params: dict, policy, state,
 
 
 @torch.no_grad()
+def prefill_chunk_step(cfg: ModelConfig, params: dict, kbuf: torch.Tensor,
+                       vbuf: torch.Tensor, hidden_c: torch.Tensor, pad_len,
+                       c0: int, *, use_kernel: bool = True) -> torch.Tensor:
+    """Chunk-major prefill slab (the JAX package's ``prefill_chunk_step``):
+    the prompt rows [c0, c0 + ch) through every layer, each layer's rope'd
+    K/V written into the admission buffers kbuf/vbuf [L, H_kv, P, D] in
+    place, then the slab's attention against the buffer's keys through K2
+    at q_offset = c0 (``attn_mlp_chunk``). The only dependency between
+    slabs is each layer's K/V prefix, so a serving engine decodes between
+    slabs. hidden_c [ch, E]: the slab's embedded tokens (``embed_lookup``,
+    which dequantizes an int8 table); c0 a host int. Returns the slab's
+    last-layer rows [ch, E].
+
+    The whole buffer goes to the attention: rows past the slab are masked
+    by causality, so its inputs are ``prefill_chunked``'s, and the two give
+    the same bits."""
+    ch = hidden_c.shape[0]
+    positions = torch.clamp(
+        c0 + torch.arange(ch, device=hidden_c.device) - pad_len, min=0)
+    cos, sin = rope_cos_sin(cfg, positions)
+    hidden = hidden_c
+    for idx in range(cfg.num_layers):
+        lp = _layer_params(params, idx)
+        h_norm = rms_norm(hidden, lp["ln1"], cfg.rms_norm_eps)
+        kbuf[idx, :, c0:c0 + ch], vbuf[idx, :, c0:c0 + ch] = _kv_proj(
+            cfg, lp, h_norm, cos, sin)
+        hidden = attn_mlp_chunk(cfg, lp, hidden, cos, sin, kbuf[idx],
+                                vbuf[idx], pad_len, c0, use_kernel=use_kernel)
+    return hidden
+
+
+@torch.no_grad()
+def prefill_finish_tail(cfg: ModelConfig, params: dict, policy, state,
+                        kbuf: torch.Tensor, vbuf: torch.Tensor,
+                        h_last: torch.Tensor, pad_len: int, true_len: int):
+    """Finish a chunk-major prefill: the policy's ``prefill_tail`` per layer
+    over the assembled K/V, then the logits [V] f32 of the last slab's last
+    row (a left-padded prompt ends there). With ``prefill_chunk_step`` this
+    computes what ``prefill_chunked`` computes, sliced so that a scheduler
+    can interleave."""
+    for idx in range(cfg.num_layers):
+        policy.prefill_tail(state, idx, kbuf[idx], vbuf[idx], pad_len,
+                            true_len)
+    return _logits(cfg, params, h_last[-1:])
+
+
+@torch.no_grad()
 def prefill_capture_kv(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                        *, use_kernel: bool = True):
     """Prefix-cache snapshot: the rope'd K/V [L, H_kv, T_pre, D] of an
@@ -386,15 +434,22 @@ def decode_step(cfg: ModelConfig, params: dict, policy, state,
 
 @torch.no_grad()
 def decode_loop(cfg: ModelConfig, params: dict, policy, state,
-                token: torch.Tensor, pos: int, n_steps: int) -> torch.Tensor:
-    """Greedy decode of n_steps tokens; tokens[i] is the model's output
-    after consuming the previous one (token for i = 0). The tokens stay on
-    the device until the caller reads them: no step waits for the host."""
+                token: torch.Tensor, pos: int, n_steps: int, *,
+                sample=None, noise=None) -> torch.Tensor:
+    """Decode of n_steps tokens; tokens[i] is the model's output after
+    consuming the previous one (token for i = 0). Greedy, or with
+    ``sample`` (``core/sampling.make_sampler``) one draw per step from
+    ``noise`` (a ``core/sampling.GumbelNoise``, or any source with its
+    ``fill_``). The tokens stay on the device until the caller reads them:
+    no step waits for the host."""
     out = []
     tok = token.reshape(())
     for i in range(n_steps):
         logits = decode_step(cfg, params, policy, state, tok, pos + i)
-        tok = torch.argmax(logits)
+        if sample is None:
+            tok = torch.argmax(logits)
+        else:
+            tok = sample(logits, noise.fill_(torch.empty_like(logits)))
         out.append(tok)
     return torch.stack(out)
 
@@ -449,9 +504,13 @@ def decode_step_batched(cfg: ModelConfig, params: dict, policy, state,
 @torch.no_grad()
 def decode_loop_batched(cfg: ModelConfig, params: dict, policy, state,
                         tokens: torch.Tensor, pos: torch.Tensor,
-                        n_steps: int) -> torch.Tensor:
-    """Greedy decode of n_steps tokens for B slots, eagerly: tokens, pos
-    [B]. Returns tokens [n_steps, B] int32 on the device. A policy with a
+                        n_steps: int, *, sample=None,
+                        noise=None) -> torch.Tensor:
+    """Decode of n_steps tokens for B slots, eagerly: tokens, pos [B].
+    Greedy, or with ``sample`` and ``noise`` as in ``decode_loop``: one draw
+    of [B, V] noise per step samples every slot, as the JAX package's one
+    key per step does. Returns tokens [n_steps, B] int32 on the device. A
+    policy with a
     write-combining ring takes at most ring_k steps, and its ring is
     flushed into the per-slot tails at the end, as the JAX package's one
     program per chunk does. The eager mode of
@@ -459,5 +518,5 @@ def decode_loop_batched(cfg: ModelConfig, params: dict, policy, state,
     from a CUDA graph."""
     from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
     return BatchedDecoder(cfg, params, policy, state, chunk=n_steps,
-                          graph=False, device=tokens.device).decode(
-                              tokens, pos, n_steps)
+                          graph=False, device=tokens.device, sample=sample,
+                          noise=noise).decode(tokens, pos, n_steps)

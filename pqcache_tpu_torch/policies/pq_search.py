@@ -581,11 +581,14 @@ class PQSearchPolicy:
         pos, cp, ok = self._pending_span(state, n_cand_h)  # cp [L, Hf, S, K]
         pair = cp[:, :, 0] * self.C + cp[:, :, 1]          # [L, Hf, K]
         # the region's first column, held inside the histogram as JAX's
-        # dynamic slice holds it
+        # dynamic slice holds it. Only a finished slot that decodes on past
+        # its reservation (a serving pool's) gets clamped; its joins past
+        # the region are dropped, as JAX's segment_sum drops them
         c0 = torch.clamp(torch.div(pos[:, 0], bs, rounding_mode="floor"),
                          max=NB - W)
         rel = torch.div(pos, bs, rounding_mode="floor") - c0[:, None]
-        cell = rel[None] * CC + pair                       # [L, Hf, K]
+        ok = ok & (rel < W)
+        cell = rel.clamp(max=W - 1)[None] * CC + pair      # [L, Hf, K]
         add = torch.zeros((L, Hf, W * CC), device=J.device).scatter_add_(
             2, cell, ok.float().expand_as(cell))           # exact counts
         cols = c0[:, None] + torch.arange(W, device=J.device)   # [Hf, W]

@@ -6,7 +6,7 @@ bench). Run op by op from Python, a decode step of the port issues
 thousands of launches, and the host, not the card, sets its pace. The
 port's counterpart of that program is a captured ``torch.cuda.CUDAGraph``
 of one decode step (every layer, the appends, the counters' advance and the
-greedy token), replayed once per step of a chunk; the chunk's ring flush
+next token), replayed once per step of a chunk; the chunk's ring flush
 then runs eagerly, as the JAX program ends with it.
 
 One step, not the whole chunk, is captured: a chunk graph would hold ring_k
@@ -16,7 +16,12 @@ graph reads the ring column, like every other count, from the card
 
 The step's inputs and outputs are static device buffers: the tokens and
 positions [B], the batched state (updated in place) and the chunk's token
-buffer [chunk, B], row i holding step i's greedy token. The first step of
+buffer [chunk, B], row i holding step i's token. A sampled decode
+(``sample`` from ``core/sampling.make_sampler``) reads its Gumbel noise
+[B, V] from one more static buffer, which ``noise`` (a
+``core/sampling.GumbelNoise``) refills eagerly before each step, outside
+the graph: a replayed step and an eager one draw the same noise from the
+same generator state, so they give the same tokens. The first step of
 the first chunk runs eagerly on a side stream, under
 ``torch.cuda.set_sync_debug_mode("error")``: it builds the kernels and sets
 their attributes outside the capture and shows that the step reads nothing
@@ -29,8 +34,12 @@ adds its kernels to the counts once, at capture, and a replay adds nothing;
 
 The state has room for the ``max_new_tokens`` its policy's budget reserved
 past each slot's prompt, and a write past the end would be clamped onto the
-last rows on the card without a word. The decoder counts its steps on the
-host and raises before it takes more.
+last rows on the card without a word. A standalone decoder counts its steps
+on the host and raises before it takes more. A serving engine, whose slots
+retire and admit while the pool decodes on, passes ``check_room=False`` and
+checks each live slot's own room instead (``runtime/batch_engine.py``); a
+finished slot decodes on past its reservation until it is retired, its
+writes clamped inside its own rows, and its tokens are dropped.
 """
 
 from __future__ import annotations
@@ -46,15 +55,18 @@ from pqcache_tpu_torch.runtime.stages import stage
 
 
 class BatchedDecoder:
-    """Greedy batched decode of ``state`` in chunks of at most ``chunk``
-    steps (the policy's ring_k where it has a ring).
+    """Batched decode of ``state`` in chunks of at most ``chunk`` steps (the
+    policy's ring_k where it has a ring): greedy, or with ``sample`` and
+    its ``noise`` source.
 
     device: cuda unless given; ``graph=True`` (the default) needs a CUDA
     device and replays each step from a CUDA graph, ``graph=False`` runs the
-    same step eagerly."""
+    same step eagerly. check_room=False leaves the room check to the
+    caller."""
 
     def __init__(self, cfg: ModelConfig, params: dict, policy, state, *,
-                 chunk: int = 0, graph: bool = True, device=None):
+                 chunk: int = 0, graph: bool = True, device=None,
+                 sample=None, noise=None, check_room: bool = True):
         self.device = resolve_device(device)
         if graph and self.device.type != "cuda":
             raise ValueError("a CUDA graph needs a CUDA device; pass "
@@ -74,19 +86,28 @@ class BatchedDecoder:
         self.capture_seconds = None
         self.pool_bytes = None      # device memory the capture reserved
         self.replays = 0
+        self.check_room = check_room
         self.steps_left = policy.budget.max_new_tokens
+        if (sample is None) != (noise is None):
+            raise ValueError("a sampled decode needs both sample and noise")
+        self.sample, self.noise = sample, noise
         B = state.pos.shape[0]
         i32 = dict(dtype=torch.int32, device=self.device)
         self.tok = torch.zeros(B, **i32)
         self.pos = torch.zeros(B, **i32)
         self.out = torch.zeros((chunk, B), **i32)
         self.row = torch.zeros(1, dtype=torch.long, device=self.device)
+        self.gumbel = (torch.zeros((B, cfg.vocab_size), dtype=torch.float32,
+                                   device=self.device)
+                       if sample is not None else None)
 
     def _step(self) -> None:
         logits = llama.decode_step_batched(self.cfg, self.params, self.policy,
                                            self.state, self.tok, self.pos)
         with stage("argmax"):
-            nxt = torch.argmax(logits, -1).to(torch.int32)
+            nxt = (torch.argmax(logits, -1).to(torch.int32)
+                   if self.sample is None else
+                   self.sample(logits, self.gumbel))
             self.out.index_copy_(0, self.row, nxt[None])
             self.tok.copy_(nxt)
             self.pos += 1
@@ -125,6 +146,8 @@ class BatchedDecoder:
         """One decode step of the chunk begun: replayed, captured first if
         need be, or eager."""
         self._check_room(1)
+        if self.noise is not None:
+            self.noise.fill_(self.gumbel)
         if not self.use_graph:
             self._step()
         elif self.graph is None:
@@ -135,7 +158,7 @@ class BatchedDecoder:
         self.steps_left -= 1
 
     def _check_room(self, n_steps: int) -> None:
-        if n_steps > self.steps_left:
+        if self.check_room and n_steps > self.steps_left:
             raise ValueError(
                 f"{n_steps} more steps exceed the state's room: the budget "
                 f"reserved max_new_tokens = "
@@ -158,7 +181,7 @@ class BatchedDecoder:
     @torch.no_grad()
     def decode(self, tokens: torch.Tensor, pos: torch.Tensor,
                n_steps: int) -> torch.Tensor:
-        """One chunk: n_steps greedy tokens for every slot from tokens and
+        """One chunk: n_steps tokens for every slot from tokens and
         positions [B]; the ring is flushed at the end. Returns [n_steps, B]
         int32 on the device; nothing waits for the card."""
         if not 1 <= n_steps <= self.chunk:

@@ -10,8 +10,11 @@ is prefilled in chunks (``llama.prefill_chunked``, the policies with a
 ``prefill_tail``); ``prefill_prefix`` snapshots a shared prompt prefix that
 ``generate(prefix=...)`` continues from (``llama.prefill_with_prefix``).
 
-Greedy decoding only: sampling (temperature > 0) and the host-offload tier
-raise NotImplementedError.
+Decoding is greedy at temperature 0, else sampled (``core/sampling``): the
+first token from the prefill logits, then one draw per decode step, all
+from one generator seeded with ``RuntimeConfig.sample_seed`` per request,
+so the same seed gives the same tokens. The host-offload tier raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.config import EngineConfig
 from pqcache_tpu_torch.core.budget import compute_budget, pq_is_applicable
+from pqcache_tpu_torch.core.sampling import GumbelNoise, make_sampler
 from pqcache_tpu_torch.models import llama
 from pqcache_tpu_torch.policies.base import get_policy, use_kernels
 
@@ -102,15 +106,14 @@ class Engine:
                  dtype=torch.bfloat16, device=None):
         self.device = resolve_device(device)
         use_kernels(cfg)                      # rejects kernels modes early
-        if cfg.runtime.temperature > 0:
-            raise NotImplementedError(
-                "sampling (temperature > 0) is ported in a later slice")
         if cfg.cache.offload:
             raise NotImplementedError(
                 "the host-offload tier is ported in a later slice")
         self.cfg = cfg
         self.dtype = dtype
         self.params = params_to(params, self.device, dtype)
+        self.sampler = make_sampler(cfg.runtime.temperature, cfg.runtime.top_k,
+                                    cfg.runtime.top_p)
         self._policies = {}
         self._last_policy = None
 
@@ -173,7 +176,7 @@ class Engine:
 
     def generate(self, prompt_ids, max_new_tokens: Optional[int] = None,
                  eos_ids=(), prefix=None) -> GenerateResult:
-        """Greedy generation. prefill_seconds ends when the first token is on
+        """Generation. prefill_seconds ends when the first token is on
         the host; decode_seconds covers the rest. With ``prefix`` (a
         PrefixCache from prefill_prefix) the prompt is its suffix."""
         max_new = self._check_max_new(max_new_tokens)
@@ -252,7 +255,10 @@ class Engine:
                 logits = llama.prefill(cfg.model, self.params, policy, state,
                                        tokens, pad, true_len)
         self._last_policy = name
-        next_tok = int(torch.argmax(logits))
+        noise = (GumbelNoise(cfg.runtime.sample_seed, self.device)
+                 if self.sampler is not None else None)
+        next_tok = int(torch.argmax(logits) if noise is None else
+                       self.sampler(logits, noise.draw(logits.shape)))
         yield next_tok
 
         # decode in chunks of device work: EOS is checked between chunks
@@ -263,7 +269,8 @@ class Engine:
             n = min(chunk, max_new - count)
             toks = llama.decode_loop(
                 cfg.model, self.params, policy, state,
-                torch.full((), next_tok, device=self.device), pos, n)
+                torch.full((), next_tok, device=self.device), pos, n,
+                sample=self.sampler, noise=noise)
             pos += n
             for t in toks.tolist():
                 next_tok = int(t)

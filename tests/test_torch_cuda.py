@@ -743,3 +743,130 @@ def test_w8_graph_replay_matches_eager_decode(dev):
         a, b = getattr(state, f.name), getattr(twin, f.name)
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b), f.name
+
+
+def _serving_engine(dev, policy="pq_search", pq_kw=None, kv_dtype="int8",
+                    graph=True, w8=False, prefix_len=0, interleave="auto",
+                    **rt):
+    """A BatchEngine over the 2-layer model of _batched_setup (2 slots,
+    pool length 1024, 12 new tokens) and 5 prompts for it."""
+    from pqcache_tpu_torch.core import quant
+    from pqcache_tpu_torch.runtime.batch_engine import BatchEngine
+    cfg = config.tiny_model_config(hidden_size=256, num_heads=4,
+                                   num_kv_heads=2, head_dim=64,
+                                   intermediate_size=512, num_layers=2)
+    ecfg = config.EngineConfig(
+        model=cfg, pq=config.PQConfig(n_subbits=4, kmeans_iters=4,
+                                      **(pq_kw or dict(select_block=64))),
+        budget=config.BudgetConfig(compress_ratio=0.3, sink_size=4),
+        cache=config.CacheConfig(kv_dtype=kv_dtype),
+        runtime=config.RuntimeConfig(policy=policy, max_new_tokens=12,
+                                     max_seq_len=2048, **rt))
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    if w8:
+        params = quant.quantize_weight_tree(params)
+    rng = np.random.default_rng(0)
+    prefix = None
+    if prefix_len:
+        from pqcache_tpu_torch.runtime.generate import Engine as E
+        prefix = E(ecfg, params, device=dev).prefill_prefix(
+            rng.integers(0, cfg.vocab_size, prefix_len))
+    be = BatchEngine(ecfg, params, batch_size=2, prefill_len=1024,
+                     max_new_tokens=12, prefix=prefix, device=dev,
+                     graph=graph, interleave=interleave)
+    n_max = 1024 - prefix_len
+    prompts = [rng.integers(0, cfg.vocab_size, n_max - 97 * i)
+               for i in range(5)]
+    return be, list(enumerate(prompts))
+
+
+def _same_bstate(a, b) -> bool:
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a)
+               if isinstance(getattr(a, f.name), torch.Tensor))
+
+
+@pytest.mark.parametrize("rt", [dict(prefill_chunk=256),
+                                dict(temperature=0.8, top_k=50, top_p=0.9,
+                                     sample_seed=3, prefill_chunk=256),
+                                dict(temperature=0.8, top_k=50, top_p=0.9,
+                                     sample_seed=3)])
+def test_batch_engine_replay_matches_eager(dev, rt):
+    # 5 requests through 2 slots: admissions (interleaved slabs, or
+    # monolithic) run eagerly between replays of the captured step; the
+    # replayed engine gives the eager engine's tokens, sampled or greedy,
+    # and leaves the batched state where the eager one leaves it
+    rep, reqs = _serving_engine(dev, **rt)
+    eager, _ = _serving_engine(dev, graph=False, **rt)
+    assert rep.interleave == ("prefill_chunk" in rt)
+    want = eager.run(reqs, chunk=5)
+    got = rep.run(reqs, chunk=5)
+    torch.cuda.synchronize()
+    assert rep.decoder.graph is not None and rep.decoder.replays > 0
+    assert got == want
+    assert all(len(v) == 12 for v in got.values())
+    assert _same_bstate(rep.bstate, eager.bstate)
+
+
+def test_batched_decoder_sampled_replay_matches_eager(dev):
+    # the captured step samples from the static noise buffer refilled
+    # before each replay: replayed and eager decoding from one generator
+    # seed give the same tokens and states. top_k 1 keeps every logit tied
+    # at the largest (as JAX's `>= kth` does) and the noise picks one: at
+    # every step and slot the token is the tied token with the largest
+    # noise, greedy's argmax unless bf16 logits tie
+    import copy
+    from pqcache_tpu_torch.core.sampling import GumbelNoise, make_sampler
+    from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
+    cfg, params, pol, state, tok, pos = _batched_setup(
+        dev, "pq_search", dict(select_block=64))
+    twin, one_st, one_eager_st = (copy.deepcopy(state) for _ in range(3))
+    one_hot, seen = make_sampler(0.8, 1), []
+
+    def recording(lg, noise):
+        seen.append((lg.float().clone(), noise.clone()))
+        return one_hot(lg, noise)
+
+    def run(st, sample, graph=True):
+        return BatchedDecoder(cfg, params, pol, st, chunk=6, graph=graph,
+                              sample=sample, noise=GumbelNoise(9, dev)
+                              ).generate(tok, pos, 12)
+    hot = make_sampler(0.8, 50, 0.9)
+    got, want = run(state, hot), run(twin, hot, graph=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and _same_bstate(state, twin)
+    one, one_eager = run(one_st, one_hot), run(one_eager_st, recording,
+                                                graph=False)
+    assert torch.equal(one, one_eager)
+    lg = torch.stack([x for x, _ in seen])
+    noise = torch.stack([g for _, g in seen])
+    tied = lg == lg.amax(-1, keepdim=True)
+    rule = torch.where(tied, noise, -torch.inf).argmax(-1).to(torch.int32)
+    assert lg.shape[:2] == one_eager.shape
+    assert torch.equal(one_eager, rule)
+
+
+SERVING_CASES = {
+    "block-int8": dict(),
+    "block-bf16-interleaved": dict(kv_dtype="bf16", prefill_chunk=256),
+    "per-token": dict(pq_kw=dict(select_block=1)),
+    "w8-interleaved": dict(w8=True, prefill_chunk=256),
+    "prefix": dict(prefix_len=512),
+    "original": dict(policy="original"),
+    "original-mono": dict(policy="original", prefill_chunk=256,
+                          interleave="off"),
+}
+
+
+@pytest.mark.parametrize("case", list(SERVING_CASES))
+def test_batch_engine_on_cuda_takes_what_the_cpu_takes(dev, case):
+    # every configuration the CPU engine serves, the CUDA engine serves too
+    outs = {}
+    for d in (torch.device("cpu"), dev):
+        be, reqs = _serving_engine(d, graph=d.type == "cuda",
+                                   **SERVING_CASES[case])
+        outs[d.type] = be.run(reqs[:3], chunk=4)
+    for out in outs.values():
+        assert sorted(out) == [0, 1, 2]
+        assert all(len(v) == 12 for v in out.values())

@@ -31,8 +31,10 @@ from pqcache_tpu.runtime.generate import Engine as JEngine
 import pqcache_tpu_torch
 from pqcache_tpu_torch import bridge, config
 from pqcache_tpu_torch.core.budget import compute_budget
+from pqcache_tpu_torch.harness import latency, serving
 from pqcache_tpu_torch.models import llama
 from pqcache_tpu_torch.policies.base import get_policy
+from pqcache_tpu_torch.runtime.batch_engine import BatchEngine
 from pqcache_tpu_torch.runtime.generate import Engine
 
 torch.set_num_threads(1)
@@ -326,10 +328,16 @@ def test_engine_device_default_and_unported_options(model):
             ecfg.runtime, **rt))
         with pytest.raises(ValueError):
             Engine(bad, params, device="cpu")
-    bad = dataclasses.replace(ecfg, runtime=dataclasses.replace(
-        ecfg.runtime, temperature=0.7))
-    with pytest.raises(NotImplementedError):
-        Engine(bad, params, device="cpu")
+    # sampling is ported: the same seed gives the same tokens, and top_k 1
+    # is greedy
+    def sampled(**rt):
+        e = dataclasses.replace(ecfg, runtime=dataclasses.replace(
+            ecfg.runtime, max_new_tokens=16, **rt))
+        return Engine(e, params, dtype=torch.float32,
+                      device="cpu").generate(ids, 8).tokens
+    hot = sampled(temperature=0.7, sample_seed=3)
+    assert hot == sampled(temperature=0.7, sample_seed=3) and len(hot) == 8
+    assert sampled(temperature=0.7, top_k=1) == sampled()
     # chunked prefill is ported: prefill_chunk=512 (the 1152-token bucket
     # planned as 3 chunks of 512) gives the JAX Engine's tokens
     jecfg, ecfg_c = (dataclasses.replace(e, runtime=dataclasses.replace(
@@ -418,6 +426,10 @@ def test_entry_points_default_to_cuda(model):
         lambda: policy_class("original")(ecfg, budget).init_batched_state(2),
         lambda: BatchedDecoder(cfg, params, cpu_pol, cpu_state),
         lambda: BatchedDecoder(cfg, params, cpu_pol, cpu_state, graph=False),
+        lambda: BatchEngine(ecfg, params, batch_size=2, prefill_len=256,
+                            max_new_tokens=4),
+        lambda: serving.run(serving.parse_args(["--tiny", "--ctx", "256"])),
+        lambda: latency.run(latency.parse_args(["--tiny", "--ctx", "256"])),
         lambda: bridge.tensor_from_numpy(a),
         lambda: bridge.params_from_numpy({"embed": a, "layers": {"wq": a}}),
         lambda: bridge.pq_state_from_numpy(dict(
@@ -443,6 +455,13 @@ def test_entry_points_default_to_cuda(model):
     assert cpu_state.n_cand.device.type == "cpu"
     assert BatchedDecoder(cfg, params, cpu_pol, cpu_state, graph=False,
                           device="cpu").tok.device.type == "cpu"
+    # a CPU engine decodes eagerly, and takes no CUDA graph
+    be = BatchEngine(ecfg, params, batch_size=2, prefill_len=256,
+                     max_new_tokens=4, dtype=torch.float32, device="cpu")
+    assert not be.decoder.use_graph and be.bstate.n_cand.device.type == "cpu"
+    with pytest.raises(ValueError, match="CUDA graph"):
+        BatchEngine(ecfg, params, batch_size=2, prefill_len=256,
+                    max_new_tokens=4, device="cpu", graph=True)
 
 
 def test_port_imports_no_jax():
