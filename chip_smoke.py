@@ -20,8 +20,9 @@ decoded eagerly and replayed from a CUDA graph with identical tokens and
 states, launches per step by stage, device busy share, capture time and
 peak memory; K1 at the batched shapes, K3 at B 8, and 2-layer batched
 kernels-vs-plain checks. The W8 kernel (weight-only int8 decode products)
-is held against its plain version at every weight shape of the path at M 1
-and 8, and timed per batched step; the Engine also serves a W8 request, a
+is held against its plain version at every weight shape of the path and at
+its two groups of one launch (q/k/v, gate/up) at M 1 and 8, each launch
+timed by graph replay, and timed per batched step (4 launches a layer); the Engine also serves a W8 request, a
 chunked-prefill request (K2 at q_offset) and a prefix request, held to the
 one-pass requests' first-token logits; the batched phase adds bench.py's
 default W8 arm. The serving phase drives ``BatchEngine`` under load
@@ -70,7 +71,7 @@ from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
 from pqcache_tpu_torch.ops.flash_attention import flash_attention
 from pqcache_tpu_torch.ops.flash_scores import flash_scores
 from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
-from pqcache_tpu_torch.ops.w8 import w8_matmul, w8_matmul_ref
+from pqcache_tpu_torch.ops.w8 import w8_matmul
 from pqcache_tpu_torch.policies import h2o, infllm
 from pqcache_tpu_torch.policies.base import get_policy
 from pqcache_tpu_torch.runtime import stages
@@ -157,10 +158,14 @@ LOGIT_TOL = 0.125
 # apart, and the scale's rounding another: |y - ref| relative to the
 # largest |ref|
 W8_TOL = 2e-2
-# the weight products of a decode step at Llama-3.1-8B width: (K, N, uses
-# per layer); the LM head once per step
-W8_LAYER = {"wq/wo": (4096, 4096, 2), "wk/wv": (4096, 1024, 2),
-            "gate/up": (4096, 14336, 2), "down": (14336, 4096, 1)}
+# the weight products at Llama-3.1-8B width: (K, N of each product of one
+# launch). A decode step launches per layer the q/k/v group, wo, the
+# gate/up group and down (W8_STEP), then the LM head: 4 L + 1 launches
+W8_SHAPES = {"wq/wo": (4096, (4096,)), "wk/wv": (4096, (1024,)),
+             "gate/up": (4096, (14336,)), "down": (14336, (4096,)),
+             "q/k/v group": (4096, (4096, 1024, 1024)),
+             "gate/up group": (4096, (14336, 14336))}
+W8_STEP = ("q/k/v group", "wq/wo", "gate/up group", "down")
 W8_HEAD = (4096, 128256)
 
 
@@ -747,112 +752,121 @@ def k6_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 # W8 against its plain version
 
-def _w8_weights(dev, g, K: int, N: int, copies: int):
-    """`copies` int8 weights [K, N] as quantize_weight_mat makes them
-    (-127..127) and bf16 column scales [1, N] of 0.02-scale weights."""
-    w = torch.randint(-127, 128, (copies, K, N), generator=g, device=dev,
-                      dtype=torch.int8)
-    s = (torch.rand((copies, 1, N), generator=g, device=dev) * 4e-4
-         + 1e-4).bfloat16()
-    return w, s
+def _w8_weights(dev, g, K: int, Ns: tuple, copies: int) -> list:
+    """`copies` groups of int8 weights [K, N] for N in Ns, as
+    quantize_weight_mat makes them (-127..127), with bf16 column scales
+    [1, N] of 0.02-scale weights."""
+    return [[(torch.randint(-127, 128, (K, N), generator=g, device=dev,
+                            dtype=torch.int8),
+              (torch.rand((1, N), generator=g, device=dev) * 4e-4
+               + 1e-4).bfloat16()) for N in Ns] for _ in range(copies)]
 
 
 def w8_phase(dev) -> float:
-    """The W8 kernel at every weight shape of the decode path (W8_LAYER and
+    """The W8 kernel at every weight shape of the decode path (W8_SHAPES:
+    each product alone and the q/k/v and gate/up groups of one launch, and
     the LM head) at M = 1 (the Engine) and M = 8 (bench.py's B): held
     against its plain version at W8_TOL, and captured into a CUDA graph
-    whose replay must give the eager output bit for bit. Device time by
-    CUDA-graph replay with the weights cycled over at least 200 MB (past
-    the 50 MB L2), beside the byte bound, the plain route (dequantize to a
-    bf16 copy, torch.matmul, scale) and torch.matmul on a bf16 copy of the
-    same weights (the yardstick: bf16 weights, 2 bytes each). Returns the
+    whose replay must give the eager output bit for bit. Each launch's
+    device time by CUDA-graph replay with the weights cycled over at least
+    200 MB (past the 50 MB L2), beside the byte bound, the plain route
+    (dequantize to a bf16 copy, torch.matmul, scale) and one torch.matmul
+    on a bf16 copy of the same weights (the yardstick: bf16 weights, 2
+    bytes each; a group's products side by side, [K, sum N]). Returns the
     largest |error|."""
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
-    shapes = [(k, K, N, False) for k, (K, N, _) in W8_LAYER.items()]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shapes = [(k, K, Ns, False) for k, (K, Ns) in W8_SHAPES.items()]
     worst = 0.0
-    for name, K, N, head in shapes + [("lm_head", *W8_HEAD, True)]:
-        copies = max(2, -(-200 * 2 ** 20 // (K * N)))
-        w, s = _w8_weights(dev, g, K, N, copies)
-        wb = w.to(torch.bfloat16)
+    for name, K, Ns, head in shapes + [("lm_head", W8_HEAD[0],
+                                        (W8_HEAD[1],), True)]:
+        copies = max(2, -(-200 * 2 ** 20 // (K * sum(Ns))))
+        ws = _w8_weights(dev, g, K, Ns, copies)
+        wb = [torch.cat([w for w, _ in p], 1).to(torch.bfloat16) for p in ws]
         for M in (1, 8):
             x = torch.randn((M, K), generator=g, device=dev).bfloat16()
-            got = w8_matmul(x, w[0], s[0], lm_head=head)
-            ref = w8_matmul_ref(x, w[0], s[0], lm_head=head)
+            got = w8.w8_matmul_group(x, ws[0], lm_head=head)
+            ref = w8.w8_matmul_group_ref(x, ws[0], lm_head=head)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
-                replayed = w8_matmul(x, w[0], s[0], lm_head=head)
+                replayed = w8.w8_matmul_group(x, ws[0], lm_head=head)
             graph.replay()
             torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            rel = err / ref.float().abs().max().item()
-            same = torch.equal(replayed, got)
+            err = max((a.float() - r.float()).abs().max().item()
+                      for a, r in zip(got, ref))
+            rel = max((a.float() - r.float()).abs().max().item()
+                      / r.float().abs().max().item() for a, r in zip(got, ref))
+            same = all(torch.equal(a, b) for a, b in zip(replayed, got))
             worst = max(worst, err)
             it = iter(range(10 ** 9))
 
             def cycled(fn):
                 def call():
-                    i = next(it) % copies
-                    return fn(x, w[i], s[i], lm_head=head)
+                    return fn(x, ws[next(it) % copies], lm_head=head)
                 return call
-            ms = graph_ms(cycled(w8_matmul), 2 * copies)
-            plain_ms = graph_ms(cycled(w8_matmul_ref), 2 * copies)
+            ms = graph_ms(cycled(w8.w8_matmul_group), 2 * copies)
+            plain_ms = graph_ms(cycled(w8.w8_matmul_group_ref), 2 * copies)
             lib_ms = graph_ms(lambda: x @ wb[next(it) % copies], 2 * copies)
-            nbytes = K * N + 2 * (M * K + N) + M * N * got.element_size()
+            nbytes = K * sum(Ns) + 2 * (M * K + sum(Ns)) + M * sum(Ns) * (
+                4 if head else 2)
             bound_ms = nbytes / PEAK_BYTES * 1e3
-            mt, nb, splits = w8.plan(M, N, K, torch.cuda.get_device_properties(
-                dev).multi_processor_count, w[0].data_ptr())
-            splits = f"{splits} CTAs per cluster along K" if splits > 1 \
-                else "no split"
-            log(f"W8 {name} K={K} N={N} M={M}: max_abs_err {err:.3e}, "
-                f"{rel:.3e} of the largest |entry| (tol {W8_TOL}); replayed "
-                f"from a graph identical: {same}; kernel {ms * 1e3:.2f} us "
-                f"({nbytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%} of its "
-                f"bound {bound_ms * 1e3:.2f} us, bytes; {splits}, "
-                f"{nb}-byte loads); plain route {plain_ms * 1e3:.2f} us; "
-                f"torch.matmul bf16 {lib_ms * 1e3:.2f} us")
-            if not rel <= W8_TOL or not same or not torch.isfinite(got).all():
+            plan = w8.plan_group(M, Ns, K, sms)
+            log(f"W8 {name} K={K} N={'+'.join(map(str, Ns))} M={M}: "
+                f"max_abs_err {err:.3e}, {rel:.3e} of the largest |entry| "
+                f"(tol {W8_TOL}); replayed from a graph identical: {same}; "
+                f"kernel {ms * 1e3:.2f} us ({nbytes / ms / 1e6:.0f} GB/s, "
+                f"{bound_ms / ms:.1%} of its bound {bound_ms * 1e3:.2f} us, "
+                f"bytes; {plan.grid} CTAs over {plan.units} units of "
+                f"{w8.BLOCK_ROWS} x {w8.TILE_COLS}); plain route "
+                f"{plain_ms * 1e3:.2f} us; torch.matmul bf16 "
+                f"{lib_ms * 1e3:.2f} us")
+            if not rel <= W8_TOL or not same or not all(
+                    torch.isfinite(a).all() for a in got):
                 raise SystemExit(f"W8 disagrees with its plain version "
                                  f"({name}, M={M})")
-        del w, s, wb
+        del ws, wb
         torch.cuda.empty_cache()
     return worst
 
 
 def w8_step_entry(dev, worst: float) -> dict:
     """One batched decode step's weight products at BATCH_LAYERS layers and
-    B 8 (7 per layer and the LM head: 57 launches, 2.27 GB of int8 weights,
-    more than the L2 holds), timed by CUDA-graph replay of the whole step:
-    the W8 kernel, the plain route (the device ms per step it would cost)
-    and torch.matmul on bf16 copies. The kernels line's W8 entry."""
+    B 8 (W8_STEP per layer and the LM head: 33 launches, 2.27 GB of int8
+    weights, more than the L2 holds), timed by CUDA-graph replay of the
+    whole step: the W8 kernel, the plain route (the device ms per step it
+    would cost) and torch.matmul on bf16 copies, one per launch. The
+    kernels line's W8 entry."""
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
     B = 8
-    mats = []
+    launches = []
     for _ in range(BATCH_LAYERS):
-        for K, N, uses in W8_LAYER.values():
-            w, s = _w8_weights(dev, g, K, N, uses)
-            mats += [(w[i], s[i], False) for i in range(uses)]
-    w, s = _w8_weights(dev, g, *W8_HEAD, 1)
-    mats.append((w[0], s[0], True))
+        for name in W8_STEP:
+            K, Ns = W8_SHAPES[name]
+            launches.append((_w8_weights(dev, g, K, Ns, 1)[0], False))
+    launches.append((_w8_weights(dev, g, *W8_HEAD[:1], W8_HEAD[1:], 1)[0],
+                     True))
     xs = {K: torch.randn((B, K), generator=g, device=dev).bfloat16()
           for K in (4096, 14336)}
-    bf = [w.to(torch.bfloat16) for w, _, _ in mats]
+    bf = [torch.cat([w for w, _ in p], 1).to(torch.bfloat16)
+          for p, _ in launches]
 
     def step(fn):
-        for w, s, head in mats:
-            fn(xs[w.shape[0]], w, s, lm_head=head)
-    ms = graph_ms(lambda: step(w8_matmul), 1)
-    plain_ms = graph_ms(lambda: step(w8_matmul_ref), 1)
+        for prods, head in launches:
+            fn(xs[prods[0][0].shape[0]], prods, lm_head=head)
+    ms = graph_ms(lambda: step(w8.w8_matmul_group), 1)
+    plain_ms = graph_ms(lambda: step(w8.w8_matmul_group_ref), 1)
     lib_ms = graph_ms(lambda: [xs[b.shape[0]] @ b for b in bf], 1)
-    nbytes = sum(w.numel() + 2 * (B * w.shape[0] + w.shape[1])
-                 + B * w.shape[1] * (4 if head else 2) for w, _, head in mats)
+    nbytes = sum(b.numel() + 2 * (B * b.shape[0] + b.shape[1])
+                 + B * b.shape[1] * (4 if head else 2)
+                 for b, (_, head) in zip(bf, launches))
     bound_ms = nbytes / PEAK_BYTES * 1e3
-    log(f"W8 per batched step (B {B}, {BATCH_LAYERS} layers, {len(mats)} "
-        f"products, {nbytes / 1e9:.2f} GB): kernel {ms:.3f} ms of device "
+    log(f"W8 per batched step (B {B}, {BATCH_LAYERS} layers, {len(launches)} "
+        f"launches, {nbytes / 1e9:.2f} GB): kernel {ms:.3f} ms of device "
         f"time ({nbytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%} of its "
         f"bound {bound_ms:.3f} ms, bytes); plain route (dequantize + "
         f"torch.matmul) {plain_ms:.3f} ms; torch.matmul on bf16 copies "
         f"{lib_ms:.3f} ms")
-    del mats, bf
+    del launches, bf
     torch.cuda.empty_cache()
     return dict(name="w8_matmul", route="cuda",
                 source="pqcache_tpu_torch/csrc/w8_matmul.cu",
@@ -895,8 +909,9 @@ def _expected_launches(engine: str, policy: str, L: int, steps: int,
     chunks of a chunked prefill, or the prefix snapshot and the suffix), K4
     once per layer for the score-reading policies, per layer and decode
     step the kernels of this engine's pq_search decode; with W8 weights
-    the W8 kernel for the prefill's LM head row and, per decode step, for
-    each layer's 7 products and the LM head."""
+    the W8 kernel for the prefill's LM head row and, per decode step, once
+    for each layer's q/k/v, wo, gate/up and down and once for the LM
+    head."""
     pq_kw = ENGINES[engine].get("pq", {})
     dec = set()
     if policy == "pq_search" and pq_kw["select_block"] == 1:
@@ -909,7 +924,7 @@ def _expected_launches(engine: str, policy: str, L: int, steps: int,
     out = {k: L * (k in pre) + L * steps * (k in dec) for k in KERNELS}
     out["flash_attention"] = k2 * L
     if ENGINES[engine].get("w8"):
-        out["w8_matmul"] = 1 + steps * (7 * L + 1)
+        out["w8_matmul"] = 1 + steps * (4 * L + 1)
     return out
 
 
@@ -1305,8 +1320,9 @@ DEVICE_NAMES = {"block_topk_attention": "::block_attn_kernel<",
 
 def _per_step(kernel: str, L: int) -> int:
     """Launches of a path kernel per batched decode step: once per layer,
-    the W8 kernel 7 times per layer and once for the LM head."""
-    return 7 * L + 1 if kernel == "w8_matmul" else L
+    the W8 kernel 4 times per layer (q/k/v, wo, gate/up, down) and once
+    for the LM head."""
+    return 4 * L + 1 if kernel == "w8_matmul" else L
 
 
 def batched_cfg(model, policy: str, kernels: str = "auto",

@@ -83,6 +83,17 @@ def _mm(x: torch.Tensor, lp: dict, name: str) -> torch.Tensor:
     return w8.w8_matmul(x, w, lp[name + "_s"])
 
 
+def _products(x: torch.Tensor, lp: dict, names: tuple) -> list:
+    """[_mm(x, lp, n) for n in names]; products that share x. With int8
+    weights and at most w8.MAX_ROWS rows (decode) they are ONE launch of the
+    W8 kernel (w8.w8_matmul_group: q/k/v, gate/up), the same function as
+    one _mm each."""
+    if all(lp[n].dtype == torch.int8 for n in names) \
+            and x.numel() // x.shape[-1] <= w8.MAX_ROWS:
+        return w8.w8_matmul_group(x, [(lp[n], lp[n + "_s"]) for n in names])
+    return [_mm(x, lp, n) for n in names]
+
+
 def embed_lookup(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding rows of ``tokens``; an int8 table carries per-row scales
     ('embed_s' [V, 1]), applied in the scale's dtype."""
@@ -160,8 +171,8 @@ def mlp(lp: dict, x: torch.Tensor, chunk: int = 16384) -> torch.Tensor:
     """SwiGLU MLP, token-chunked to bound the [T, I] activations (chunk 0 or
     a T that chunk does not divide runs unchunked, as in the JAX package)."""
     def one(xc):
-        return _mm(F.silu(_mm(xc, lp, "gate")) * _mm(xc, lp, "up"), lp,
-                   "down")
+        gate, up = _products(xc, lp, ("gate", "up"))
+        return _mm(F.silu(gate) * up, lp, "down")
 
     T = x.shape[0]
     if chunk <= 0 or T <= chunk or T % chunk:
@@ -179,21 +190,31 @@ def _finish_layer(cfg: ModelConfig, lp: dict, hidden: torch.Tensor,
                         chunk=cfg.mlp_chunk)
 
 
+def _rope_q(cfg: ModelConfig, yq: torch.Tensor, cos, sin):
+    """Rope'd queries [H, T, D] of the q products yq [T, H*D]."""
+    T = yq.shape[0]
+    return apply_rope(yq.reshape(T, cfg.num_heads, cfg.head_dim).transpose(
+        0, 1), cos, sin)
+
+
+def _rope_kv(cfg: ModelConfig, yk: torch.Tensor, yv: torch.Tensor, cos, sin):
+    """Rope'd keys and values [H_kv, T, D] of the products yk, yv."""
+    T = yk.shape[0]
+    Hkv, D = cfg.num_kv_heads, cfg.head_dim
+    k = apply_rope(yk.reshape(T, Hkv, D).transpose(0, 1), cos, sin)
+    v = yv.reshape(T, Hkv, D).transpose(0, 1).contiguous()
+    return k, v
+
+
 def _q_proj(cfg: ModelConfig, lp: dict, h_norm: torch.Tensor, cos, sin):
     """Rope'd queries [H, T, D] of the normed rows h_norm [T, E]."""
-    T = h_norm.shape[0]
-    return apply_rope(_mm(h_norm, lp, "wq").reshape(
-        T, cfg.num_heads, cfg.head_dim).transpose(0, 1), cos, sin)
+    return _rope_q(cfg, _mm(h_norm, lp, "wq"), cos, sin)
 
 
 def _kv_proj(cfg: ModelConfig, lp: dict, h_norm: torch.Tensor, cos, sin):
     """Rope'd keys and values [H_kv, T, D] of the normed rows h_norm."""
-    T = h_norm.shape[0]
-    Hkv, D = cfg.num_kv_heads, cfg.head_dim
-    k = apply_rope(_mm(h_norm, lp, "wk").reshape(T, Hkv, D).transpose(0, 1),
-                   cos, sin)
-    v = _mm(h_norm, lp, "wv").reshape(T, Hkv, D).transpose(0, 1).contiguous()
-    return k, v
+    return _rope_kv(cfg, _mm(h_norm, lp, "wk"), _mm(h_norm, lp, "wv"), cos,
+                    sin)
 
 
 def _layer_fwd(cfg: ModelConfig, lp: dict, hidden, attn_fn, cos, sin):
@@ -201,8 +222,9 @@ def _layer_fwd(cfg: ModelConfig, lp: dict, hidden, attn_fn, cos, sin):
     T = hidden.shape[0]
     H, D = cfg.num_heads, cfg.head_dim
     h_norm = rms_norm(hidden, lp["ln1"], cfg.rms_norm_eps)
-    k, v = _kv_proj(cfg, lp, h_norm, cos, sin)
-    q = _q_proj(cfg, lp, h_norm, cos, sin)
+    yq, yk, yv = _products(h_norm, lp, ("wq", "wk", "wv"))
+    k, v = _rope_kv(cfg, yk, yv, cos, sin)
+    q = _rope_q(cfg, yq, cos, sin)
     attn, extra = attn_fn(q, k, v)
     hidden = _finish_layer(cfg, lp, hidden,
                            attn.transpose(0, 1).reshape(T, H * D))
@@ -481,11 +503,10 @@ def decode_step_batched(cfg: ModelConfig, params: dict, policy, state,
         lp = _layer_params(params, idx)
         with stage("qkv"):
             h_norm = rms_norm(hidden, lp["ln1"], cfg.rms_norm_eps)
-            q = _apply_rope_batched(_mm(h_norm, lp, "wq").reshape(B, H, D),
-                                    cos, sin)
-            k = _apply_rope_batched(
-                _mm(h_norm, lp, "wk").reshape(B, Hkv, D), cos, sin)
-            v = _mm(h_norm, lp, "wv").reshape(B, Hkv, D)
+            yq, yk, yv = _products(h_norm, lp, ("wq", "wk", "wv"))
+            q = _apply_rope_batched(yq.reshape(B, H, D), cos, sin)
+            k = _apply_rope_batched(yk.reshape(B, Hkv, D), cos, sin)
+            v = yv.reshape(B, Hkv, D)
         attn, (k_new, v_new) = policy.decode_attn_batched(state, idx, q, k, v,
                                                           shared)
         with stage("out_mlp"):

@@ -37,7 +37,7 @@ SIGNATURES = {
             "pq_adc_block_scores": [_P, _P, _P] + [_I] * 9 + [_P] * 2,
             "pq_adc_block_scores_ctas": []},
     "gather": {"pq_gather_rows": [_P, _P] + [_I] * 6 + [_P, _P]},
-    "w8_matmul": {"pq_w8_matmul": [_P] * 4 + [_I] * 7 + [_P]},
+    "w8_matmul": {"pq_w8_group": [_P] * 10 + [_I] * 8 + [_P] * 3},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

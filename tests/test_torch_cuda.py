@@ -22,8 +22,9 @@ kernel sums the same exact bf16 products as its plain version (int8 is exact
 in bf16) in another f32 order, then rounds at the same points: a sum near a
 bf16 rounding boundary may land one bf16 unit (2^-8 relative) apart, and
 the scale's rounding another, so it is held at 2e-2 relative and 2e-2 of
-the largest |entry| absolute; its cluster adds the split-K partials in rank
-order, so two calls give bitwise the same output.
+the largest |entry| absolute; the CTA that owns a tile cut along K adds the
+other CTAs' partials in CTA order, so two calls (eager or replayed) give
+bitwise the same output.
 """
 
 import dataclasses
@@ -46,7 +47,8 @@ from pqcache_tpu_torch.ops.flash_attention import flash_attention
 from pqcache_tpu_torch.ops.flash_attention import row_stats as k2_row_stats
 from pqcache_tpu_torch.ops.flash_scores import flash_scores
 from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
-from pqcache_tpu_torch.ops.w8 import w8_matmul, w8_matmul_ref
+from pqcache_tpu_torch.ops.w8 import (w8_matmul, w8_matmul_group,
+                                      w8_matmul_group_ref, w8_matmul_ref)
 from pqcache_tpu_torch.policies.base import get_policy
 from pqcache_tpu_torch.runtime.generate import Engine
 
@@ -720,6 +722,109 @@ def test_w8_kernel_refuses_what_it_does_not_take(dev):
         w8_matmul(x[:8].float(), w, s)
 
 
+# the decode path's groups at Llama-3.1-8B width: (K, N of each product)
+W8_GROUPS = {"qkv": (4096, (4096, 1024, 1024)),
+             "gate/up": (4096, (14336,) * 2), "wo": (4096, (4096,)),
+             "down": (14336, (4096,)), "tiny-qkv": (256, (256, 128, 128))}
+
+
+def _w8_group_inputs(dev, M, K, Ns, seed=0, offset=0):
+    """x [M, K] and the products (w, s) of _w8_inputs, each w a view
+    ``offset`` bytes into its buffer."""
+    g = torch.Generator(device=dev).manual_seed(seed + M + K + sum(Ns))
+    x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+    prods = []
+    for N in Ns:
+        buf = torch.randint(-128, 128, (K * N + 16,), generator=g, device=dev,
+                            dtype=torch.int8)
+        s = (torch.rand((1, N), generator=g, device=dev) * 4e-4
+             + 1e-4).bfloat16()
+        prods.append((buf[offset:offset + K * N].view(K, N), s))
+    return x, prods
+
+
+@pytest.mark.parametrize("group", list(W8_GROUPS))
+@pytest.mark.parametrize("M", [1, 3, 8, 13, 33, 64])
+def test_w8_group_matches_plain(dev, M, group):
+    # one launch for the group: each product within W8_TOL of its plain
+    # version, two calls bitwise equal, one count per launch
+    K, Ns = W8_GROUPS[group]
+    x, prods = _w8_group_inputs(dev, M, K, Ns)
+    n0 = w8_matmul.launches
+    got = w8_matmul_group(x, prods)
+    again = w8_matmul_group(x, prods)
+    torch.cuda.synchronize()
+    assert w8_matmul.launches == n0 + 2
+    for y, y2, ref, N in zip(got, again, w8_matmul_group_ref(x, prods), Ns):
+        assert y.shape == (M, N) and y.dtype == torch.bfloat16
+        assert torch.isfinite(y).all() and torch.equal(y, y2)
+        _assert_w8_close(y, ref)
+
+
+@pytest.mark.parametrize("offset", [4, 8])
+@pytest.mark.parametrize("group", ["qkv", "down"])
+def test_w8_group_unaligned_weights(dev, group, offset):
+    # weights 4 and 8 bytes past a 16-byte boundary: no tensor map, the
+    # producer warp's own loads
+    K, Ns = W8_GROUPS[group]
+    x, prods = _w8_group_inputs(dev, 8, K, Ns, seed=3, offset=offset)
+    assert all(w.data_ptr() % 16 == offset for w, _ in prods)
+    got = w8_matmul_group(x, prods)
+    torch.cuda.synchronize()
+    for y, ref in zip(got, w8_matmul_group_ref(x, prods)):
+        _assert_w8_close(y, ref)
+
+
+@pytest.mark.parametrize("group", ["qkv", "gate/up"])
+def test_w8_group_captures_into_a_graph(dev, group):
+    # captured, replayed on new inputs written in place: the eager call's
+    # outputs bit for bit
+    K, Ns = W8_GROUPS[group]
+    x, prods = _w8_group_inputs(dev, 8, K, Ns, seed=4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        w8_matmul_group(x, prods)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = w8_matmul_group(x, prods)
+    x.mul_(-0.5)
+    for w, _ in prods:
+        w.copy_(w.flip(0))
+    graph.replay()
+    eager = w8_matmul_group(x, prods)
+    torch.cuda.synchronize()
+    for y, e, ref in zip(outs, eager, w8_matmul_group_ref(x, prods)):
+        assert torch.equal(y, e)
+        _assert_w8_close(y, ref)
+
+
+def test_w8_engine_launches_per_step(dev):
+    # Engine.generate with W8 weights: the LM head of the prefill's last
+    # row, then 4 L + 1 launches per decode step
+    from pqcache_tpu_torch.core import quant
+    from pqcache_tpu_torch.ops import w8
+    cfg = config.tiny_model_config(hidden_size=256, num_heads=4,
+                                   num_kv_heads=2, head_dim=64,
+                                   intermediate_size=512, num_layers=2)
+    params = quant.quantize_weight_tree(llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    ecfg = config.EngineConfig(
+        model=cfg, pq=config.PQConfig(n_subbits=4, kmeans_iters=4),
+        budget=config.BudgetConfig(compress_ratio=0.3, sink_size=4),
+        cache=config.CacheConfig(kv_dtype="int8"),
+        runtime=config.RuntimeConfig(prefill_bucket=256, max_new_tokens=8,
+                                     max_seq_len=4096))
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=1500)
+    n0 = w8.w8_matmul.launches
+    res = Engine(ecfg, params).generate(ids, 8)
+    torch.cuda.synchronize()
+    steps = len(res.tokens) - 1
+    assert steps == 7
+    assert w8.w8_matmul.launches - n0 == 1 + steps * (4 * cfg.num_layers + 1)
+
+
 def test_w8_graph_replay_matches_eager_decode(dev):
     # the batched decode with W8 weights replayed from a CUDA graph gives
     # the eager decode's tokens and state; the W8 kernel ran in both
@@ -734,7 +839,8 @@ def test_w8_graph_replay_matches_eager_decode(dev):
     n0 = w8.w8_matmul.launches
     want = BatchedDecoder(cfg, params, pol, twin, chunk=6,
                           graph=False).generate(tok, pos, 12)
-    assert w8.w8_matmul.launches - n0 == 12 * (7 * cfg.num_layers + 1)
+    # per step one launch for q/k/v, wo, gate/up and down, and the LM head
+    assert w8.w8_matmul.launches - n0 == 12 * (4 * cfg.num_layers + 1)
     got = BatchedDecoder(cfg, params, pol, state, chunk=6).generate(tok, pos,
                                                                     12)
     torch.cuda.synchronize()

@@ -9,18 +9,23 @@ JAX's to float32 summation order (rtol = atol = 1e-5 on products of order
 ``bridge`` (the port's k-means++ draws from torch), single-sequence and
 batch-as-heads: greedy tokens identical, logits within rtol = atol = 1e-4.
 The CUDA kernel itself runs only on the card (``tests/test_torch_cuda.py``);
-here ``plan``, the launch geometry it is given, is checked against the
-kernel's rules. ``torch.set_num_threads(1)``: the suite runs with several
+here ``plan_group`` and ``units``, the launch geometry it is given and the
+table of work it walks, are checked against the kernel's rules, and the
+decode path's grouped products (one call for q/k/v, one for gate/up) are
+held to JAX. ``torch.set_num_threads(1)``: the suite runs with several
 workers.
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from pqcache_tpu import config as jconfig
 from pqcache_tpu.core import quant as jquant
@@ -188,36 +193,132 @@ def test_w8_wrapper_counts_and_routes(w8_params):
     assert (w8.w8_matmul.launches, w8.w8_dequant_matmul.launches) == (n0, d0)
 
 
-# (M, N, K): the path's shapes at Llama-3.1-8B width (E 4096, I 14336, V
-# 128256) at the Engine's and bench.py's rows, and ragged N
-PLAN_CASES = [(m, n, k) for m in (1, 2, 8, 16, 33, 64)
-              for n, k in ((4096, 4096), (1024, 4096), (14336, 4096),
-                           (4096, 14336), (128256, 4096), (1000, 4096),
-                           (4100, 14336))]
+# (M, Ns, K): the groups of the decode path at Llama-3.1-8B width (E 4096,
+# I 14336, V 128256: q/k/v, wo, gate/up, down, the LM head) at the Engine's,
+# bench.py's and ragged rows, and ragged N
+PLAN_GROUPS = [(4096, 1024, 1024), (4096,), (14336, 14336), (128256,),
+               (1000,), (4100, 4, 1024)]
+PLAN_CASES = [(m, ns, k) for m in (1, 3, 8, 13, 33, 64)
+              for ns in PLAN_GROUPS for k in (4096, 14336)]
+
+
+def _check_units(M, Ns, K, sms):
+    """The unit table of plan_group covers every (product, column tile, k
+    block) once; each CTA's units are one contiguous range, and the ranges
+    differ by at most one unit, so the bytes per CTA differ by at most one
+    unit's where the units are equal (N a multiple of the tile, K of the k
+    block; a ragged tile or block is smaller); a tile cut between CTAs is
+    held by consecutive CTAs in k order, and each of its segments names
+    them in that order."""
+    plan = w8.plan_group(M, tuple(Ns), K, sms)
+    assert plan.mt in (1, 2, 4, 8) and 8 * plan.mt >= M
+    assert plan.mt == 1 or 4 * plan.mt < M
+    # at most one CTA per SM and one unit per CTA; fewer only for a grid
+    # that cuts the units into equal tile-aligned ranges
+    most = min(sms, plan.units)
+    assert math.ceil(w8.ALIGNED_SHARE * most) <= plan.grid <= most
+    if plan.grid < most:
+        per, rem = divmod(plan.units, plan.grid)
+        assert rem == 0 and (plan.ipt % per == 0 or per % plan.ipt == 0)
+    assert plan.ipt == -(-K // w8.BLOCK_ROWS)
+    assert plan.tiles == tuple(-(-n // w8.TILE_COLS) for n in Ns)
+    table = w8.units(plan)
+    assert len(table) == plan.grid
+    seen = {}
+    counts, nbytes = [], []
+    for c, segs in enumerate(table):
+        n_units, b = 0, 0
+        for p, tile, kb0, kb1, ctas in segs:
+            assert 0 <= kb0 < kb1 <= plan.ipt and c in ctas
+            cols = min(w8.TILE_COLS, Ns[p] - tile * w8.TILE_COLS)
+            for kb in range(kb0, kb1):
+                key = (p, tile, kb)
+                assert key not in seen, key
+                seen[key] = (c, ctas)
+                b += cols * min(w8.BLOCK_ROWS, K - w8.BLOCK_ROWS * kb)
+            n_units += kb1 - kb0
+        counts.append(n_units)
+        nbytes.append(b)
+    want = {(p, t, kb) for p, n in enumerate(Ns)
+            for t in range(-(-n // w8.TILE_COLS)) for kb in range(plan.ipt)}
+    assert set(seen) == want
+    assert max(counts) - min(counts) <= 1
+    if all(n % w8.TILE_COLS == 0 for n in Ns) and K % w8.BLOCK_ROWS == 0:
+        assert max(nbytes) - min(nbytes) <= w8.TILE_COLS * w8.BLOCK_ROWS
+    for p, n in enumerate(Ns):
+        for t in range(-(-n // w8.TILE_COLS)):
+            held = [seen[(p, t, k)] for k in range(plan.ipt)]
+            holders = [c for c, _ in held]
+            assert holders == sorted(holders)
+            assert all(ctas == tuple(sorted(set(holders)))
+                       for _, ctas in held)
+            assert tuple(sorted(set(holders))) == tuple(
+                range(holders[0], holders[-1] + 1))
+    return plan
 
 
 def test_w8_plan_fits_the_kernel():
     # the launch geometry for 132 SMs: mt covers M with the fewest 8-row
-    # tiles; nb divides N and keeps the accumulators at 64 registers;
-    # splits (the CTAs of a cluster along K) is a power of two up to 16,
-    # each split at least 64 deep, and splitting keeps the CTAs at most two
-    # per SM
-    for M, N, K in PLAN_CASES:
-        mt, nb, splits = w8.plan(M, N, K, 132)
-        assert mt in (1, 2, 4, 8) and 8 * mt >= M and (mt == 1 or 4 * mt < M)
-        assert N % nb == 0 and (nb // 2) * mt * 4 <= 64
-        assert splits in (1, 2, 4, 8, 16) and K // splits >= 64
-        assert splits == 1 or -(-N // (32 * nb)) * splits <= 2 * 132
-    # the path's shapes: wide tiles on wide matrices, narrow ones and all
-    # 16 splits on the narrow wk / wv, no split on the LM head
-    assert w8.plan(8, 14336, 4096, 132) == (1, 16, 8)
-    assert w8.plan(8, 4096, 4096, 132) == (1, 8, 16)
-    assert w8.plan(8, 1024, 4096, 132) == (1, 4, 16)
-    assert w8.plan(1, 128256, 4096, 132) == (1, 16, 1)
-    assert w8.plan(64, 4096, 4096, 132)[:2] == (8, 4)
-    assert w8.plan(8, 1000, 4096, 132)[1] in (8, 4)
+    # tiles; at most one CTA per SM and one unit per CTA; the unit table
+    # covers every (product, column, K step) exactly once, balanced to one
+    # unit per CTA, each cut tile held by consecutive CTAs
+    for M, Ns, K in PLAN_CASES:
+        _check_units(M, Ns, K, 132)
+    qkv = w8.plan_group(8, (4096, 1024, 1024), 4096, 132)
+    assert qkv == w8.GroupPlan(1, (16, 4, 4), 64, 1536, 132)
+    # tile-aligned grids: wo and down 8 CTAs a tile, gate/up a tile a CTA
+    assert w8.plan_group(8, (4096,), 4096, 132).grid == 128
+    assert w8.plan_group(8, (4096,), 14336, 132).grid == 128
+    assert w8.plan_group(8, (14336, 14336), 4096, 132).grid == 112
+    assert w8.plan_group(8, (128256,), 4096, 132).grid == 132
+    assert w8.plan_group(64, (4096,), 14336, 132).mt == 8
+    # a tiny group has fewer units than SMs: one unit per CTA
+    tiny = w8.plan_group(1, (256,), 128, 132)
+    assert tiny.grid == tiny.units == 2
     with pytest.raises(ValueError, match="multiples of 4"):
-        w8.plan(8, 1002, 4096, 132)
+        w8.plan_group(8, (1002,), 4096, 132)
+    with pytest.raises(ValueError, match="rows"):
+        w8.plan_group(65, (1024,), 4096, 132)
+    with pytest.raises(ValueError, match="products"):
+        w8.plan_group(8, (4,) * 4, 4096, 132)
+    with pytest.raises(ValueError, match="column tiles"):
+        w8.plan_group(8, (w8.TILE_COLS * w8.MAX_TILES + 4,), 64, 132)
+
+
+@settings(max_examples=60, deadline=None)
+@given(M=st.integers(1, 64),
+       Ns=st.lists(st.integers(1, 700).map(lambda n: 4 * n), min_size=1,
+                   max_size=3),
+       K=st.integers(1, 80).map(lambda k: 16 * k),
+       sms=st.integers(1, 140))
+def test_w8_plan_units_cover_small_shapes(M, Ns, K, sms):
+    # a sweep of small and ragged shapes and SM counts
+    _check_units(M, Ns, K, sms)
+
+
+def test_w8_group_ref_is_the_products(w8_params):
+    # the group's plain version is each product's, bit for bit, and JAX's
+    # _mm of q/k/v and gate/up at tiny GQA widths (N of q != N of k/v)
+    cfg, jparams, params = w8_params
+    assert cfg.num_heads != cfg.num_kv_heads
+    lp = llama._layer_params(params, 0)
+    jlp = jax.tree.map(lambda a: a[0], jparams["layers"])
+    rng = np.random.default_rng(11)
+    for names in (("wq", "wk", "wv"), ("gate", "up")):
+        x = rng.normal(size=(5, cfg.hidden_size)).astype(np.float32)
+        xt = torch.from_numpy(x)
+        got = w8.w8_matmul_group_ref(xt, [(lp[n], lp[n + "_s"])
+                                          for n in names])
+        via = w8.w8_matmul_group(xt, [(lp[n], lp[n + "_s"]) for n in names])
+        grouped = llama._products(xt, lp, names)
+        for n, a, b, c in zip(names, got, via, grouped):
+            np.testing.assert_array_equal(
+                a.numpy(), w8.w8_matmul_ref(xt, lp[n], lp[n + "_s"]).numpy())
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+            np.testing.assert_array_equal(a.numpy(), c.numpy())
+            want = jllama._mm(jnp.asarray(x), jlp, n)
+            np.testing.assert_allclose(a.numpy(), np.asarray(want), **MM_TOL)
+        assert [t.shape[1] for t in got] == [lp[n].shape[1] for n in names]
 
 
 def _decode_cfgs(policy):
@@ -295,6 +396,38 @@ def test_w8_engine_matches_jax_engine(w8_params):
     got = Engine(ecfg, params, dtype=torch.float32,
                  device="cpu").generate(ids, 10)
     assert got.tokens == want.tokens
+
+
+def test_w8_decode_groups_products(w8_params, monkeypatch):
+    # with int8 weights a decode step makes one group call for q/k/v and
+    # one for gate/up per layer (2 L; wo, down and the LM head stay single
+    # products), the Engine's W8 requests still give the JAX Engine's
+    # tokens, and prefill rows (past MAX_ROWS) make no group call
+    cfg, jparams, params = w8_params
+    calls = []
+    real = w8.w8_matmul_group
+
+    def counted(x, prods, **kw):
+        calls.append(len(prods))
+        return real(x, prods, **kw)
+    monkeypatch.setattr(w8, "w8_matmul_group", counted)
+    jecfg, ecfg = _decode_cfgs("original")
+    ids = np.random.default_rng(8).integers(0, 256, 700)
+    want = JEngine(jecfg, jparams, dtype=jnp.float32).generate(ids, 6)
+    got = Engine(ecfg, params, dtype=torch.float32,
+                 device="cpu").generate(ids, 6)
+    assert got.tokens == want.tokens
+    L = cfg.num_layers
+    assert calls == [3, 2] * L * (len(got.tokens) - 1)
+    # one batched step of 3 slots
+    calls.clear()
+    pol = get_policy(ecfg, compute_budget(ecfg.budget, 256, 24),
+                     device="cpu")
+    state = pol.init_batched_state(3, torch.float32)
+    llama.decode_step_batched(ecfg.model, params, pol, state,
+                              torch.tensor([1, 2, 3]),
+                              torch.tensor([0, 0, 0]))
+    assert calls == [3, 2] * L
 
 
 @pytest.mark.parametrize("policy", ["pq_search", "original"])
