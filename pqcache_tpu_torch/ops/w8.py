@@ -149,20 +149,25 @@ _scratch: dict = {}
 
 
 def _scratch_of(device) -> tuple:
-    """(partials, arrival counts) of the split-K fix-up on ``device``,
-    allocated once at the largest plan (one CTA per SM, MAX_TILES tiles);
-    each launch leaves the counts at zero. Launches on one device run one
-    after another (one stream), as the engine's decode does."""
-    key = torch.device(device)
+    """(partials, arrival counts) of the split-K fix-up for the current
+    stream of ``device``, allocated at that stream's first call (outside a
+    CUDA-graph capture) at the largest plan (one CTA per SM, MAX_TILES
+    tiles); each launch leaves the counts at zero. Launches on one stream
+    run one after another; two streams each have their own, so their
+    launches may overlap. A graph replays with the scratch of the stream it
+    was captured on."""
+    dev = torch.device(device)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
     if key not in _scratch:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("w8_matmul: first call inside a CUDA-graph "
-                               "capture; call it once eagerly first")
-        sms = _sms(key)
+            raise RuntimeError("w8_matmul: first call on this stream inside "
+                               "a CUDA-graph capture; call it once eagerly "
+                               "on the capture stream first")
+        sms = _sms(dev)
         _scratch[key] = (
             torch.empty(2 * sms * TILE_COLS * 64,
-                        dtype=torch.float32, device=key),
-            torch.zeros(MAX_TILES, dtype=torch.int32, device=key))
+                        dtype=torch.float32, device=dev),
+            torch.zeros(MAX_TILES, dtype=torch.int32, device=dev))
     return _scratch[key]
 
 

@@ -112,8 +112,10 @@ class BatchEngine:
         self.device = resolve_device(device)
         use_kernels(cfg)
         if cfg.cache.offload:
-            raise NotImplementedError(
-                "the host-offload tier is ported in a later slice")
+            raise ValueError(
+                "BatchEngine serves the device tier; batched serving on the "
+                "host-offload tier is "
+                "runtime/offload_batch.BatchOffloadEngine")
         # every policy with a batch-as-heads decode (pq_search, original)
         # also has the prefill_tail that chunked and prefix admission need
         if not hasattr(policy_class(cfg.runtime.policy),

@@ -115,7 +115,8 @@ class BatchedDecoder:
 
     def _warm_up_and_capture(self) -> None:
         """Step once eagerly on a side stream (a real step), then capture
-        the step; the capture runs nothing."""
+        the step on the same stream (the W8 kernel's scratch is per
+        stream, made at the eager step); the capture runs nothing."""
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
@@ -134,7 +135,7 @@ class BatchedDecoder:
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             self._step()
         torch.cuda.synchronize(self.device)
         self.capture_seconds = time.perf_counter() - t0

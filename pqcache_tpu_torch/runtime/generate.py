@@ -13,8 +13,10 @@ is prefilled in chunks (``llama.prefill_chunked``, the policies with a
 Decoding is greedy at temperature 0, else sampled (``core/sampling``): the
 first token from the prefill logits, then one draw per decode step, all
 from one generator seeded with ``RuntimeConfig.sample_seed`` per request,
-so the same seed gives the same tokens. The host-offload tier raises
-NotImplementedError.
+so the same seed gives the same tokens. With ``CacheConfig.offload`` a
+``pq_search`` request runs on the host-offload tier
+(``runtime/offload_engine.OffloadEngine``, policy name
+"pq_search_offload"); a prompt that falls back to ``original`` runs here.
 """
 
 from __future__ import annotations
@@ -106,12 +108,16 @@ class Engine:
                  dtype=torch.bfloat16, device=None):
         self.device = resolve_device(device)
         use_kernels(cfg)                      # rejects kernels modes early
-        if cfg.cache.offload:
-            raise NotImplementedError(
-                "the host-offload tier is ported in a later slice")
         self.cfg = cfg
         self.dtype = dtype
         self.params = params_to(params, self.device, dtype)
+        # the host-offload tier (CacheConfig.offload): KV in pinned host
+        # memory with a device block cache
+        self._off_engine = None
+        if cfg.cache.offload and cfg.runtime.policy == "pq_search":
+            from pqcache_tpu_torch.runtime.offload_engine import OffloadEngine
+            self._off_engine = OffloadEngine(cfg, self.params, dtype,
+                                             device=self.device)
         self.sampler = make_sampler(cfg.runtime.temperature, cfg.runtime.top_k,
                                     cfg.runtime.top_p)
         self._policies = {}
@@ -211,6 +217,9 @@ class Engine:
                 chunk: Optional[int] = None, prefix=None):
         cfg = self.cfg
         true_len = int(ids.shape[0])
+        if prefix is not None and self._off_engine is not None:
+            raise ValueError(
+                "prefix caching is not supported on the offload tier")
         if prefix is not None:
             # the suffix RIGHT-padded to its bucket (causality hides the pad
             # keys; the logits come from the last real row), positions from
@@ -240,6 +249,11 @@ class Engine:
                 # max_seq_len caps the reservation: no chunk padding past it
                 P, _ = chunk_plan_capped(P, ch, cfg.runtime.max_seq_len)
             name = self.pick_policy(true_len, P)
+            if self._off_engine is not None and name == "pq_search":
+                self._last_policy = "pq_search_offload"
+                yield from self._off_engine.stream(ids, max_new,
+                                                   eos_ids=eos_ids)
+                return
             policy = self._policy(P, name)
             pad, pos = P - true_len, true_len
             tokens = np.zeros((P,), np.int64)

@@ -699,7 +699,7 @@ def test_w8_kernel_captures_into_a_graph(dev):
         w8_matmul(x, w, s)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         out = w8_matmul(x, w, s)
     x.mul_(-0.5)
     w.copy_(w.flip(0))
@@ -787,7 +787,7 @@ def test_w8_group_captures_into_a_graph(dev, group):
         w8_matmul_group(x, prods)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         outs = w8_matmul_group(x, prods)
     x.mul_(-0.5)
     for w, _ in prods:
@@ -976,3 +976,137 @@ def test_batch_engine_on_cuda_takes_what_the_cpu_takes(dev, case):
     for out in outs.values():
         assert sorted(out) == [0, 1, 2]
         assert all(len(v) == 12 for v in out.values())
+
+
+# ---------------------------------------------------------------------------
+# The host-offload tier on the card: the pinned store, staging without a host
+# sync, the block cache after churn; W8 on two streams at once
+
+def _offload_store(dev, cache_tokens=96, dtype=torch.bfloat16):
+    from pqcache_tpu_torch.runtime.host_offload import HostKVStore
+    s = HostKVStore(2, 8, 2048, 128, block_size=32,
+                    hbm_cache_tokens=cache_tokens, cache_topk_blocks=4,
+                    dtype=dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for layer in range(2):
+        k, v = (torch.randn((8, 2048, 128), generator=g, device=dev)
+                for _ in range(2))
+        s.offload_layer_device(layer, k, v, 2048)
+    s.copy_stream.synchronize()
+    return s
+
+
+def test_offload_host_store_is_pinned(dev):
+    s = _offload_store(dev)
+    assert all(h.is_pinned() for h in s.host_kv)
+    assert s.pinned_bytes == sum(h.numel() * 2 for h in s.host_kv)
+    assert s.stored.all() and s.copy_stream is not None
+
+
+def test_offload_miss_staging_needs_no_host_sync(dev):
+    # classify (LFU, staging on the copy stream), assembly and admission
+    # read no count on the host: set_sync_debug_mode("error") raises on any
+    # synchronizing call, such as a copy from pageable memory
+    from pqcache_tpu_torch.runtime.host_offload import assemble_blocks
+    s = _offload_store(dev)
+    blk = np.asarray([[0, 5, 6, 7, 40, 41]] * 8)
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            slots, miss, staged, cache = s.classify_blocks(1, blk)
+            got = assemble_blocks(cache, staged, s.device_index(slots),
+                                  s.device_index(miss))
+            s.admit(1)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    assert s.hits > 0 and s.misses > 0 and s.h2d_copies > 0
+    want = s.host_kv[1][torch.from_numpy(blk[0])]
+    assert torch.equal(got.cpu(), want[None].expand(8, -1, -1, -1, -1)[
+        torch.arange(8)[:, None], torch.arange(6)[None],
+        torch.arange(8)[:, None]])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_offload_cache_after_churn_equals_host_rows(dev, dtype):
+    # a 3-block cache under a rotating selection: every assembled block is
+    # the host block, and so is every cache slot the proxy points at
+    from pqcache_tpu_torch.runtime.host_offload import assemble_blocks
+    s = _offload_store(dev, cache_tokens=96, dtype=dtype)
+    rng = np.random.default_rng(7)
+    for step in range(40):
+        blk = np.stack([rng.choice(12, 4, replace=False) for _ in range(8)])
+        blk[:, 0] = 0                         # one hot block
+        slots, miss, staged, cache = s.classify_blocks(0, blk)
+        got = assemble_blocks(cache, staged, s.device_index(slots),
+                              s.device_index(miss))
+        s.admit(0)
+        host = s.host_kv[0][torch.from_numpy(blk)]      # [8, 4, 8, bs, 2D]
+        want = host[torch.arange(8)[:, None], torch.arange(4)[None],
+                    torch.arange(8)[:, None]]
+        assert torch.equal(got.cpu(), want), step
+    s.flush()
+    torch.cuda.synchronize()
+    res = np.flatnonzero(s.block_slot[0] >= 0)
+    assert 0 < len(res) <= s.n_cache_blocks and s.hits > 0
+    for b in res:
+        assert torch.equal(s.cache_kv[0][int(s.block_slot[0][b])].cpu(),
+                           s.host_kv[0][int(b)])
+
+
+def test_offload_store_on_cuda_needs_the_native_lfu(dev, monkeypatch):
+    # the Python LFU model is for CPU stores: a card store without the
+    # library raises rather than time the model under the native tier's name
+    from pqcache_tpu_torch.native import lfu_cache
+    from pqcache_tpu_torch.runtime.host_offload import HostKVStore
+    monkeypatch.setattr(lfu_cache, "_load", lambda: None)
+    with pytest.raises(RuntimeError, match="native LFU"):
+        HostKVStore(1, 8, 256, 128, block_size=32, device=dev)
+    assert not HostKVStore(1, 8, 256, 128, block_size=32,
+                           device="cpu").lfu[0].native
+
+
+def test_offload_transfer_events_fold_into_totals(dev):
+    # a long-lived store keeps a bounded list of timing events: finished
+    # copies fold into the device seconds, which only grow
+    from pqcache_tpu_torch.runtime import host_offload
+    s = _offload_store(dev, cache_tokens=96)
+    rng = np.random.default_rng(3)
+    seen = []
+    for step in range(3 * host_offload.EVENT_FOLD):
+        blk = np.stack([rng.choice(64, 4, replace=False) for _ in range(8)])
+        s.classify_blocks(step % 2, blk)
+        s.admit(step % 2)
+        assert len(s._h2d_ev) <= host_offload.EVENT_FOLD + 1
+        if step % host_offload.EVENT_FOLD == 0:
+            seen.append(s.transfer_stats()["h2d_s"])
+    t = s.transfer_stats()
+    assert not s._h2d_ev and not s._d2h_ev
+    assert 0 < seen[0] <= seen[-1] <= t["h2d_s"] and t["d2h_s"] > 0
+    assert t["h2d_copies"] >= 3 * host_offload.EVENT_FOLD
+
+
+def test_w8_two_streams_at_once_match_one_stream(dev):
+    # each stream has its own split-K scratch: products launched on two
+    # streams at once give what each gives alone (bit for bit: the fix-up
+    # adds partials in CTA order)
+    K, Ns = 4096, (14336, 14336)
+    a = _w8_group_inputs(dev, 8, K, Ns, seed=11)
+    b = _w8_group_inputs(dev, 8, K, Ns, seed=12)
+    want = [w8_matmul_group(x, p) for x, p in (a, b)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(20):
+        for i, (st, (x, p)) in enumerate(zip(streams, (a, b))):
+            with torch.cuda.stream(st):
+                outs[i].append(w8_matmul_group(x, p))
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    for i in range(2):
+        for got in outs[i]:
+            assert all(torch.equal(g, w) for g, w in zip(got, want[i]))
