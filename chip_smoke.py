@@ -45,8 +45,18 @@ then an int8 store with stale
 selection, ``BatchOffloadEngine`` at B 4 and serving 8 requests over 4
 slots, and a 128k prompt (int8, stale, chunked prefill) through
 ``harness/offload_bench.py``, with K2 the only kernel of its prefills and
-the native LFU built. The self-checks hold greedy tokens at every step,
-teacher-forced, a parting allowed only at a near tie. Then the port's
+the native LFU built. The evaluation phase writes a 2-layer checkpoint at
+Llama-3.1-8B widths with its own safetensors writer and loads it through
+``models/loader.py`` (every tensor bit for bit; a block-path request's
+first-token logits equal to those of the same params in memory), runs
+six more 2-layer self-checks (pq_search with the ip metric on the block
+path and per token, gqa=False and the masked fetch; no_drop_lb and
+sparq_f), the LongBench command line at ``random:llama-3.1`` (32 layers)
+on two ~8k-token synthetic passage_count samples for seven policies, a
+resume that writes nothing and ``score``, and synth_quality (the copy
+model trained on the card and held to its quality gate). The self-checks
+hold greedy tokens at every step, teacher-forced, a parting allowed only
+at a near tie, and count each route's launches. Then the port's
 bench driver runs at bench.py's defaults (and at its 128k chunked-prefill
 case when time allows) and prints its JSON line. The kernels line takes K1 and K5 at the batched shapes and W8
 per batched step. Any failure exits non-zero. Without CUDA it exits 1 and
@@ -62,7 +72,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -124,6 +136,16 @@ ENGINES = {
     "block-w8": dict(kv="int8", pq=dict(select_block=256), w8=True),
     "chunked": dict(kv="bf16", pq=dict(select_block=256),
                     prefill_chunk=8192),
+    # the evaluation path's branches (the evaluation phase's self-checks):
+    # the ip metric on the block path (K5, then K1) and per token (K5),
+    # per-q-head retrieval (gqa=False) and the masked fetch (K5), and the
+    # oracle and SparQ baselines (K2 at prefill)
+    "ip-block": dict(kv="bf16", pq=dict(select_block=256, metric="ip")),
+    "ip-token": dict(kv="bf16", pq=dict(select_block=1, metric="ip")),
+    "nogqa": dict(kv="bf16", pq=dict(select_block=1), gqa=False),
+    "masked": dict(kv="bf16", pq=dict(select_block=1, fetch_mode="masked")),
+    "no_drop_lb": dict(policy="no_drop_lb"),
+    "sparq_f": dict(policy="sparq_f"),
 }
 SCORE_POLICIES = ("h2o", "infllm")
 # (prompt tokens, engine): the 100-token request is short enough that the
@@ -246,12 +268,17 @@ def row_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return rel.max().item()
 
 
-def environment() -> None:
-    smi = subprocess.run(
+@functools.lru_cache(maxsize=1)
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    log(smi)
+
+
+def environment() -> None:
+    log(card())
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -959,7 +986,7 @@ def engine_cfg(model, engine: str, kernels: str = "auto",
             policy=e.get("policy", "pq_search"),
             score_func=e.get("score_func", "sum"), prefill_bucket=1024,
             max_new_tokens=64, max_seq_len=33000, kernels=kernels,
-            prefill_chunk=e.get("prefill_chunk", 0)))
+            prefill_chunk=e.get("prefill_chunk", 0), gqa=e.get("gqa", True)))
 
 
 def _expected_launches(engine: str, policy: str, L: int, steps: int,
@@ -977,8 +1004,11 @@ def _expected_launches(engine: str, policy: str, L: int, steps: int,
         dec = {"adc_scores"} | ({"gather_rows"} if pq_kw.get(
             "gather_mode") == "pallas" else set())
     elif policy == "pq_search":
-        dec = {"block_topk_attention"} | ({"adc_block_scores"} if pq_kw.get(
-            "scorer") == "kernel" else set())
+        # the ip metric has no block scorer: K5 scores per token
+        dec = ({"block_topk_attention"}
+               | ({"adc_block_scores"} if pq_kw.get("scorer") == "kernel"
+                  else set())
+               | ({"adc_scores"} if pq_kw.get("metric") == "ip" else set()))
     pre = {"flash_scores"} if policy in SCORE_POLICIES else set()
     out = {k: L * (k in pre) + L * steps * (k in dec) for k in KERNELS}
     out["flash_attention"] = k2 * L
@@ -1200,7 +1230,7 @@ class _Selections:
 
 
 def self_check(dev, params, model, engine: str = "block-bf16",
-               shared_compress: float = SELF_COMPRESS):
+               shared_compress: float = SELF_COMPRESS) -> dict:
     """kernels="auto" against kernels="xla" (the plain versions) at reduced
     depth. Held to LOGIT_TOL: the prefill logits (K2 against its plain
     version) and the logits of each decode step taken from one shared state
@@ -1217,9 +1247,11 @@ def self_check(dev, params, model, engine: str = "block-bf16",
     at every step; for block selection the last block is cut by n_cand, so
     K1 still masks rows. On the per-token path K5 and K6 are exact, so the
     shared-state steps run at the main path's budget 0.2 and their per-token
-    selections must be identical."""
+    selections must be identical. Returns the kernel route's request's
+    launches (held to its path's)."""
     small, sp, ids = _small(model, params)
-    toks, own, P = _both_routes(small, sp, ids, engine, SELF_COMPRESS, dev)
+    toks, own, P, counted = _both_routes(small, sp, ids, engine,
+                                         SELF_COMPRESS, dev)
     ref = toks["xla"]
     pre_diff = (own["auto"][0] - own["xla"][0]).abs().max().item()
     # each decode step from one shared state: the auto run's state before
@@ -1240,7 +1272,7 @@ def self_check(dev, params, model, engine: str = "block-bf16",
             torch.equal(a, b) for a, b in zip(sa.seen, sx.seen)))
         dec_diff.append((la - lx).abs().max().item())
     dec_diff = torch.tensor(dec_diff)
-    per_token = ENGINES[engine]["pq"]["select_block"] == 1
+    per_token = ENGINES[engine].get("pq", {}).get("select_block") == 1
     log(f"self-check {engine} ({SELF_LAYERS} layers): prefill |logit diff| "
         f"{pre_diff:.4f}; decode from a shared state at budget "
         f"{shared_compress}: max |logit diff| {dec_diff.max().item():.4f} "
@@ -1254,6 +1286,7 @@ def self_check(dev, params, model, engine: str = "block-bf16",
             or (per_token and not sel_same)):
         raise SystemExit(f"kernels disagree with the plain versions end to "
                          f"end ({engine})")
+    return counted
 
 
 def _small(model, params):
@@ -1270,23 +1303,35 @@ def _both_routes(small, sp, ids, engine: str, compress: float, dev,
                  on_prefill=None):
     """Engine.generate's greedy tokens on the kernel ("auto") and plain
     ("xla") routes, and each route's own logits: prefill, then teacher
-    forcing with the plain route's tokens. on_prefill(kernels) is a context
-    manager entered around each route's prefill."""
+    forcing with the plain route's tokens, and the kernel route's request's
+    launches. on_prefill(kernels) is a context manager entered around each
+    route's prefill."""
     toks, own = {}, {}
     policy = ENGINES[engine].get("policy", "pq_search")
     for kernels in ("auto", "xla"):
         cfg = engine_cfg(small, engine, kernels, compress)
+        _zero_counts()
         res = Engine(cfg, sp, device=dev).generate(ids, SELF_TOKENS)
         if res.policy_name != policy:
             raise SystemExit(f"self-check must run the {policy} path")
         toks[kernels] = res.tokens
+        # the kernel route launches exactly its path's kernels, the plain
+        # route none
+        want = (_expected_launches(engine, policy, SELF_LAYERS,
+                                   len(res.tokens) - 1)
+                if kernels == "auto" else dict.fromkeys(KERNELS, 0))
+        if _counts() != want:
+            raise SystemExit(f"self-check {engine} ({kernels}): launches "
+                             f"{_counts()}, expected {want}")
+        if kernels == "auto":
+            counted = want
     for kernels in ("auto", "xla"):
         pol, P = _policy(small, engine, kernels, len(ids), dev, compress)
         with on_prefill(kernels) if on_prefill else contextlib.nullcontext():
             lg, st = _prefill(small, sp, pol, P, ids, dev)
         own[kernels] = torch.cat([lg[None], _decode_forced(
             small, sp, pol, st, len(ids), toks["xla"], dev)])
-    return toks, own, P
+    return toks, own, P, counted
 
 
 def _step_diffs(got, ref) -> list:
@@ -1397,7 +1442,7 @@ def score_self_check(dev, params, model, engine: str):
     def on_prefill(kernels):
         errs[kernels] = _ScoreErrors()
         return errs[kernels]
-    toks, own, _ = _both_routes(small, sp, ids, engine, 0.2, dev,
+    toks, own, _, _ = _both_routes(small, sp, ids, engine, 0.2, dev,
                                 on_prefill)
     pre_diff = (own["auto"][0] - own["xla"][0]).abs().max().item()
     k4 = errs["auto"].rel
@@ -2360,6 +2405,287 @@ def offload_phase(dev, params, model) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# The evaluation path: the HF loader, the evaluation policies and branches,
+# the LongBench command line at full depth, and synth_quality
+
+EVAL_SELF_CHECKS = ("ip-block", "ip-token", "nogqa", "masked", "no_drop_lb",
+                    "sparq_f")
+LB_CTX = 8000             # whitespace words of context per LongBench sample
+LB_POLICIES = [("original", []), ("pq_search", []),
+               ("pq_search", ["--metric", "ip", "--exp-name", "ip"]),
+               ("h2o", []), ("infllm", []), ("no_drop_lb", []),
+               ("sparq_f", [])]
+_HF_LAYER = {"wq": "self_attn.q_proj.weight", "wk": "self_attn.k_proj.weight",
+             "wv": "self_attn.v_proj.weight", "wo": "self_attn.o_proj.weight",
+             "gate": "mlp.gate_proj.weight", "up": "mlp.up_proj.weight",
+             "down": "mlp.down_proj.weight",
+             "ln1": "input_layernorm.weight",
+             "ln2": "post_attention_layernorm.weight"}
+
+
+def _write_safetensors(path: str, tensors: dict) -> int:
+    """A plain safetensors writer: the 8-byte little-endian header length,
+    the JSON header (bf16 tensors, data offsets from the header's end),
+    then each tensor's bytes. Returns the bytes written."""
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": "BF16", "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.contiguous().cpu().view(torch.uint8).numpy().data)
+    return 8 + len(head) + off
+
+
+def loader_check(dev, params, model) -> dict:
+    """(a) A 2-layer checkpoint at Llama-3.1-8B widths in HF layout (linear
+    weights [out, in]; config.json; two bf16 shards; no lm_head, so the
+    loader ties it), written with the plain writer above, loaded on the
+    card by models/loader.py: every tensor bit for bit what was written,
+    then one block-path request whose first-token logits equal those of
+    the same params built in memory. Returns the launches."""
+    import tempfile
+    from pqcache_tpu_torch.models import loader
+    L = 2
+    sp = {"embed": params["embed"], "final_norm": params["final_norm"],
+          "layers": {k: v[:L] for k, v in params["layers"].items()}}
+    sp["lm_head"] = sp["embed"].T.contiguous()          # tied
+    rs = {"rope_type": "llama3", "factor": model.rope_scaling_factor,
+          "low_freq_factor": model.rope_low_freq_factor,
+          "high_freq_factor": model.rope_high_freq_factor,
+          "original_max_position_embeddings":
+              model.rope_original_max_position}
+    hf = {"vocab_size": model.vocab_size, "hidden_size": model.hidden_size,
+          "intermediate_size": model.intermediate_size,
+          "num_hidden_layers": L, "num_attention_heads": model.num_heads,
+          "num_key_value_heads": model.num_kv_heads,
+          "rms_norm_eps": model.rms_norm_eps, "rope_theta": model.rope_theta,
+          "rope_scaling": rs, "tie_word_embeddings": True,
+          "max_position_embeddings": model.max_position_embeddings}
+    shards = [{"model.embed_tokens.weight": sp["embed"]},
+              {"model.norm.weight": sp["final_norm"]}]
+    for i in range(L):
+        for name, sub in _HF_LAYER.items():
+            w = sp["layers"][name][i]
+            shards[i][f"model.layers.{i}.{sub}"] = w.T if w.dim() == 2 else w
+    total = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(hf, f)
+        t = time.perf_counter()
+        nbytes = sum(_write_safetensors(os.path.join(
+            d, f"model-0000{i + 1}-of-00002.safetensors"), sh)
+            for i, sh in enumerate(shards))
+        write_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cfg, lp = loader.load_hf_checkpoint(d, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    log(f"loader [{card()}]: {nbytes / 1e9:.3f} GB in 2 shards (written "
+        f"in {write_s:.2f} s), loaded onto the card in {load_s:.2f} s: "
+        f"{nbytes / 1e9 / load_s:.2f} GB/s (the files just written, read "
+        f"through the page cache)")
+    if dataclasses.replace(cfg, name=model.name) != dataclasses.replace(
+            model, num_layers=L, tie_word_embeddings=True):
+        raise SystemExit(f"loader: config {cfg} differs")
+    flat = [(k, lp[k], sp[k]) for k in ("embed", "final_norm", "lm_head")]
+    flat += [(k, lp["layers"][k], sp["layers"][k]) for k in _HF_LAYER]
+    for name, got, ref in flat:
+        if (got.dtype != torch.bfloat16 or got.shape != ref.shape
+                or not torch.equal(got.view(torch.int16),
+                                   ref.contiguous().view(torch.int16))):
+            raise SystemExit(f"loader: {name} is not bit-equal to what was "
+                             f"written")
+    small = dataclasses.replace(model, num_layers=L)
+    ids = np.random.default_rng(SEED + 30).integers(0, model.vocab_size,
+                                                    4000)
+    got = {}
+    for what, p in (("loaded", lp), ("in memory", sp)):
+        with _PrefillLogits() as rec:
+            _zero_counts()
+            res = Engine(engine_cfg(small, "block-bf16"), p,
+                         device=dev).generate(ids, 8)
+        want = _expected_launches("block-bf16", res.policy_name, L,
+                                  len(res.tokens) - 1)
+        if _counts() != want or res.policy_name != "pq_search":
+            raise SystemExit(f"loader request ({what}): launches "
+                             f"{_counts()}, expected {want}")
+        for k in total:
+            total[k] += want[k]
+        got[what] = (rec.last, res.tokens)
+    d = (got["loaded"][0] - got["in memory"][0]).abs().max().item()
+    log(f"loader: block-path request (4000 tokens, 2 layers) from the loaded "
+        f"params: first-token |logit diff| to the params in memory {d}; "
+        f"tokens equal {got['loaded'][1] == got['in memory'][1]}")
+    if not torch.equal(got["loaded"][0], got["in memory"][0]):
+        raise SystemExit("loader: first-token logits differ")
+    del lp, sp
+    torch.cuda.empty_cache()
+    return total
+
+
+def _lb_data(d: str) -> None:
+    """Two synthetic passage_count samples of LB_CTX whitespace words:
+    paragraphs drawn from a few distinct ones, the answer their count."""
+    rng = np.random.default_rng(SEED + 31)
+    words = [f"tok{i}" for i in range(5000)]
+    os.makedirs(os.path.join(d, "data"))
+    with open(os.path.join(d, "data", "passage_count.jsonl"), "w") as f:
+        for i in range(2):
+            paras = [" ".join(rng.choice(words, 200)) for _ in range(5 + i)]
+            pick = rng.integers(0, len(paras), LB_CTX // 200)
+            ctx = "\n\n".join(f"Paragraph {j + 1}: {paras[p]}"
+                              for j, p in enumerate(pick))
+            f.write(json.dumps({"context": ctx, "answers": [str(5 + i)],
+                                "length": LB_CTX}) + "\n")
+
+
+class _Requests:
+    """While active, keeps the GenerateResult of every Engine.generate."""
+
+    def __enter__(self):
+        self.seen, self._orig = [], Engine.generate
+
+        def rec(eng, *a, **kw):
+            res = self._orig(eng, *a, **kw)
+            self.seen.append(res)
+            return res
+        Engine.generate = rec
+        return self
+
+    def __exit__(self, *exc):
+        Engine.generate = self._orig
+
+
+def _lb_expected(policy: str, L: int, requests: int, steps: int) -> dict:
+    """The launches of a LongBench run: K2 per layer and request, K4 too
+    for h2o and infllm, K5 per layer and decode step on pq_search's
+    per-token path (the command line's default select_block 1)."""
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = requests * L
+    if policy in SCORE_POLICIES:
+        want["flash_scores"] = requests * L
+    if policy == "pq_search":
+        want["adc_scores"] = L * steps
+    return want
+
+
+def longbench_cli(dev) -> dict:
+    """(c) harness/longbench.py's command line at random:llama-3.1 (32
+    layers, Llama-3.1-8B widths, the whitespace tokenizer) on two
+    synthetic passage_count samples of about 8k tokens (32 new tokens
+    each), once per policy of LB_POLICIES; each run's kernel counts set to
+    0 before it and read after, held to its path (K2 on every prefill, K4
+    on h2o/infllm's, K5 per layer and decode step on pq_search's per-token
+    path). Then a rerun that writes nothing (resume) and `score`. Prints
+    each policy's TTFT and ms/token (the second sample's: the first pays
+    the first launches). Returns the launches."""
+    import tempfile
+    from pqcache_tpu_torch.harness import longbench
+    total = dict.fromkeys(KERNELS, 0)
+    L = config.LLAMA31_8B.num_layers
+    with tempfile.TemporaryDirectory() as d:
+        _lb_data(d)
+        base = ["predict", "--checkpoint", "random:llama-3.1", "--model",
+                "llama-3.1", "--datasets", "passage_count", "--data-dir",
+                os.path.join(d, "data"), "--out-dir", os.path.join(d, "pred")]
+        for policy, extra in LB_POLICIES:
+            _zero_counts()
+            t = time.perf_counter()
+            with _Requests() as rq:
+                longbench.main(base + ["--compressor", policy] + extra)
+            wall = time.perf_counter() - t
+            got = _counts()
+            want = _lb_expected(policy, L, len(rq.seen),
+                                sum(len(r.tokens) - 1 for r in rq.seen))
+            label = policy + (" ip" if "ip" in extra else "")
+            if (len(rq.seen) != 2 or got != want
+                    or {r.policy_name for r in rq.seen} != {policy}):
+                raise SystemExit(f"longbench {label}: {len(rq.seen)} requests"
+                                 f", launches {got}, expected {want}")
+            for k in total:
+                total[k] += got[k]
+            r = rq.seen[-1]
+            log(f"longbench {label} [{card()}] ({L} layers, "
+                f"{len(rq.seen)} samples, "
+                f"{wall:.1f} s with the model's random init): TTFT "
+                f"{r.prefill_seconds * 1e3:.1f} ms, decode "
+                f"{r.decode_seconds / max(len(r.tokens) - 1, 1) * 1e3:.2f} "
+                f"ms/token over {len(r.tokens) - 1} steps (first sample "
+                f"TTFT {rq.seen[0].prefill_seconds * 1e3:.1f} ms)")
+        files = sorted(os.path.join(root, f) for root, _, fs in os.walk(
+            os.path.join(d, "pred")) for f in fs if f.endswith(".jsonl"))
+        sizes = [os.path.getsize(f) for f in files]
+        with _Requests() as rq:
+            longbench.main(base + ["--compressor", "pq_search"])
+        if rq.seen or [os.path.getsize(f) for f in files] != sizes:
+            raise SystemExit("longbench resume wrote again")
+        for f in files:
+            with open(f) as fh:
+                rows = [json.loads(line) for line in fh]
+            if len(rows) != 2 or not all(
+                    r["input_tokens"] > LB_CTX and r["pred"] for r in rows):
+                raise SystemExit(f"longbench output {f}: {rows}")
+        longbench.main(["score", "--pred-dir", os.path.join(d, "pred")])
+        with open(os.path.join(d, "pred", "result.json")) as fh:
+            result = json.load(fh)
+        if len(result) != len(LB_POLICIES) - 1 or len(files) != len(
+                LB_POLICIES):
+            raise SystemExit(f"longbench score: {result}")
+    log(f"longbench: {len(files)} prediction files, the rerun wrote nothing, "
+        f"score gave {len(result)} configurations")
+    torch.cuda.empty_cache()
+    return total
+
+
+def synth_quality_check(dev) -> None:
+    """(d) harness/synth_quality.py on the card: the copy model trained
+    (N 96, 200 steps, batch 16, as tests/test_synth_quality.py) and
+    evaluated through the Engine (float32, the plain versions, as the JAX
+    harness evaluates) for original, pq_search, h2o and no_drop_lb, held
+    to that test's gate."""
+    from pqcache_tpu_torch.harness import synth_quality as sq
+    cfg = sq.model_config(96)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params = sq.train(cfg, 96, 200, batch=16, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    t = time.perf_counter()
+    acc = sq.evaluate(cfg, params, ["original", "pq_search", "h2o",
+                                    "no_drop_lb"], 96, eval_n=6, gen=12,
+                      device=dev)
+    log(f"synth_quality [{card()}]: trained in {train_s:.1f} s (200 "
+        f"steps), evaluated "
+        f"in {time.perf_counter() - t:.1f} s: accuracy {acc}")
+    if not (acc["original"] >= 0.95 and acc["pq_search"] >= 0.90
+            and acc["h2o"] <= acc["pq_search"] - 0.10):
+        raise SystemExit(f"synth_quality gate failed: {acc}")
+
+
+def evaluation_phase(dev, params, model) -> dict:
+    """(a) the loader and (b) the evaluation branches' 2-layer
+    kernels-vs-plain self-checks; the model's params are needed there.
+    Returns the launches (the loader's requests and each self-check's
+    kernel-route request)."""
+    total = loader_check(dev, params, model)
+    for engine in EVAL_SELF_CHECKS:
+        got = self_check(dev, params, model, engine,
+                         shared_compress=0.2 if engine != "ip-block"
+                         else SELF_COMPRESS)
+        for k in total:
+            total[k] += got[k]
+    return total
+
+
 BENCH_128K_AFTER = 600    # seconds: past this, the 128k bench run is left out
 
 
@@ -2445,8 +2771,18 @@ def main() -> int:
     for k, v in offload_phase(dev, params, model).items():
         launches[k] += v
     log(f"offload phase done at {time.perf_counter() - t0:.0f} s")
+    eval_launches = evaluation_phase(dev, params, model)
+    for k, v in eval_launches.items():
+        launches[k] += v
     del params
     torch.cuda.empty_cache()
+    evaluated = longbench_cli(dev)
+    synth_quality_check(dev)
+    for k, v in evaluated.items():
+        launches[k] += v
+        evaluated[k] += eval_launches[k]
+    log(f"evaluation phase done at {time.perf_counter() - t0:.0f} s; "
+        f"launches {evaluated}")
     served, served_replayed = serving_phase(dev)
     for k, v in served.items():
         launches[k] += v

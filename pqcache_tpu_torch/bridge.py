@@ -13,6 +13,7 @@ import torch
 
 from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.policies.infllm import InfLLMState
+from pqcache_tpu_torch.policies.sparq import SparqState
 from pqcache_tpu_torch.runtime.state import DenseState, PQState
 
 
@@ -113,3 +114,12 @@ def infllm_state_from_numpy(src, device=None) -> InfLLMState:
         repr_valid=tensor_from_numpy(_field(src, "repr_valid"), device),
         gen_scores=tensor_from_numpy(_field(src, "gen_scores"), device),
     )
+
+
+def sparq_state_from_numpy(src, device=None) -> SparqState:
+    """A single-sequence JAX ``SparqState`` with numpy leaves -> the port's
+    SparqState on ``device`` (cuda unless given)."""
+    device = resolve_device(device)
+    return SparqState(
+        dense=dense_state_from_numpy(_field(src, "dense"), device),
+        mean_v=tensor_from_numpy(_field(src, "mean_v"), device))

@@ -1,11 +1,12 @@
 """Product-quantization math on the single-sequence main path.
 
 Counterpart of the functions of ``pqcache_tpu/core/pq.py`` that the
-``pq_search`` decode paths call: batched Lloyd k-means with empty-cluster
-relocation, nearest-centroid encoding, the euclidean ADC lookup table and
-its gather-sum scores, the uint8 joint code histogram and its block scorer,
-the GQA-reduced per-token and per-block top-k, and the exact top-k recall
-oracle.
+``pq_search`` decode paths call: the MIPS-to-L2 lift of the "ip" metric,
+batched Lloyd k-means with empty-cluster relocation, nearest-centroid
+encoding, the euclidean and ip ADC lookup tables and their gather-sum
+scores, the uint8 joint code histogram and its block scorer, the
+GQA-reduced per-token and per-block top-k of both metrics, and the exact
+top-k recall oracle.
 
 Every selection goes through ``_topk_stable``, which breaks ties toward the
 lower index as ``jax.lax.top_k`` does (and ``approx_max_k`` off the TPU);
@@ -14,6 +15,10 @@ time (a kv head has at most C^S distinct scores).
 
 Conventions: G = kv heads x subvectors (independent PQ subspaces), N points,
 d = subvector dim, C = 2 ** n_subbits centroids.
+
+The "ip" metric clusters keys lifted by one column sqrt(phi - |x|^2), phi
+the largest |x|^2 of each group, and gives queries a zero column: the
+lifted L2 distance ranks candidates by inner product, smaller is better.
 
 k-means++ seeding draws from an explicit ``torch.Generator``: it cannot
 replay ``jax.random``, so parity with the JAX package is held by passing the
@@ -36,6 +41,38 @@ def _topk_stable(x: torch.Tensor, k: int):
     (the order ``jax.lax.top_k`` documents)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+# ---------------------------------------------------------------------------
+# MIPS -> L2 lift (the "ip" metric)
+
+def ip2l2_lift(xb: torch.Tensor, valid_len=None):
+    """Lift points for inner-product search through L2 k-means.
+    xb [G, N, d] -> ([G, N, d+1] f32, phi [G, 1, 1]); points at index >=
+    valid_len do not count toward the per-group largest norm phi."""
+    xb = xb.float()
+    norms = (xb * xb).sum(-1, keepdim=True)                  # [G, N, 1]
+    if valid_len is not None:
+        valid = (torch.arange(xb.shape[-2], device=xb.device)
+                 < int(valid_len))[None, :, None]
+        norms_v = torch.where(valid, norms, 0.0)
+    else:
+        norms_v = norms
+    phi = norms_v.amax(-2, keepdim=True)
+    return torch.cat([xb, torch.sqrt(torch.clamp(phi - norms, min=0.0))],
+                     -1), phi
+
+
+def ip2l2_lift_with_phi(x: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    """Lift new points with a fixed phi. x [G, M, d], phi [G, 1, 1]."""
+    x = x.float()
+    norms = (x * x).sum(-1, keepdim=True)
+    return torch.cat([x, torch.sqrt(torch.clamp(phi - norms, min=0.0))], -1)
+
+
+def lift_query(q: torch.Tensor) -> torch.Tensor:
+    """A zero column appended to queries: [..., d] -> [..., d+1]."""
+    return torch.cat([q, torch.zeros_like(q[..., :1])], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +202,18 @@ def adc_lut_euc(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
         H, S, -1)
 
 
+def adc_lut_ip(q_lifted: torch.Tensor, centroids: torch.Tensor
+               ) -> torch.Tensor:
+    """Squared-L2 lookup table of the "ip" metric. q_lifted [H, S, d+1];
+    centroids [H_kv, S, C, d+1], shared over the GQA group. Returns LUT
+    [H, S, C] f32, LUT[h,s,c] = |q[h,s] - centroids[kv(h),s,c]|^2."""
+    H, S, d = q_lifted.shape
+    H_kv = centroids.shape[0]
+    qg = q_lifted.float().reshape(H_kv, H // H_kv, S, 1, d)
+    diff = qg - centroids.float()[:, None]                   # [H_kv,g,S,C,d]
+    return (diff * diff).sum(-1).reshape(H, S, -1)
+
+
 def adc_gather_scores(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """Gather and sum the LUT by PQ codes. lut [H, S, C]; codes [H_kv, S, T]
     (shared by each GQA group). Returns scores [H, T] f32 with
@@ -259,12 +308,13 @@ def joint_block_mass(lut: torch.Tensor, J: torch.Tensor, *, head_dim: int,
 
 
 # ---------------------------------------------------------------------------
-# GQA-reduced selection from per-token ADC scores (euclidean metric)
+# GQA-reduced selection from per-token ADC scores: "euc" ranks by softmax
+# attention mass summed over the group (larger is better), "ip" by lifted
+# L2 distance summed over the group (smaller is better)
 
-def _later_ip():
-    raise NotImplementedError(
-        "metric='ip' is not ported yet (later slice: non-default pq_search "
-        "branches)")
+def _check_metric(metric: str) -> None:
+    if metric not in ("euc", "ip"):
+        raise ValueError(f"unknown metric {metric}")
 
 
 def _valid_masks(n_valid, H_kv: int, group: int, T: int, device):
@@ -294,24 +344,37 @@ def _group_mass(scores, n_valid, group: int, head_dim: int):
 
 def group_scores(scores: torch.Tensor, n_valid, *, group: int, head_dim: int,
                  metric: str = "euc") -> torch.Tensor:
-    """GQA-reduced per-kv-head candidate importances: the softmax attention
-    mass summed over each group. scores [H, T]; n_valid scalar or [H_kv].
-    Returns [H_kv, T] with invalid candidates at -inf."""
-    if metric != "euc":
-        _later_ip()
-    g, valid_kv = _group_mass(scores, n_valid, group, head_dim)
+    """GQA-reduced per-kv-head candidate importances: euc, the softmax
+    attention mass summed over each group; ip, the negated summed distance.
+    scores [H, T]; n_valid scalar or [H_kv]. Returns [H_kv, T] with invalid
+    candidates at -inf."""
+    _check_metric(metric)
+    if metric == "ip":
+        H, T = scores.shape
+        valid_kv, _ = _valid_masks(n_valid, H // group, group, T,
+                                   scores.device)
+        g = -scores.float().reshape(H // group, group, T).sum(1)
+    else:
+        g, valid_kv = _group_mass(scores, n_valid, group, head_dim)
     return torch.where(valid_kv, g, -torch.inf)
 
 
 def mips_topk(scores: torch.Tensor, n_valid, k: int, *, group: int,
               head_dim: int, metric: str = "euc", approx: bool = False):
-    """GQA-reduced per-token top-k: softmax(scores / sqrt(head_dim)) per q
-    head, summed over each group, largest k (ties to the lower index).
+    """GQA-reduced per-token top-k (ties to the lower index). euc:
+    softmax(scores / sqrt(head_dim)) per q head, summed over each group,
+    largest k; ip: the distances summed over each group, smallest k.
     scores [H, T] raw ADC scores; positions >= n_valid (scalar or [H_kv])
-    are padding. Returns (topk_idx [H_kv, k] int64, group mass [H_kv, T]).
-    ``approx`` gives the exact result, as JAX's approx_max_k off the TPU."""
-    if metric != "euc":
-        _later_ip()
+    are padding. Returns (topk_idx [H_kv, k] int64, group mass or summed
+    distance [H_kv, T]). ``approx`` gives the exact result, as JAX's
+    approx_max_k off the TPU."""
+    _check_metric(metric)
+    if metric == "ip":
+        H, T = scores.shape
+        valid_kv, _ = _valid_masks(n_valid, H // group, group, T,
+                                   scores.device)
+        g = scores.float().reshape(H // group, group, T).sum(1)
+        return _topk_stable(torch.where(valid_kv, -g, -torch.inf), k)[1], g
     g, valid_kv = _group_mass(scores, n_valid, group, head_dim)
     return _topk_stable(torch.where(valid_kv, g, -torch.inf), k)[1], g
 
@@ -320,16 +383,27 @@ def mips_topk_blocks(scores: torch.Tensor, n_valid, k_tokens: int, *,
                      group: int, head_dim: int, block: int,
                      metric: str = "euc", approx: bool = False):
     """Block-granular selection: rank blocks of ``block`` candidates by
-    their total GQA-reduced attention mass and take ceil(k_tokens / block)
-    of those starting below n_valid. Returns (block_idx [H_kv, k_blocks]
-    int64, group mass [H_kv, T])."""
-    if metric != "euc":
-        _later_ip()
+    their total GQA-reduced attention mass (euc) or by the mean negated
+    summed distance over their valid candidates (ip: a sum would favour
+    partly valid boundary blocks), and take ceil(k_tokens / block) of those
+    starting below n_valid. Returns (block_idx [H_kv, k_blocks] int64,
+    group mass or summed distance [H_kv, T])."""
+    _check_metric(metric)
     H, T = scores.shape
     if T % block:
         raise ValueError(f"T={T} must be a multiple of block={block}")
-    g, _ = _group_mass(scores, n_valid, group, head_dim)
-    blk = g.reshape(H // group, T // block, block).sum(-1)
+    H_kv = H // group
+    if metric == "ip":
+        valid_kv, _ = _valid_masks(n_valid, H_kv, group, T, scores.device)
+        g = scores.float().reshape(H_kv, group, T).sum(1)
+        gv = torch.where(valid_kv, -g, 0.0)
+        cnt = valid_kv.float().expand(H_kv, T).reshape(
+            H_kv, T // block, block).sum(-1)
+        blk = (gv.reshape(H_kv, T // block, block).sum(-1)
+               / torch.clamp(cnt, min=1.0))
+    else:
+        g, _ = _group_mass(scores, n_valid, group, head_dim)
+        blk = g.reshape(H_kv, T // block, block).sum(-1)
     return topk_from_block_mass(blk, n_valid, k_tokens, group=1,
                                 block=block), g
 

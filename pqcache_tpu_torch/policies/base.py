@@ -15,8 +15,8 @@ A policy with ``deferred_appends = True`` returns its layer's new K/V as the
 payload and writes every layer's at once in ``commit_appends`` after the
 layer loop; the others write it inside ``decode_attn`` (JAX's
 ``deferred_appends`` switch). The port updates the state in place instead of
-returning a new pytree. Registered: ``original``, ``pq_search``, ``h2o`` and
-``infllm``; ``no_drop_lb`` and ``sparq_f`` are not ported yet.
+returning a new pytree. Registered: ``original``, ``pq_search``, ``h2o``,
+``infllm``, ``no_drop_lb`` and ``sparq_f``.
 """
 
 from __future__ import annotations
@@ -39,8 +39,10 @@ def register_policy(name: str):
 def policy_class(name: str) -> Any:
     import pqcache_tpu_torch.policies.h2o  # noqa: F401
     import pqcache_tpu_torch.policies.infllm  # noqa: F401
+    import pqcache_tpu_torch.policies.no_drop_lb  # noqa: F401
     import pqcache_tpu_torch.policies.original  # noqa: F401
     import pqcache_tpu_torch.policies.pq_search  # noqa: F401
+    import pqcache_tpu_torch.policies.sparq  # noqa: F401
     if name not in _REGISTRY:
         raise KeyError(f"unknown policy {name!r}; the port has "
                        f"{sorted(_REGISTRY)}")

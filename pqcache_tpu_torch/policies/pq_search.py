@@ -20,6 +20,23 @@ Counterpart of ``pqcache_tpu/policies/pq_search.py``:
            ``commit_appends`` encodes and appends every layer's new token and
            joins one token into the histogram, where there is one.
 
+The non-default branches (pq_search.py:92-120, 339-398, 565-615):
+
+  metric="ip"   keys lifted by sqrt(phi - |k|^2) before k-means (phi kept in
+                the state, new keys lifted with it), queries by a zero
+                column; the LUT holds squared L2 distances and the top-k
+                takes the smallest summed distance. The joint histogram and
+                K3 are euclidean only, so the block path scores per token
+                (K5) and ranks blocks by mean distance before K1.
+  gqa=False     each q head takes its own top-k over its own ADC scores and
+                gathers its own rows (per-token gather fetch only).
+  fetch_mode="masked"  a thresholded mask over attention to the whole tail:
+                candidates at or above the k-th group score, the local window
+                and the new token, written into the tail first (its k/v
+                attended raw with an int8 tail). select_block 1 only.
+  The last two write their new token inside ``decode_attn``
+  (``deferred_appends`` False) and have no batched route.
+
 Batch-as-heads (``init_batched_state``, ``insert_slot``,
 ``decode_attn_batched``, ``commit_appends_batched``, ``flush_ring_batched``):
 B sequence slots folded into the kv-head axis, per-slot counters on the
@@ -42,8 +59,6 @@ run selects the same tokens; JAX's XLA route ignores adc_mode and sums the
 f32 LUT, which is adc_mode "v1" here.
 
 The state is written in place (the JAX package returns new pytrees).
-Configurations outside this path raise NotImplementedError naming the slice
-that ports them.
 """
 
 from __future__ import annotations
@@ -57,7 +72,8 @@ from pqcache_tpu_torch.core.budget import Budget
 from pqcache_tpu_torch.ops.adc import (adc_block_scores, adc_scores,
                                        adc_scores_ref)
 from pqcache_tpu_torch.ops.attention_ref import (
-    decode_window_attention_segments, segment_partial)
+    decode_window_attention, decode_window_attention_segments,
+    segment_partial)
 from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
                                               block_topk_attention_ref)
 from pqcache_tpu_torch.ops.dispatch import dense_prefill_attention
@@ -67,15 +83,8 @@ from pqcache_tpu_torch.runtime.stages import stage
 from pqcache_tpu_torch.runtime.state import PQState, make_pq_state, per_head
 
 
-def _later(what: str, slice_: str):
-    raise NotImplementedError(
-        f"pq_search: {what} is not ported yet (later slice: {slice_})")
-
-
 @register_policy("pq_search")
 class PQSearchPolicy:
-    deferred_appends = True
-
     def __init__(self, cfg: EngineConfig, budget: Budget, device=None):
         self.cfg = cfg
         self.budget = budget
@@ -93,12 +102,15 @@ class PQSearchPolicy:
         self.gather_mode = cfg.pq.gather_mode
         self.approx_topk = cfg.pq.approx_topk
         self.check_recall = cfg.pq.check_recall
-        if cfg.pq.metric != "euc":
-            _later("metric='ip'", "non-default pq_search branches")
-        if not cfg.runtime.gqa:
-            _later("gqa=False", "non-default pq_search branches")
-        if cfg.pq.fetch_mode != "gather":
-            _later("fetch_mode='masked'", "non-default pq_search branches")
+        self.metric = cfg.pq.metric
+        self.fetch_mode = cfg.pq.fetch_mode
+        self.gqa = cfg.runtime.gqa
+        if not self.gqa and (self.select_block > 1
+                             or self.fetch_mode != "gather"):
+            raise ValueError("gqa=False supports only per-token gather fetch")
+        # the masked and per-q-head branches append inside decode_attn (the
+        # masked mode's block path too: pq_search.py:108, 339)
+        self.deferred_appends = self.gqa and self.fetch_mode != "masked"
         # the pair fetch needs a 2·block-aligned tail (pq_search.py:72-81);
         # K1 computes the same function with it
         if cfg.pq.fetch_pair and (not 1 < self.select_block <= 128
@@ -111,14 +123,18 @@ class PQSearchPolicy:
         if budget.n_tail_max % self.select_block:
             raise ValueError("n_tail_max must be divisible by select_block")
         self.kv_int8 = cfg.cache.kv_dtype == "int8"
-        # the joint-histogram scorer (pq_search.py:117-120; the port's
-        # appends are always deferred) and the fused ADC block scorer K3
-        # where it does not apply (:315-318)
+        # the joint-histogram scorer (pq_search.py:117-120) and the fused
+        # ADC block scorer K3 where it does not apply (:315-318): euclidean
+        # only, and only with deferred appends
         self.use_jhist = (cfg.pq.scorer == "auto" and self.S == 2
-                          and 1 < self.select_block <= 256)
+                          and self.metric == "euc"
+                          and 1 < self.select_block <= 256
+                          and self.deferred_appends)
         self.fused_blockscore = (self.use_kernel and self.adc_mode != "xla"
                                  and not self.use_jhist
-                                 and self.select_block > 1)
+                                 and self.select_block > 1
+                                 and self.metric == "euc"
+                                 and self.deferred_appends)
         # the batched write-combining ring (pq_search.py:121-132): at most
         # `local` columns, so every ring token is still in the local window
         self.ring_k = (min(cfg.pq.ring_cap, budget.local)
@@ -131,6 +147,22 @@ class PQSearchPolicy:
         H_kv, T, _ = x.shape
         return (x.reshape(H_kv, T, self.S, self.d_sub).transpose(1, 2)
                 .reshape(H_kv * self.S, T, self.d_sub))
+
+    def _lut(self, q_flat, centroids):
+        """ADC lookup table [H, S, C] of queries [H, D] (H may be a folded
+        B·H) against one layer's centroids [H_kv, S, C, d(+1)]."""
+        q_sub = q_flat.reshape(-1, self.S, self.d_sub)
+        if self.metric == "ip":
+            return pq.adc_lut_ip(pq.lift_query(q_sub), centroids)
+        return pq.adc_lut_euc(q_sub, centroids)
+
+    def _encode_groups(self, xg, centroids, phi):
+        """PQ codes (int64) of subvector groups xg [G, T, d] under their
+        codebooks centroids [G, C, d(+1)], lifted with phi [G, 1, 1] for the
+        "ip" metric."""
+        if self.metric == "ip":
+            xg = pq.ip2l2_lift_with_phi(xg, phi)
+        return pq.pq_encode(xg, centroids)
 
     def _split_rows(self, kv_rows, state: PQState, idx: int):
         """Split (and dequantize) tail rows [H_kv, T, 2D] -> (k, v) in the
@@ -207,6 +239,9 @@ class PQSearchPolicy:
         n_valid_tail = int(true_len) - b.sink
 
         xb = self._to_groups(k_tail_src)                     # [G, P-sink, d]
+        phi = None
+        if self.metric == "ip":
+            xb, phi = pq.ip2l2_lift(xb, n_valid_tail)
         gen = torch.Generator(device=k.device).manual_seed(
             self.cfg.pq.kmeans_seed)
         iters = (int(min(3 + P // 4096, 25)) if self.cfg.pq.adaptive_iters
@@ -228,7 +263,7 @@ class PQSearchPolicy:
         state.codes[idx, :, :, :n_src] = codes_src.to(torch.uint8)
         state.centroids[idx] = res.centroids.reshape(self.H_kv, self.S,
                                                      self.C, -1)
-        state.phi[idx] = 0.0
+        state.phi[idx] = 0.0 if phi is None else phi
         n_cand0 = max(n_valid_tail - b.local, 0)
         state.n_cand, state.pos = n_cand0, int(true_len)
         if self.use_jhist:
@@ -253,7 +288,9 @@ class PQSearchPolicy:
                        slot_counts=None, pending=None):
         """Sorted block top-k [H_kv (or B·H_kv), kb] from the joint
         histogram (plus the deferred joins' ``pending`` mass), the fused
-        ADC block scorer K3, or the plain route's gather-sum scores.
+        ADC block scorer K3, or per-token scores: the gather-sum on the
+        euclidean plain route, K5 (``_adc``) for the "ip" metric, which has
+        no block scorer (pq_search.py:330-336, 409-417).
         n_cand: per-kv-head count (int, or [B·H_kv]); slot_counts: a
         batched state's per-slot counts [B], which K3 reads."""
         b, bs = self.budget, self.select_block
@@ -282,11 +319,11 @@ class PQSearchPolicy:
                 blk_mass, n_cand, b.topk, group=self.group, block=bs,
                 approx=self.approx_topk)
         else:
-            # the plain route of the block scorers (pq_search.py:409-417)
+            scores = (self._adc(lut, codes) if self.metric == "ip"
+                      else pq.adc_gather_scores(lut, codes))
             blk_idx, _ = pq.mips_topk_blocks(
-                pq.adc_gather_scores(lut, codes), n_cand, b.topk,
-                group=self.group, head_dim=self.D, block=bs,
-                approx=self.approx_topk)
+                scores, n_cand, b.topk, group=self.group, head_dim=self.D,
+                block=bs, metric=self.metric, approx=self.approx_topk)
         return torch.sort(blk_idx, -1).values
 
     def _gather_tail_rows(self, state: PQState, idx: int, rows):
@@ -304,14 +341,21 @@ class PQSearchPolicy:
 
     def decode_attn(self, state: PQState, idx: int, q, k_new, v_new, shared):
         """q [H, 1, D]; k/v_new [H_kv, 1, D]. Returns (out [H, 1, D],
-        (k_new, v_new) payload for commit_appends)."""
+        (k_new, v_new) payload for commit_appends, or None where the branch
+        appended the token itself)."""
         n_cand = shared["n_cand"]
         H = q.shape[0]
-        lut = pq.adc_lut_euc(q.reshape(H, self.S, self.d_sub),
-                             state.centroids[idx])
+        lut = self._lut(q.reshape(H, self.D), state.centroids[idx])
         if self.select_block == 1:
+            scores = self._adc(lut, state.codes[idx])
+            if self.fetch_mode == "masked":
+                return self._decode_masked(state, idx, q, k_new, v_new,
+                                           n_cand, scores)
+            if not self.gqa:
+                return self._decode_nogqa(state, idx, q, k_new, v_new,
+                                          n_cand, scores)
             return self._decode_tokens(state, idx, q, k_new, v_new, n_cand,
-                                       lut)
+                                       scores)
         blk_idx = self._select_blocks(state, idx, lut, n_cand)
         part = self._retrieve_blocks(state, idx, q.reshape(H, self.D),
                                      blk_idx, n_cand)
@@ -319,13 +363,13 @@ class PQSearchPolicy:
                                    partials=[part])
 
     def _decode_tokens(self, state: PQState, idx: int, q, k_new, v_new,
-                       n_cand: int, lut):
+                       n_cand: int, scores):
         """select_block = 1 (pq_search.py:444-483): per-token top-k over the
         candidates, rows gathered in ascending order (attention does not
         depend on their order; the gather reads memory in order)."""
         topk_idx, _ = pq.mips_topk(
-            self._adc(lut, state.codes[idx]), n_cand, self.budget.topk,
-            group=self.group, head_dim=self.D, approx=self.approx_topk)
+            scores, n_cand, self.budget.topk, group=self.group,
+            head_dim=self.D, metric=self.metric, approx=self.approx_topk)
         topk_idx = torch.sort(topk_idx, -1).values          # [H_kv, topk]
         kv_top = self._gather_tail_rows(state, idx, topk_idx)
         if self.check_recall:
@@ -341,11 +385,73 @@ class PQSearchPolicy:
         return self._finish_decode(state, idx, q, k_new, v_new, n_cand,
                                    top=(k_top, v_top, topk_idx < n_cand))
 
+    def _decode_masked(self, state: PQState, idx: int, q, k_new, v_new,
+                       n_cand: int, scores):
+        """fetch_mode="masked" (pq_search.py:339-398): attention over
+        [sink | the whole tail] under a mask that keeps the candidates
+        whose group score reaches the k-th largest (the exact k-th value:
+        a tie at the threshold attends), the local window and the new
+        token, written into the tail at n_cand + local first. An int8 tail
+        attends the new token's own k/v, not their quantized copy. Reads
+        (and dequantizes) the whole tail each layer-step."""
+        b = self.budget
+        sel = pq.group_scores(scores, n_cand, group=self.group,
+                              head_dim=self.D, metric=self.metric)
+        N = sel.shape[-1]
+        cand_pos = torch.arange(N, device=sel.device)[None, :]
+        kth = torch.topk(sel, b.topk).values[:, -1:]
+        slot = n_cand + b.local
+        tail_mask = (((sel >= kth) & (cand_pos < n_cand))
+                     | ((cand_pos >= n_cand) & (cand_pos <= slot)))
+        self._append_layer(state, idx, k_new, v_new, slot)
+        k_tail, v_tail = self._split_rows(state.kv_tail[idx], state, idx)
+        if self.kv_int8:
+            k_tail[:, slot] = k_new[:, 0].to(k_tail.dtype)
+            v_tail[:, slot] = v_new[:, 0].to(v_tail.dtype)
+        k_win = torch.cat([state.k_sink[idx], k_tail], 1)
+        v_win = torch.cat([state.v_sink[idx], v_tail], 1)
+        win_mask = torch.cat([torch.ones((self.H_kv, b.sink),
+                                         dtype=torch.bool,
+                                         device=sel.device), tail_mask], 1)
+        return decode_window_attention(q, k_win, v_win, win_mask), None
+
+    def _decode_nogqa(self, state: PQState, idx: int, q, k_new, v_new,
+                      n_cand: int, scores):
+        """gqa=False (pq_search.py:565-615): every q head ranks the
+        candidates by its own ADC scores and gathers its own top-k rows
+        from its kv head's tail; the window is assembled per q head."""
+        b = self.budget
+        H = q.shape[0]
+        topk_idx, _ = pq.mips_topk(
+            scores, n_cand, b.topk, group=1, head_dim=self.D,
+            metric=self.metric, approx=self.approx_topk)
+        topk_idx = torch.sort(topk_idx, -1).values           # [H, topk]
+        kv_head = torch.arange(H, device=q.device) // self.group
+        kv_top = state.kv_tail[idx][kv_head[:, None], topk_idx]  # [H, k, 2D]
+        rep = lambda x: x.repeat_interleave(self.group, 0)  # noqa: E731
+        if self.kv_int8:
+            k_top, v_top = quant.dequant_kv(
+                kv_top, rep(state.k_scale[idx]), rep(state.v_scale[idx]),
+                dtype=state.k_sink.dtype)
+        else:
+            k_top, v_top = kv_top[..., :self.D], kv_top[..., self.D:]
+        k_loc, v_loc = self._split_rows(
+            state.kv_tail[idx, :, n_cand:n_cand + b.local], state, idx)
+        dt = state.k_sink.dtype
+        out = decode_window_attention_segments(q, [
+            (rep(state.k_sink[idx]), rep(state.v_sink[idx]), None),
+            (rep(k_loc), rep(v_loc), None),
+            (k_top, v_top, topk_idx < n_cand),
+            (rep(k_new.to(dt)), rep(v_new.to(dt)), None)])
+        self._append_layer(state, idx, k_new, v_new, n_cand + b.local)
+        return out, None
+
     def _finish_decode(self, state: PQState, idx: int, q, k_new, v_new,
                        n_cand: int, partials=(), top=None):
         """[sink | local | top-k | new] segmented attention; the top-k
         tokens come as kernel partials or as a gathered (k, v, mask)
-        segment."""
+        segment. Returns the payload for commit_appends, or appends the
+        token itself where appends are not deferred."""
         b = self.budget
         kv_local = state.kv_tail[idx, :, n_cand:n_cand + b.local]
         k_local, v_local = self._split_rows(kv_local, state, idx)
@@ -356,7 +462,22 @@ class PQSearchPolicy:
             segs.append(top)
         segs.append((k_new.to(dt), v_new.to(dt), None))
         out = decode_window_attention_segments(q, segs, partials=partials)
+        if not self.deferred_appends:
+            self._append_layer(state, idx, k_new, v_new, n_cand + b.local)
+            return out, None
         return out, (k_new[:, 0], v_new[:, 0])
+
+    def _append_layer(self, state: PQState, idx: int, k_new, v_new,
+                      slot: int) -> None:
+        """Encode and write one layer's new token (k/v_new [H_kv, 1, D]) at
+        tail position slot (the in-layer append of the non-deferred
+        branches)."""
+        state.codes[idx, :, :, slot] = self._encode_groups(
+            self._to_groups(k_new),
+            state.centroids[idx].reshape(self.H_kv * self.S, self.C, -1),
+            state.phi[idx]).reshape(self.H_kv, self.S).to(torch.uint8)
+        state.kv_tail[idx, :, slot] = self._tail_kv(
+            k_new, v_new, state, idx)[:, 0]
 
     def commit_appends(self, state: PQState, payloads, shared) -> None:
         """Append all layers' new tokens at once: payloads = (k_new
@@ -368,16 +489,14 @@ class PQSearchPolicy:
         n_cand = shared["n_cand"]
         slot = n_cand + self.budget.local
         L, H_kv, D = k_new.shape
-        xg = self._to_groups(k_new.reshape(L * H_kv, 1, D))
-        cent = state.centroids.reshape(L * H_kv * self.S, self.C, -1)
-        codes = pq.pq_encode(xg, cent).reshape(L, H_kv, self.S)
+        codes = self._encode(state, k_new[:, :, None])[..., 0]
         # [L, H_kv, S], read before the code write (slot == n_cand when
         # local is 0)
         join = (state.codes[:, :, :, n_cand].clone()
                 if state.jhist is not None else None)
         state.kv_tail[:, :, slot] = self._tail_kv(
             k_new[:, :, None], v_new[:, :, None], state)[:, :, 0]
-        state.codes[:, :, :, slot] = codes.to(torch.uint8)
+        state.codes[:, :, :, slot] = codes
         if state.jhist is not None:
             pq.jhist_add_tokens(state.jhist, join, n_cand,
                                 n_centroids=self.C, block=self.select_block)
@@ -411,6 +530,12 @@ class PQSearchPolicy:
             ring_k=self.ring_k, tail_pad=pad)
 
     def init_batched_state(self, B: int, dtype=torch.bfloat16) -> PQState:
+        if not self.deferred_appends:
+            # JAX's batched decode has no masked or per-q-head branch
+            raise ValueError(
+                "batch-as-heads pq_search needs gqa=True and the gather "
+                "fetch; serve fetch_mode='masked' or gqa=False through the "
+                "single-sequence Engine")
         return make_pq_state(self.cfg, self.budget, dtype=dtype,
                              device=self.device, batch=B,
                              **self._batched_alloc())
@@ -466,8 +591,7 @@ class PQSearchPolicy:
         partials, top = [], None
         if self.select_block > 1:
             with stage("scorer+topk"):
-                lut = pq.adc_lut_euc(qf.reshape(-1, self.S, self.d_sub),
-                                     state.centroids[idx])   # [B·H, S, C]
+                lut = self._lut(qf, state.centroids[idx])   # [B·H, S, C]
                 pending = (self._pending_mass(state, idx, lut, shared)
                            if self._jhist_defer(state) else None)
                 blk_idx = self._select_blocks(state, idx, lut, n_cand_h,
@@ -482,11 +606,10 @@ class PQSearchPolicy:
                     win_max=b.local))
         else:
             with stage("scorer+topk"):
-                lut = pq.adc_lut_euc(qf.reshape(-1, self.S, self.d_sub),
-                                     state.centroids[idx])
+                lut = self._lut(qf, state.centroids[idx])
                 topk_idx, _ = pq.mips_topk(
                     self._adc(lut, state.codes[idx]), n_cand_h, b.topk,
-                    group=self.group, head_dim=self.D,
+                    group=self.group, head_dim=self.D, metric=self.metric,
                     approx=self.approx_topk)
                 topk_idx = torch.sort(topk_idx, -1).values   # [B·H_kv, k]
             with stage("gather"):
@@ -614,10 +737,12 @@ class PQSearchPolicy:
         """PQ codes [L, Hf, S, T] uint8 of keys [L, Hf, T, D] under each
         (layer, head)'s codebooks."""
         L, Hf, T, D = keys.shape
-        xg = self._to_groups(keys.reshape(L * Hf, T, D))
-        cent = state.centroids.reshape(L * Hf * self.S, self.C, -1)
-        return pq.pq_encode(xg, cent).reshape(L, Hf, self.S, T).to(
-            torch.uint8)
+        G = L * Hf * self.S
+        return self._encode_groups(
+            self._to_groups(keys.reshape(L * Hf, T, D)),
+            state.centroids.reshape(G, self.C, -1),
+            state.phi.reshape(G, 1, 1)).reshape(L, Hf, self.S, T).to(
+                torch.uint8)
 
     def commit_appends_batched(self, state: PQState, payloads,
                                shared) -> None:

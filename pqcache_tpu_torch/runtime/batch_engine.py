@@ -121,7 +121,9 @@ class BatchEngine:
         if not hasattr(policy_class(cfg.runtime.policy),
                        "decode_attn_batched"):
             raise ValueError(
-                f"policy {cfg.runtime.policy!r} has no batch-as-heads decode")
+                f"policy {cfg.runtime.policy!r} has no batch-as-heads decode; "
+                f"serve it through the single-sequence "
+                f"runtime/generate.Engine")
         self.cfg = cfg
         self.params = params_to(params, self.device, dtype)
         self.B = batch_size

@@ -2,9 +2,10 @@
 
 Counterpart of ``pqcache_tpu/runtime/generate.py::Engine`` for one sequence
 on one device. It left-pads the prompt to a bucket length, runs the
-configured policy (``pq_search``, ``original``, ``h2o`` or ``infllm``;
-``pq_search`` falls back to ``original`` when its budgets are degenerate
-for the prompt, the others pass straight through), runs one prefill and
+configured policy (``pq_search``, ``original``, ``h2o``, ``infllm``,
+``no_drop_lb`` or ``sparq_f``; ``pq_search`` falls back to ``original``
+when its budgets are degenerate for the prompt, the others pass straight
+through), runs one prefill and
 then decodes greedily. With ``RuntimeConfig.prefill_chunk`` a long prompt
 is prefilled in chunks (``llama.prefill_chunked``, the policies with a
 ``prefill_tail``); ``prefill_prefix`` snapshots a shared prompt prefix that

@@ -118,6 +118,8 @@ class BatchOffloadEngine:
             dst = getattr(bst, name)
             if dst is not None:
                 dst[:, hs] = getattr(sst, name)
+        bst.phi[:, slot * self.H_kv * self.S:(slot + 1) * self.H_kv
+                * self.S] = sst.phi
         bst.tail[:, hs] = rem.to(bst.tail.dtype)
         bst.n_cand[slot] = sst.n_cand
         bst.ring_ptr[slot] = 0
@@ -130,7 +132,6 @@ class BatchOffloadEngine:
         cos/sin [B, D/2]; n_sel_h [B·H_kv]. Returns (q [B·H, 1, D], k_new,
         v_new [B·H_kv, D], blk [B·H_kv, kb] slot-local ids, ascending)."""
         m = self.cfg.model
-        b = self.budget
         st = self.bstate
         B = hidden.shape[0]
         H, Hk, D = m.num_heads, m.num_kv_heads, m.head_dim
@@ -140,18 +141,9 @@ class BatchOffloadEngine:
         q = llama._apply_rope_batched(yq.reshape(B, H, D), cos, sin)
         k_new = llama._apply_rope_batched(yk.reshape(B, Hk, D), cos, sin)
         v_new = yv.reshape(B, Hk, D)
-        lut = pq.adc_lut_euc(q.reshape(B * H, self.S, D // self.S),
-                             st.centroids[idx])
-        if self.use_jhist:
-            mass = pq.joint_block_mass(lut, st.jhist[idx], head_dim=D)
-            blk = pq.topk_from_block_mass(mass, n_sel_h, b.topk,
-                                          group=m.num_groups, block=self.bs)
-        else:
-            blk, _ = pq.mips_topk_blocks(
-                pq.adc_gather_scores(lut, st.codes[idx]), n_sel_h, b.topk,
-                group=m.num_groups, head_dim=D, block=self.bs)
+        blk = self._se._select(st, idx, q.reshape(B * H, D), n_sel_h)
         return (q.reshape(B * H, 1, D), k_new.reshape(B * Hk, D),
-                v_new.reshape(B * Hk, D), torch.sort(blk, -1).values)
+                v_new.reshape(B * Hk, D), blk)
 
     def _attn_tail_b(self, idx: int, hidden, q, k_new, v_new, blk_idx, sel,
                      step: dict):

@@ -31,7 +31,10 @@ tier (``runtime/offload_batch.py``) advances one per decode step.
 Sampling takes its Gumbel noise from a source with ``fill_`` (a
 ``core/sampling.GumbelNoise`` seeded with ``sample_seed`` unless the caller
 passes one): one draw for the first token, one per decode step.
-``metric="ip"`` raises, as the port's ``pq_search`` does.
+With ``metric="ip"`` the codebooks cluster keys lifted by sqrt(phi -
+|k|^2) (phi kept per layer and group, evicted keys lifted with it) and the
+blocks are ranked by mean lifted distance of ADC gather-sum scores: the
+joint histogram is euclidean only (offload_engine.py:131, 170, 324-338).
 """
 
 from __future__ import annotations
@@ -73,7 +76,8 @@ class OffloadPQState:
     k_local: torch.Tensor       # [L, H_kv, local, D] ring
     v_local: torch.Tensor
     codes: torch.Tensor         # [L, H_kv, S, N_tail] uint8
-    centroids: torch.Tensor     # [L, H_kv, S, C, d] f32
+    centroids: torch.Tensor     # [L, H_kv, S, C, d(+1 for "ip")] f32
+    phi: torch.Tensor           # [L, H_kv*S, 1, 1] f32 ("ip"; else zeros)
     n_cand: object
     ring_ptr: object
     pos: object
@@ -98,8 +102,7 @@ class OffloadEngine:
                              f"{cfg.runtime.policy!r}")
         if cfg.cache.kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"unsupported kv_dtype {cfg.cache.kv_dtype}")
-        if cfg.pq.metric != "euc":
-            pq._later_ip()
+        self.metric = cfg.pq.metric
         self.use_kernel = use_kernels(cfg)
         self.kv_int8 = cfg.cache.kv_dtype == "int8"
         self.cfg = cfg
@@ -114,7 +117,7 @@ class OffloadEngine:
         # the joint-histogram block scorer where it applies (S = 2, block
         # at most 256, the euclidean metric), else ADC gather-sum scores
         self.use_jhist = (cfg.pq.scorer == "auto" and self.S == 2
-                          and self.bs <= 256)
+                          and self.metric == "euc" and self.bs <= 256)
         self.sampler = make_sampler(cfg.runtime.temperature,
                                     cfg.runtime.top_k, cfg.runtime.top_p)
         self.stale = cfg.cache.stale_select
@@ -143,8 +146,10 @@ class OffloadEngine:
             k_local=z(L, Hr, b.local, D), v_local=z(L, Hr, b.local, D),
             codes=torch.zeros((L, Hr, self.S, b.n_tail_max),
                               dtype=torch.uint8, device=dev),
-            centroids=torch.zeros((L, Hr, self.S, self.C, self.d_sub),
-                                  device=dev),
+            centroids=torch.zeros(
+                (L, Hr, self.S, self.C,
+                 self.d_sub + (self.metric == "ip")), device=dev),
+            phi=torch.zeros((L, Hr * self.S, 1, 1), device=dev),
             n_cand=0, ring_ptr=0, pos=0,
             jhist=(torch.zeros((L, Hr, b.n_tail_max // self.bs,
                                 self.C * self.C), dtype=pq.jhist_dtype(
@@ -175,9 +180,12 @@ class OffloadEngine:
         v_r = torch.roll(v, -int(pad_len), dims=1)
         k_tail, v_tail = k_r[:, b.sink:], v_r[:, b.sink:]
         n_valid_tail = int(true_len) - b.sink
+        xb = self._to_groups(k_tail)
+        if self.metric == "ip":
+            xb, st.phi[idx] = pq.ip2l2_lift(xb, n_valid_tail)
         gen = torch.Generator(device=k.device).manual_seed(
             self.cfg.pq.kmeans_seed)
-        res = pq.kmeans(self._to_groups(k_tail), self.C,
+        res = pq.kmeans(xb, self.C,
                         iters=self.cfg.pq.kmeans_iters,
                         valid_len=n_valid_tail, generator=gen)
         H_kv = k.shape[0]
@@ -280,9 +288,20 @@ class OffloadEngine:
         yq, yk, yv = llama._products(h_norm, lp, ("wq", "wk", "wv"))
         k_new, v_new = llama._rope_kv(m, yk, yv, cos, sin)
         q = llama._rope_q(m, yq, cos, sin)
-        H = q.shape[0]
-        lut = pq.adc_lut_euc(q.reshape(H, self.S, self.d_sub),
-                             st.centroids[idx])
+        return q, k_new, v_new, self._select(st, idx, q.reshape(
+            q.shape[0], -1), n_sel)
+
+    def _select(self, st: OffloadPQState, idx: int, q_flat, n_sel):
+        """Block top-k of layer idx, ascending: [Hr, kb] for queries q_flat
+        [Hr·g, D] (Hr a folded B·H_kv in the batched tier) and n_sel, the
+        retrievable candidates (int, or [Hr])."""
+        m = self.cfg.model
+        b = self.budget
+        q_sub = q_flat.reshape(q_flat.shape[0], self.S, self.d_sub)
+        if self.metric == "ip":
+            lut = pq.adc_lut_ip(pq.lift_query(q_sub), st.centroids[idx])
+        else:
+            lut = pq.adc_lut_euc(q_sub, st.centroids[idx])
         if self.use_jhist:
             mass = pq.joint_block_mass(lut, st.jhist[idx],
                                        head_dim=m.head_dim)
@@ -291,8 +310,9 @@ class OffloadEngine:
         else:
             blk, _ = pq.mips_topk_blocks(
                 pq.adc_gather_scores(lut, st.codes[idx]), n_sel, b.topk,
-                group=m.num_groups, head_dim=m.head_dim, block=self.bs)
-        return q, k_new, v_new, torch.sort(blk, -1).values
+                group=m.num_groups, head_dim=m.head_dim, block=self.bs,
+                metric=self.metric)
+        return torch.sort(blk, -1).values
 
     def _window_rows(self, st, idx, blocks, blk_idx, slots, miss_pos,
                      n_sel):
@@ -327,8 +347,10 @@ class OffloadEngine:
         """PQ codes [Hr, S] of evicted keys ev_k [Hr, 1, D]."""
         Hr = ev_k.shape[0]
         cent = st.centroids[idx].reshape(Hr * self.S, self.C, -1)
-        return pq.pq_encode(self._to_groups(ev_k), cent).reshape(
-            Hr, self.S).to(torch.uint8)
+        xg = self._to_groups(ev_k)
+        if self.metric == "ip":
+            xg = pq.ip2l2_lift_with_phi(xg, st.phi[idx])
+        return pq.pq_encode(xg, cent).reshape(Hr, self.S).to(torch.uint8)
 
     def _evicted_row(self, st, idx, ev_k, ev_v):
         """The store row [Hr, 2D] of evicted k/v [Hr, 1, D]."""

@@ -389,6 +389,91 @@ def test_engine_kernels_match_plain_versions(dev, pq_kw):
     assert toks["auto"][0] == toks["xla"][0]
 
 
+# the evaluation path's branches: (PQConfig overrides, RuntimeConfig
+# overrides, kv tail, the decode kernels each layer-step launches)
+BRANCH_CASES = {
+    "ip-block": (dict(metric="ip", select_block=64), {}, "bf16",
+                 {"adc_scores", "block_topk_attention"}),
+    "ip-token": (dict(metric="ip", select_block=1), {}, "int8",
+                 {"adc_scores"}),
+    "nogqa": (dict(select_block=1), dict(gqa=False), "bf16",
+              {"adc_scores"}),
+    "masked": (dict(select_block=1, fetch_mode="masked"), {}, "bf16",
+               {"adc_scores"}),
+    "masked-int8": (dict(select_block=1, fetch_mode="masked"), {}, "int8",
+                    {"adc_scores"}),
+    "no_drop_lb": ({}, dict(policy="no_drop_lb"), "bf16", set()),
+    "sparq_f": ({}, dict(policy="sparq_f", sparq_topr=16), "bf16", set()),
+}
+_DECODE_KERNELS = {"adc_scores": adc_scores,
+                   "block_topk_attention": block_topk_attention,
+                   "gather_rows": gather_rows,
+                   "adc_block_scores": adc_block_scores}
+
+
+@pytest.mark.parametrize("case", list(BRANCH_CASES))
+def test_branch_kernels_match_plain_versions(dev, case):
+    # kernels="auto" against kernels="xla" on the card: the prefill logits
+    # (K2 against its plain version), then 6 decode steps each taken from
+    # one shared state (the kernel route's, copied for the plain route) fed
+    # the same tokens, logits within 2% of the largest |logit|: K5 sums the
+    # same LUT entries as its plain version (the same selections), K1 is
+    # float32 against float32, and their outputs round to bf16 in another
+    # order. Each layer-step launches exactly the branch's kernels.
+    import copy
+    pq_kw, rt, kv, kernels = BRANCH_CASES[case]
+    cfg = config.tiny_model_config(hidden_size=256, num_heads=4,
+                                   num_kv_heads=2, head_dim=64,
+                                   intermediate_size=512, num_layers=2)
+    params = llama.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+
+    def ecfg(kn):
+        return config.EngineConfig(
+            model=cfg, pq=config.PQConfig(n_subbits=4, kmeans_iters=4,
+                                          **pq_kw),
+            budget=config.BudgetConfig(compress_ratio=0.3, sink_size=4),
+            cache=config.CacheConfig(kv_dtype=kv),
+            runtime=config.RuntimeConfig(**dict(dict(
+                prefill_bucket=256, max_new_tokens=8, max_seq_len=4096,
+                kernels=kn), **rt)))
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=1500)
+    P, pad = 1536, 36
+    toks = torch.zeros(P, dtype=torch.long, device=dev)
+    toks[pad:] = torch.from_numpy(ids).to(dev)
+    budget = compute_budget(ecfg("auto").budget, P, 8)
+    pols = {kn: get_policy(ecfg(kn), budget, device=dev)
+            for kn in ("auto", "xla")}
+    logits = {}
+    for kn, pol in pols.items():
+        st = pol.init_state(torch.bfloat16)
+        n0 = flash_attention.launches
+        logits[kn] = llama.prefill(cfg, params, pol, st, toks, pad, len(ids))
+        assert flash_attention.launches == n0 + cfg.num_layers * (
+            kn == "auto")
+        if kn == "auto":
+            state = st
+    scale = logits["xla"].abs().max()
+    assert (logits["auto"] - logits["xla"]).abs().max() <= 0.02 * scale
+    tok = int(logits["xla"].argmax())
+    for i in range(6):
+        plain_state = copy.deepcopy(state)
+        n0 = {k: f.launches for k, f in _DECODE_KERNELS.items()}
+        la = llama.decode_step(cfg, params, pols["auto"], state,
+                               torch.full((), tok, device=dev), len(ids) + i)
+        assert {k: f.launches - n0[k] for k, f in _DECODE_KERNELS.items()} \
+            == {k: cfg.num_layers * (k in kernels) for k in _DECODE_KERNELS}
+        lx = llama.decode_step(cfg, params, pols["xla"], plain_state,
+                               torch.full((), tok, device=dev), len(ids) + i)
+        assert (la - lx).abs().max() <= 0.02 * lx.abs().max(), i
+        tok = int(lx.argmax())
+    # end to end: the first token comes from the prefill logits
+    got = {kn: Engine(ecfg(kn), params, device=dev).generate(ids, 8)
+           for kn in pols}
+    assert got["auto"].policy_name == rt.get("policy", "pq_search")
+    assert got["auto"].tokens[0] == got["xla"].tokens[0]
+
+
 @pytest.mark.parametrize("policy,score_func", [
     ("h2o", "sum"), ("h2o", "max"), ("infllm", "sum")])
 def test_score_policies_kernels_match_plain(dev, policy, score_func):

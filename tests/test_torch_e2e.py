@@ -347,14 +347,21 @@ def test_engine_device_default_and_unported_options(model):
     assert Engine(ecfg_c, params, dtype=torch.float32,
                   device="cpu").generate(ids, 8).tokens == want.tokens
     budget = compute_budget(ecfg.budget, 1024, 16)
-    # select_block 1 and the kernel scorer now serve; these still raise
+    # the non-default branches are ported: ip, the masked fetch and gqa=False
+    # build their policies (tests/test_torch_pq_branches.py holds them to
+    # JAX); gqa=False still refuses the block path, as JAX does
     for section, kw in (("pq", dict(metric="ip", select_block=16)),
                         ("pq", dict(fetch_mode="masked")),
                         ("runtime", dict(gqa=False))):
-        bad = dataclasses.replace(ecfg, **{section: dataclasses.replace(
+        ok = dataclasses.replace(ecfg, **{section: dataclasses.replace(
             getattr(ecfg, section), **kw)})
-        with pytest.raises(NotImplementedError):
-            get_policy(bad, budget, device="cpu")
+        pol = get_policy(ok, budget, device="cpu")
+        assert pol.deferred_appends == (section == "pq" and "metric" in kw)
+    bad = dataclasses.replace(
+        ecfg, pq=dataclasses.replace(ecfg.pq, select_block=16),
+        runtime=dataclasses.replace(ecfg.runtime, gqa=False))
+    with pytest.raises(ValueError, match="gqa=False"):
+        get_policy(bad, budget, device="cpu")
     for kw in (dict(select_block=1), dict(select_block=16, scorer="kernel"),
                dict(select_block=512, scorer="kernel")):
         ok = dataclasses.replace(ecfg, pq=dataclasses.replace(ecfg.pq, **kw))

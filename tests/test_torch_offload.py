@@ -230,10 +230,14 @@ def test_engine_routes_offload_to_the_tier(model, jax_kmeans_init):
     with pytest.raises(ValueError, match="BatchOffloadEngine"):
         BatchEngine(ecfg, params, batch_size=2, prefill_len=320,
                     max_new_tokens=8, dtype=torch.float32, device="cpu")
-    bad = dataclasses.replace(ecfg, pq=dataclasses.replace(ecfg.pq,
-                                                           metric="ip"))
-    with pytest.raises(NotImplementedError):
-        OffloadEngine(bad, params, dtype=torch.float32, device="cpu")
+    # the ip metric is ported (tests/test_torch_pq_branches.py holds its
+    # tokens to JAX's): the tier routes it too, without a histogram
+    ip = dataclasses.replace(ecfg, pq=dataclasses.replace(ecfg.pq,
+                                                          metric="ip"))
+    ip_eng = Engine(ip, params, dtype=torch.float32, device="cpu")
+    res = ip_eng.generate(ids, 4)
+    assert res.policy_name == "pq_search_offload" and len(res.tokens) == 4
+    assert not ip_eng._off_engine.use_jhist
 
 
 def test_offload_matches_device_tier_engine(model):
