@@ -54,7 +54,18 @@ path and per token, gqa=False and the masked fetch; no_drop_lb and
 sparq_f), the LongBench command line at ``random:llama-3.1`` (32 layers)
 on two ~8k-token synthetic passage_count samples for seven policies, a
 resume that writes nothing and ``score``, and synth_quality (the copy
-model trained on the card and held to its quality gate). The self-checks
+model trained on the card and held to its quality gate). The parallel
+phase runs the tensor-, data- and sequence-parallel engines with ranks as
+processes that share the card over gloo (``parallel/launch.py``): K1, K2
+and K3 at a tp 2 shard's shapes against their plain versions;
+``TPEngine`` tp 2 on a 32k prompt, ``generate_ring`` sp 2, the K3 and K5
+decode arms, ``BatchTPEngine`` dp 2 x tp 2 over 4 slots and
+``ShardedOffloadEngine`` tp 2, each held to its single-process twin
+teacher-forced at budget 1.0, a planted fault that the same hold must
+reject, and TPEngine's decode at budget 0.2 from the single process's
+prefill state (bf16, and float32 on the plain route), with each rank's
+launches, collectives (route, calls, bytes; host seconds in the one
+timed run) and peak memory. The self-checks
 hold greedy tokens at every step, teacher-forced, a parting allowed only
 at a near tie, and count each route's launches. Then the port's
 bench driver runs at bench.py's defaults (and at its 128k chunked-prefill
@@ -97,11 +108,12 @@ from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
 from pqcache_tpu_torch.ops.flash_attention import flash_attention
 from pqcache_tpu_torch.ops.flash_scores import flash_scores
 from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
-from pqcache_tpu_torch.ops.w8 import w8_matmul
+from pqcache_tpu_torch.parallel import workers
 from pqcache_tpu_torch.policies import h2o, infllm
 from pqcache_tpu_torch.policies.base import get_policy
 from pqcache_tpu_torch.runtime import offload_engine, stages
-from pqcache_tpu_torch.runtime.generate import Engine, bucket_length
+from pqcache_tpu_torch.runtime.generate import (Engine, bucket_length,
+                                                params_to)
 from pqcache_tpu_torch.runtime.offload_engine import OffloadEngine
 from pqcache_tpu_torch.runtime.state import per_head
 
@@ -965,11 +977,9 @@ def w8_step_entry(dev, worst: float) -> dict:
 # ---------------------------------------------------------------------------
 # The main path through Engine.generate
 
-KERNELS = {"flash_attention": flash_attention,
-           "flash_scores": flash_scores,
-           "block_topk_attention": block_topk_attention,
-           "adc_scores": adc_scores, "adc_block_scores": adc_block_scores,
-           "gather_rows": gather_rows, "w8_matmul": w8_matmul}
+# each kernel's wrapper by name, and the launch counts the wrappers keep
+KERNELS = workers.KERNELS
+_counts, _zero_counts = workers._counts, workers._zero_counts
 
 
 def engine_cfg(model, engine: str, kernels: str = "auto",
@@ -1192,8 +1202,8 @@ def _policy(model, engine: str, kernels: str, n_prompt: int, dev,
                                           cfg.runtime.max_new_tokens), dev), P
 
 
-def _prefill(model, params, pol, P, ids, dev):
-    state = pol.init_state(torch.bfloat16)
+def _prefill(model, params, pol, P, ids, dev, dtype=torch.bfloat16):
+    state = pol.init_state(dtype)
     toks = np.zeros(P, np.int64)
     toks[P - len(ids):] = ids
     logits = llama.prefill(model, params, pol, state,
@@ -1518,15 +1528,6 @@ def batched_cfg(model, policy: str, kernels: str = "auto",
         runtime=config.RuntimeConfig(
             policy=policy, prefill_bucket=1024, max_new_tokens=BATCH_STEPS,
             max_seq_len=BATCH_CTX + 2048, kernels=kernels))
-
-
-def _counts() -> dict:
-    return {k: fn.launches for k, fn in KERNELS.items()}
-
-
-def _zero_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
 
 
 def _profile(run, steps: int) -> dict:
@@ -2406,6 +2407,447 @@ def offload_phase(dev, params, model) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The parallel phase: the tensor-, data- and sequence-parallel engines with
+# ranks as processes that share the one card over gloo (NCCL refuses two
+# ranks on one device), so its times are the path's overheads, not a
+# parallel speed-up
+
+PAR_CTX = 32768          # (a) TPEngine tp 2 and (c) generate_ring sp 2
+PAR_GEN = 32
+PAR_BATCH_CTX = 8192     # (b) BatchTPEngine dp 2 x tp 2, PAR_SLOTS slots
+PAR_SLOTS = 4
+PAR_ARM_CTX = 8192       # the K3 and K5 arms of TPEngine tp 2
+PAR_ARM_GEN = 8
+PAR_OFFLOAD_B = 2        # (d) ShardedOffloadEngine tp 2, B 2 of 8k prompts
+PAR_OFFLOAD_CTX = 8192
+# A rank all-reduces each row-parallel product's bf16 partials, so every
+# layer rounds twice more than on one device (and the ring prefill attends
+# in float32 where K2 rounds P to bf16): at 8 layers the same function's
+# logits part by ~0.1, at 2 layers by ~0.02 (PERF.md). The offload twin's
+# limit; the planted fault (_swap_wo: each rank's heads through the other
+# shard's wo rows) must breach it, and its reading is printed.
+PAR_LOGIT_TOL = OFFLOAD_LOGIT_TOL
+
+
+def par_cfg(model, P: int, gen: int, compress: float = 0.2, **pq_kw):
+    """The batched path's pq_search configuration (``batched_cfg``:
+    select_block 256, the joint-histogram scorer, an int8 tail, budget
+    0.2 / 0.5 / sink 32), reserving ``gen`` new tokens past a P-token
+    prompt: the single-process references and the ranks share its
+    budget."""
+    cfg = batched_cfg(model, "pq_search", compress=compress, **pq_kw)
+    return dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, max_new_tokens=gen, max_seq_len=P + 2048))
+
+
+def _ranks(fn, n: int, *args, **kwargs) -> list:
+    from pqcache_tpu_torch.parallel import launch
+    return launch.launch(fn, n, backend="gloo", devices=["cuda:0"] * n,
+                         args=args, kwargs=kwargs, timeout=900)
+
+
+def _rank_counts(what: str, res: list, want: set, total: dict) -> None:
+    """Each rank's launches of the run it reports: every kernel of
+    ``want`` launched, no other; added to ``total``."""
+    for r in res:
+        got = r["launches"]
+        for k, v in got.items():
+            total[k] += v
+        if any((got[k] > 0) != (k in want) for k in got):
+            raise SystemExit(f"parallel {what}: rank {r['rank']} launched "
+                             f"{got}, expected exactly {sorted(want)}")
+    log(f"parallel {what}: launches per rank "
+        f"{[{k: v for k, v in r['launches'].items() if v} for r in res]}")
+
+
+def _rank_lines(what: str, res: list, timed: bool = False) -> None:
+    """Each rank's peak device memory and its collectives' routes, calls
+    and bytes; their host seconds only where the run timed them."""
+    for r in res:
+        peak = r["peak_bytes"]
+        log(f"parallel {what} rank {r['rank']}: peak "
+            + (f"{peak / 2**30:.2f} GiB" if peak is not None
+               else "not measured") + "; collectives "
+            + json.dumps({g: {op: {k: (round(v, 4) if isinstance(v, float)
+                                       else v) for k, v in st.items()
+                                   if timed or k != "seconds"}
+                              for op, st in ops.items()}
+                          for g, ops in r["comm"].items()}))
+
+
+def _tp_line(what: str, r: dict, timed: bool = False) -> None:
+    """TTFT and ms/token of a run; with ``timed`` (the collectives timed
+    on the host clock, the device synchronised around each: a measurement
+    run whose own times are instrumented) the collectives' share."""
+    t = r["timings"]
+    d = t.get("decode_all_reduce", {})
+    steps = max(t["steps"], 1)
+    line = (f"parallel {what}: TTFT {t['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{t['decode_s'] / steps * 1e3:.2f} ms/token over {t['steps']} "
+            f"steps; decode all-reduce {d.get('bytes', 0) / steps:.0f} B "
+            f"and {d.get('calls', 0) / steps:.0f} calls a step")
+    if timed:
+        line += (f"; instrumented: {d.get('seconds', 0.0) / max(t['decode_s'], 1e-9):.1%}"
+                 f" of the decode in collectives on the host clock (device "
+                 f"synchronised around each)")
+    log(line)
+
+
+def _hold_par(what: str, toks: dict, own, got,
+              limit=PAR_LOGIT_TOL) -> None:
+    """A parallel run against its single-process reference, both fed the
+    reference's tokens (own[i], got[i]: the logits before token i): every
+    step within ``limit`` and each greedy parting at a near tie
+    (``_check_greedy``); ``toks``, the free-running tokens beside the
+    reference's, printed. The bf16 runs are held at budget 1.0, where the
+    top-k takes every candidate: at budget 0.2 the two runs train their
+    codebooks on keys that differ in bf16 rounding, and a block top-k of
+    random weights is a near tie, so their selections part and the logits
+    with them (PERF.md); ``par_tp_from_state`` holds budget 0.2 from one
+    prefill state."""
+    _check_greedy(f"parallel {what}", toks, {"xla": own, "auto": got},
+                  limit=limit)
+
+
+def _reject_par(what: str, own, got) -> None:
+    """The negative control: the hold must reject a planted fault."""
+    parts, diff, breach = _verdict(_step_diffs(got, own), PAR_LOGIT_TOL)
+    log(f"parallel {what}: largest |logit diff| {diff:.4f} (tol "
+        f"{PAR_LOGIT_TOL}), rejected: {breach}")
+    if breach is None:
+        raise SystemExit(f"parallel {what}: the hold accepted a planted "
+                         f"fault")
+
+
+def _forced_logits(model, params, cfg, ids, P, toks, dev,
+                   dtype=torch.bfloat16):
+    """The single-process teacher-forced logits under cfg: the prefill's,
+    then after each of toks[:-1]."""
+    pol = get_policy(cfg, compute_budget(cfg.budget, P, cfg.runtime
+                                         .max_new_tokens), dev)
+    lg, st = _prefill(model, params, pol, P, ids, dev, dtype)
+    return torch.cat([lg[None], _decode_forced(model, params, pol, st,
+                                               len(ids), toks, dev)])
+
+
+def par_tp(dev, params, model, total: dict) -> None:
+    """(a) TPEngine tp 2 on one 32k prompt against the single-process
+    Engine (``_hold_par``); (c) generate_ring sp 2 held against (a)'s
+    generate the same way; the K3 and K5 arms of the decode at 8k and
+    budget 1.0, and the K3 arm with the planted fault (``_swap_wo``), which
+    the hold must reject; (a) once more with the collectives timed. One
+    launch of two ranks runs the six."""
+    cfg = par_cfg(model, PAR_CTX, PAR_GEN)
+    cfg1 = par_cfg(model, PAR_CTX, PAR_GEN, compress=1.0)
+    ids = np.random.default_rng(SEED + 30).integers(0, model.vocab_size,
+                                                    PAR_CTX)
+    torch.cuda.reset_peak_memory_stats()
+    ref = Engine(cfg, params, device=dev).generate(ids, PAR_GEN)
+    log(f"parallel (a) single-process Engine: TTFT "
+        f"{ref.prefill_seconds * 1e3:.1f} ms, decode "
+        f"{ref.decode_seconds / (PAR_GEN - 1) * 1e3:.2f} ms/token, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    forced = Engine(cfg1, params, device=dev).generate(ids, PAR_GEN).tokens
+    own = _forced_logits(model, params, cfg1, ids, PAR_CTX, forced, dev)
+    par_tp_from_state(dev, params, model, cfg, ids, ref.tokens)
+    # the K3 and K5 arms of the decode under tp 2 at 8k, budget 1.0 (free
+    # running and teacher-forced alike)
+    arms = {"k3": dict(scorer="kernel"),
+            "token": dict(select_block=1, adc_mode="v2")}
+    ids8 = ids[:PAR_ARM_CTX - 500]
+    runs = [dict(cfg=cfg, prompt=ids, prefill_len=PAR_CTX, max_new=PAR_GEN,
+                 ring=ring, forced=forced, forced_cfg=cfg1)
+            for ring in (False, True)]
+    refs, owns = [], []
+    for kw in arms.values():
+        c = par_cfg(model, PAR_ARM_CTX, PAR_ARM_GEN, compress=1.0, **kw)
+        r = Engine(c, params, device=dev).generate(ids8, PAR_ARM_GEN).tokens
+        owns.append(_forced_logits(model, params, c, ids8, PAR_ARM_CTX, r,
+                                   dev))
+        refs.append(r)
+        runs.append(dict(cfg=c, prompt=ids8, prefill_len=PAR_ARM_CTX,
+                         max_new=PAR_ARM_GEN, forced=r))
+    runs.append(dict(runs[2], fault=True))
+    runs.append(dict(cfg=cfg, prompt=ids, prefill_len=PAR_CTX,
+                     max_new=PAR_GEN, timed=True))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = _ranks(workers.tp_runs, 2, SEED, runs, dtype=torch.bfloat16)
+    log(f"parallel (a), (c), the arms, the fault and the timed (a): "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start-up")
+    res, rr = [r[0] for r in out], [r[1] for r in out]
+    _tp_line("(a) TPEngine tp 2", res[0])
+    _tp_line("(a) TPEngine tp 2, collectives timed", out[0][5], timed=True)
+    _rank_lines("(a)", res)
+    _rank_lines("(a) timed", [r[5] for r in out], timed=True)
+    _rank_counts("(a)", res, {"flash_attention", "block_topk_attention"},
+                 total)
+    tp_logits = res[0]["forced_logits"].to(dev)
+    _hold_par("(a) TPEngine tp 2 against the single-process Engine",
+              {"xla": ref.tokens, "auto": res[0]["tokens"]}, own, tp_logits)
+    _tp_line("(c) generate_ring sp 2", rr[0])
+    _rank_lines("(c)", rr)
+    # the ring prefill attends in plain float32 (XLA einsums in JAX): no K2
+    _rank_counts("(c)", rr, {"block_topk_attention"}, total)
+    _hold_par("(c) generate_ring sp 2 against (a)'s generate",
+              {"xla": res[0]["tokens"], "auto": rr[0]["tokens"]}, tp_logits,
+              rr[0]["forced_logits"].to(dev))
+    for i, (name, want) in enumerate((
+            ("k3", {"flash_attention", "adc_block_scores",
+                    "block_topk_attention"}),
+            ("token", {"flash_attention", "adc_scores"}))):
+        arm = [r[2 + i] for r in out]
+        _rank_counts(f"(a) {name} arm", arm, want, total)
+        _hold_par(f"(a) {name} arm tp 2 against the single-process Engine",
+                  {"xla": refs[i], "auto": arm[0]["tokens"]}, owns[i],
+                  arm[0]["forced_logits"].to(dev))
+    _reject_par("(a) k3 arm with each rank's heads through the other "
+                "shard's wo (planted fault)", owns[0],
+                out[0][4]["forced_logits"].to(dev))
+
+
+def par_tp_from_state(dev, params, model, cfg, ids, toks,
+                      dtype=torch.bfloat16) -> None:
+    """(a)'s decode at budget 0.2, held: the single-process prefill state of
+    the 32k prompt, sliced per rank (``workers.tp_decode_state``), decoded
+    by TPEngine tp 2 with the Engine's tokens ``toks`` fed in, every step
+    within PAR_LOGIT_TOL of the single process's own decode from that
+    state in bf16 (the all-reduce's rounding alone reads 0.13 at the first
+    step on an H100), within LOGIT_TOL in float32, and each parting at a
+    near tie. Both sides then select blocks from the same codebooks and
+    codes, so this holds the sharded selection where selection prunes.
+    Each rank also prefills the prompt itself: how many of its codes are
+    the single process's (the codebooks' agreement), and its
+    teacher-forced logits from its own state beside the single process's,
+    printed."""
+    pol = get_policy(cfg, compute_budget(cfg.budget, PAR_CTX, PAR_GEN), dev)
+    lg, st = _prefill(model, params, pol, PAR_CTX, ids, dev, dtype)
+    st_cpu = dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).cpu() for f in dataclasses.fields(st)
+        if isinstance(getattr(st, f.name), torch.Tensor)})
+    own = _decode_forced(model, params, pol, st, len(ids), toks, dev)
+    del st, pol
+    torch.cuda.empty_cache()
+    what = "float32, plain route" if dtype == torch.float32 else "bf16"
+    t0 = time.perf_counter()
+    res = _ranks(workers.tp_decode_state, 2, cfg, SEED, st_cpu, toks[0],
+                 len(ids), len(toks) - 1, PAR_CTX, PAR_GEN, forced=toks,
+                 prompt=ids)
+    del st_cpu
+    log(f"parallel (a) {what}, budget 0.2, decode from the single-process "
+        f"state: {time.perf_counter() - t0:.1f} s with the ranks' start-up;"
+        f" each rank's own prefill gives the state's codes at "
+        f"{[round(r['codes_agree'], 6) for r in res]} of the candidates, "
+        f"centroids within {[r['centroids_max_diff'] for r in res]}")
+    _hold_par(f"(a) {what}, TPEngine tp 2 decode at budget 0.2 from the "
+              "single-process prefill state",
+              {"xla": toks[1:], "auto": res[0]["tokens"]}, own,
+              res[0]["logits"].to(dev),
+              limit=LOGIT_TOL if dtype == torch.float32 else PAR_LOGIT_TOL)
+    # the witness: each rank's own codebooks (not held: in bf16 and in
+    # float32 alike k-means on keys that differ in rounding trains other
+    # codebooks, and random weights' block top-k then parts, PERF.md)
+    diffs = _step_diffs(res[0]["own_logits"].to(dev),
+                        torch.cat([lg[None].float(), own.float()]))
+    parts, diff, _ = _verdict(diffs, None)
+    log(f"parallel (a) {what}, TPEngine tp 2 from its own prefill at "
+        f"budget 0.2 (not held): largest |logit diff| {diff:.4f}, {parts} "
+        f"partings; steps past PAR_LOGIT_TOL: "
+        f"{[i for i, d in enumerate(diffs) if d[0] > PAR_LOGIT_TOL]}")
+
+
+def par_tp_f32(dev, params, model) -> None:
+    """(a) in float32 at budget 0.2 on the plain route (the kernels take
+    bf16), as ``par_tp_from_state``: the second witness beside bf16's
+    reading. In float32 the two runs' keys differ only in summation
+    order."""
+    cfg = par_cfg(model, PAR_CTX, PAR_GEN)
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, kernels="xla"))
+    ids = np.random.default_rng(SEED + 30).integers(0, model.vocab_size,
+                                                    PAR_CTX)
+    p32 = params_to(params, dev, torch.float32)
+    t0 = time.perf_counter()
+    toks = Engine(cfg, p32, dtype=torch.float32, device=dev).generate(
+        ids, PAR_GEN).tokens
+    log(f"parallel (a) float32 single-process Engine (plain route): "
+        f"{time.perf_counter() - t0:.1f} s")
+    par_tp_from_state(dev, p32, model, cfg, ids, toks, torch.float32)
+
+
+def _budget1(cfg):
+    return dataclasses.replace(cfg, budget=dataclasses.replace(
+        cfg.budget, compress_ratio=1.0))
+
+
+def par_batch(dev, params, model, total: dict) -> None:
+    """(b) BatchTPEngine dp 2 x tp 2 (4 processes), 4 slots of 8k prompts,
+    against the single-device batched path (the same engine on a mesh of
+    one), slot by slot (``_hold_par``)."""
+    from pqcache_tpu_torch.parallel.batch_tp import BatchTPEngine
+    from pqcache_tpu_torch.parallel.factory import make_mesh
+    cfg = par_cfg(model, PAR_BATCH_CTX, PAR_GEN)
+    rng = np.random.default_rng(SEED + 31)
+    prompts = [rng.integers(0, model.vocab_size, PAR_BATCH_CTX - 97 * i)
+               for i in range(PAR_SLOTS)]
+    mesh = make_mesh(config.ParallelConfig(1, 1), dev)
+    one = BatchTPEngine(cfg, params, mesh, PAR_BATCH_CTX, PAR_GEN)
+    t0 = time.perf_counter()
+    ref = one.generate_batch(prompts, PAR_GEN)
+    torch.cuda.synchronize()
+    t = one.timings
+    log(f"parallel (b) single-device batched path (B {PAR_SLOTS}, eager): "
+        f"{time.perf_counter() - t0:.1f} s, waves {t['prefill_s']:.2f} s, "
+        f"decode {t['decode_s'] / t['steps'] * 1e3:.2f} ms a step")
+    one = BatchTPEngine(_budget1(cfg), params, mesh, PAR_BATCH_CTX, PAR_GEN)
+    forced = one.generate_batch(prompts, PAR_GEN)
+    own = workers.batch_forced_logits(one, prompts, forced)
+    del one
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = _ranks(workers.batch_generate, 4, cfg, SEED, 2, prompts,
+                 PAR_BATCH_CTX, PAR_GEN, forced=forced,
+                 forced_cfg=_budget1(cfg), dtype=torch.bfloat16)
+    same = all(r["tokens"] == res[0]["tokens"] for r in res)
+    t = res[0]["timings"]
+    log(f"parallel (b) BatchTPEngine dp 2 x tp 2: "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start-up; waves "
+        f"{t['prefill_s']:.2f} s, decode {t['decode_s'] / t['steps'] * 1e3:.2f}"
+        f" ms a step; every rank returned the same {PAR_SLOTS} streams: "
+        f"{same}")
+    _rank_lines("(b)", res)
+    _rank_counts("(b)", res, {"flash_attention", "block_topk_attention"},
+                 total)
+    if not same:
+        raise SystemExit("parallel (b): ranks returned different streams")
+    got = torch.cat([r["forced_logits"] for r in sorted(
+        (r for r in res if r["forced_logits"] is not None),
+        key=lambda r: r["dp_rank"])], 1)
+    for s in range(PAR_SLOTS):
+        _hold_par(f"(b) slot {s} against the single-device batched path",
+                  {"xla": ref[s], "auto": res[0]["tokens"][s]}, own[:, s],
+                  got[:, s])
+
+
+def par_offload(dev, params, model, total: dict) -> None:
+    """(d) ShardedOffloadEngine dp 1 x tp 2 (the offload phase's
+    configuration), B 2 of 8k prompts, 24 tokens, against the
+    single-device BatchOffloadEngine (``_hold_par``)."""
+    from pqcache_tpu_torch.runtime.offload_batch import BatchOffloadEngine
+    cfg = offload_cfg(model)
+    rng = np.random.default_rng(SEED + 32)
+    prompts = [rng.integers(0, model.vocab_size, PAR_OFFLOAD_CTX - 130 * i)
+               for i in range(PAR_OFFLOAD_B)]
+    core = BatchOffloadEngine(cfg, params, batch_size=PAR_OFFLOAD_B,
+                              device=dev)
+    ref = core.generate_batch(prompts, OFFLOAD_GEN)
+    t = core.timings
+    log(f"parallel (d) single-device BatchOffloadEngine B {PAR_OFFLOAD_B}: "
+        f"{t['decode_s'] / t['steps'] * 1e3:.2f} ms a step, hit rate "
+        f"{core.store.hit_rate:.4f}")
+    core = BatchOffloadEngine(_budget1(cfg), params,
+                              batch_size=PAR_OFFLOAD_B, device=dev)
+    forced = core.generate_batch(prompts, OFFLOAD_GEN)
+    own = workers.offload_forced_logits(core, prompts, forced)
+    del core
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = _ranks(workers.offload_generate, 2, cfg, SEED, 1, prompts,
+                 OFFLOAD_GEN, forced=forced, forced_cfg=_budget1(cfg),
+                 dtype=torch.bfloat16)
+    t = res[0]["timings"]
+    log(f"parallel (d) ShardedOffloadEngine tp 2: "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start-up; "
+        f"{t['decode_s'] / t['steps'] * 1e3:.2f} ms a step (host "
+        f"{t['host_s'] / t['steps'] * 1e3:.2f}, wait "
+        f"{t['wait_s'] / t['steps'] * 1e3:.2f}), hit rate over both "
+        f"stores {res[0]['hit_rate']:.4f}")
+    _rank_lines("(d)", res)
+    _rank_counts("(d)", res, {"flash_attention"}, total)
+    got = res[0]["forced_logits"]
+    for s in range(PAR_OFFLOAD_B):
+        _hold_par(f"(d) slot {s} against BatchOffloadEngine",
+                  {"xla": ref[s], "auto": res[0]["tokens"][s]}, own[:, s],
+                  got[:, s])
+
+
+def par_kernels(dev) -> None:
+    """(e) K2, K1 and K3 on this process (rank 0's card) at a tp 2 shard's
+    shapes: 16 q / 4 kv heads at 32k (K2 with pad 768; K1 over 13 of the
+    int8 tail's blocks per kv head; K3 over the codes of 4 kv heads),
+    against their plain versions."""
+    m = config.LLAMA31_8B
+    H, H_kv, D, bs = m.num_heads // 2, m.num_kv_heads // 2, m.head_dim, 256
+    g = torch.Generator(device=dev).manual_seed(SEED + 33)
+    q, k, v = [t[0, :h].contiguous() for t, h in zip(
+        _qkv(dev, g, 1, PAR_CTX), (H, H_kv, H_kv))]
+    out = flash_attention(q, k, v, valid_lo=768)
+    torch.cuda.synchronize()
+    ref = chunked_attention(q, k, v, valid_lo=768)
+    rel = row_rel_err(out, ref)
+    log(f"parallel (e) K2 q [{H}, {PAR_CTX}, {D}], kv {H_kv} heads: max_abs_"
+        f"err {(out.float() - ref.float()).abs().max().item():.3e}, worst row "
+        f"||err||/||ref|| {rel:.3e} (tol {K2_TOL})")
+    if not rel <= K2_TOL or not torch.isfinite(out).all():
+        raise SystemExit("parallel (e): K2 disagrees at the shard's shapes")
+    del q, k, v, out, ref
+    rng = np.random.default_rng(SEED + 33)
+    blk = torch.from_numpy(np.stack([np.sort(np.concatenate([
+        [N_CAND // bs], rng.choice(N_CAND // bs, 12, replace=False)]))
+        for _ in range(H_kv)])).to(dev)
+    kv = torch.randint(-127, 128, (1, H_kv, N_TAIL, 2 * D), generator=g,
+                       device=dev, dtype=torch.int8)
+    qd = torch.randn((H, 1, D), generator=g, device=dev) * 0.01
+    got = block_topk_attention(qd, kv, 0, blk, N_CAND, block=bs)
+    torch.cuda.synchronize()
+    want = block_topk_attention_ref(qd, kv, 0, blk, N_CAND, block=bs)
+    rel = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+              for a, b in zip(got, want))
+    log(f"parallel (e) K1 q [{H}, 1, {D}], int8 tail [{H_kv}, {N_TAIL}, "
+        f"{2 * D}]: max_abs_err "
+        f"{max((a - b).abs().max().item() for a, b in zip(got, want)):.3e}, "
+        f"{rel:.3e} relative to the largest entry (tol {K1_TOL}); worst acc "
+        f"row ||err||/||ref|| {row_rel_err(got[2], want[2]):.3e}")
+    if not rel <= K1_TOL:
+        raise SystemExit("parallel (e): K1 disagrees at the shard's shapes")
+    lut, codes = _lut_codes(dev, 1)
+    lut, codes = lut[:H_kv].contiguous(), codes[0, :H_kv].contiguous()
+    got = adc_block_scores(lut, codes, N_CAND, sel_block=bs, head_dim=D)
+    torch.cuda.synchronize()
+    want = adc_block_scores_ref(lut, codes, N_CAND, sel_block=bs, head_dim=D)
+    rel = ((got - want).abs() / want.abs().amax(-1, keepdim=True)).max().item()
+    grp = H // H_kv
+    same = torch.equal(
+        pq.topk_from_block_mass(got, N_CAND, TOPK, group=grp, block=bs),
+        pq.topk_from_block_mass(want, N_CAND, TOPK, group=grp, block=bs))
+    log(f"parallel (e) K3 lut [{H_kv}, {H // H_kv}, 2, 64], codes "
+        f"[{H_kv}, 2, {N_TAIL}]: "
+        f"max_abs_err {(got - want).abs().max().item():.3e}, {rel:.3e} "
+        f"relative to each row's largest entry (tol {K3_TOL}); block top-k "
+        f"identical: {same}")
+    if not rel <= K3_TOL or not same:
+        raise SystemExit("parallel (e): K3 disagrees at the shard's shapes")
+
+
+def parallel_phase(dev, params, model) -> dict:
+    """(a)-(e) of the parallel phase; each run's kernel counts are set to 0
+    in its ranks just before it and read just after. Returns the launches
+    summed over the ranks."""
+    total = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    par_kernels(dev)
+    par_tp(dev, params, model, total)
+    log(f"parallel (a), (c) done at {time.perf_counter() - t0:.0f} s")
+    par_tp_f32(dev, params, model)
+    log(f"parallel (a) float32 done at {time.perf_counter() - t0:.0f} s")
+    par_batch(dev, params, model, total)
+    log(f"parallel (b) done at {time.perf_counter() - t0:.0f} s")
+    par_offload(dev, params, model, total)
+    log(f"parallel phase {time.perf_counter() - t0:.0f} s; launches {total}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # The evaluation path: the HF loader, the evaluation policies and branches,
 # the LongBench command line at full depth, and synth_quality
 
@@ -2686,7 +3128,9 @@ def evaluation_phase(dev, params, model) -> dict:
     return total
 
 
-BENCH_128K_AFTER = 600    # seconds: past this, the 128k bench run is left out
+# seconds: past this, the 128k bench run (~25 s) is left out; the whole
+# script reaches the bench phase at ~640 s on an H100 80GB HBM3 at 700 W
+BENCH_128K_AFTER = 720
 
 
 def bench_phase(t0: float) -> dict:
@@ -2771,6 +3215,9 @@ def main() -> int:
     for k, v in offload_phase(dev, params, model).items():
         launches[k] += v
     log(f"offload phase done at {time.perf_counter() - t0:.0f} s")
+    for k, v in parallel_phase(dev, params, model).items():
+        launches[k] += v
+    log(f"parallel phase done at {time.perf_counter() - t0:.0f} s")
     eval_launches = evaluation_phase(dev, params, model)
     for k, v in eval_launches.items():
         launches[k] += v

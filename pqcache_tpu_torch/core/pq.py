@@ -22,7 +22,9 @@ lifted L2 distance ranks candidates by inner product, smaller is better.
 
 k-means++ seeding draws from an explicit ``torch.Generator``: it cannot
 replay ``jax.random``, so parity with the JAX package is held by passing the
-same initial centroids (``kmeans(init_centroids=...)``).
+same initial centroids (``kmeans(init_centroids=...)``), or, where the
+points are made inside an engine in another process, by handing that
+process the JAX package's draws for the same shapes (``use_seed_draws``).
 """
 
 from __future__ import annotations
@@ -113,21 +115,63 @@ def _assign_chunked(x, w, centroids, chunk: int):
     return torch.cat(codes, 1), sums, counts, torch.cat(pdist, 1)
 
 
+# k-means++ draws given as tables instead of a torch.Generator's: None, or
+# {(N, n_clusters, total groups): (permutation [N], uniforms [n_clusters - 1,
+# total groups, min(N, pool)])}
+_SEED_DRAWS: Optional[dict] = None
+
+
+def use_seed_draws(table: Optional[dict]) -> None:
+    """Seed every later k-means++ of this process from ``table`` (None: from
+    the generator again). Keyed by (N, n_clusters, total groups), each entry
+    holds the pool permutation and the per-step uniforms of every group; the
+    JAX package's ``jax.random`` draws for the same shapes give its seeds on
+    the same points. A shape missing from the table raises."""
+    global _SEED_DRAWS
+    _SEED_DRAWS = table
+
+
+def _seed_draws(N: int, n_clusters: int, G_all: int, P: int, generator,
+                device):
+    """k-means++'s pool permutation [N] and an iterator of its per-step
+    uniforms [G_all, P]: from ``generator`` (in that order, lazily), or
+    from the table of ``use_seed_draws``."""
+    if _SEED_DRAWS is None:
+        perm = torch.randperm(N, generator=generator, device=device)
+        return perm, (torch.rand((G_all, P), generator=generator,
+                                 device=device)
+                      for _ in range(n_clusters - 1))
+    key = (N, n_clusters, G_all)
+    if key not in _SEED_DRAWS:
+        raise KeyError(f"no k-means++ draws for (N, C, groups) {key}")
+    perm, u = _SEED_DRAWS[key]
+    return (torch.as_tensor(perm, device=device).long(),
+            iter(torch.as_tensor(u, device=device).float()))
+
+
 def _kmeanspp_init(x, valid_len: int, n_clusters: int,
-                   generator: torch.Generator, pool: int = 4096):
+                   generator: torch.Generator, pool: int = 4096,
+                   group_offset: int = 0, total_groups=None):
     """k-means++ (D^2 sampling) seeding over a bounded candidate pool, per
     group independent (the JAX package's algorithm, drawn from a
-    torch.Generator). x [G, N, d] f32 -> centroids [G, C, d]."""
+    torch.Generator). x [G, N, d] f32 -> centroids [G, C, d].
+
+    A head shard holds groups [group_offset, group_offset + G) of
+    ``total_groups``: each step draws the noise of every group and keeps
+    its own rows, so the shard seeds what the unsharded run seeds for those
+    groups."""
     G, N, d = x.shape
+    G_all = G if total_groups is None else int(total_groups)
+    rows = slice(int(group_offset), int(group_offset) + G)
     P = min(N, pool)
-    perm = torch.randperm(N, generator=generator, device=x.device)
+    perm, draws = _seed_draws(N, n_clusters, G_all, P, generator, x.device)
     pool_idx = perm[:P] % max(int(valid_len), 1)
     xp = x[:, pool_idx]                                      # [G, P, d]
     first = xp[:, :1]                                        # [G, 1, d]
     min_d2 = ((xp - first) ** 2).sum(-1)                     # [G, P]
     out = [first[:, 0]]
     for _ in range(n_clusters - 1):
-        u = torch.rand((G, P), generator=generator, device=x.device)
+        u = next(draws)[rows]
         gumbel = -torch.log(-torch.log(u.clamp(min=1e-12)))
         logit = torch.where(min_d2 > 0,
                             torch.log(min_d2.clamp(min=1e-30)), -torch.inf)
@@ -138,18 +182,72 @@ def _kmeanspp_init(x, valid_len: int, n_clusters: int,
     return torch.stack(out, 1)
 
 
+def _kmeanspp_init_sharded(x, w, n_clusters: int, generator: torch.Generator,
+                           comm, pool: int = 512):
+    """k-means++ D^2 seeding over sequence-sharded points (the JAX
+    package's ``_kmeanspp_init_sharded``): each shard draws a pool of its
+    own positions, the pools are all-gathered (pool x d floats per group),
+    and the D^2 Gumbel sampling runs replicated. The first centroid is a
+    uniform pick among VALID pool entries: a left-padded prompt's first
+    shard is mostly padding. ``generator`` must be seeded alike on every
+    shard; the pool permutation is drawn per shard from it after a skip
+    of ``comm.rank`` permutations."""
+    G, N, d = x.shape
+    P = min(N, pool)
+    for _ in range(comm.rank):
+        torch.randperm(N, generator=generator, device=x.device)
+    pool_idx = torch.randperm(N, generator=generator, device=x.device)[:P]
+    for _ in range(comm.size - 1 - comm.rank):
+        torch.randperm(N, generator=generator, device=x.device)
+    xp = comm.all_gather(x[:, pool_idx].contiguous(), dim=1)  # [G, sp*P, d]
+    wp = comm.all_gather(w[:, pool_idx].contiguous(), dim=1)  # [G, sp*P]
+
+    def gumbel():
+        u = torch.rand((1, xp.shape[1]), generator=generator,
+                       device=x.device)
+        return -torch.log(-torch.log(u.clamp(min=1e-12)))
+
+    pick0 = (torch.where(wp > 0, 0.0, -torch.inf) + gumbel()).argmax(-1)
+    gi = torch.arange(G, device=x.device)
+    first = xp[gi, pick0]                                    # [G, d]
+    min_d2 = ((xp - first[:, None]) ** 2).sum(-1)
+    out = [first]
+    for _ in range(n_clusters - 1):
+        logit = torch.where((min_d2 > 0) & (wp > 0),
+                            torch.log(min_d2.clamp(min=1e-30)), -torch.inf)
+        c = xp[gi, (logit + gumbel()).argmax(-1)]
+        min_d2 = torch.minimum(min_d2, ((xp - c[:, None]) ** 2).sum(-1))
+        out.append(c)
+    return torch.stack(out, 1)
+
+
 def kmeans(x: torch.Tensor, n_clusters: int, iters: int, *,
            seed: int = 4321, valid_len=None, chunk: int = 4096,
            init_centroids: Optional[torch.Tensor] = None,
-           generator: Optional[torch.Generator] = None) -> KMeansResult:
+           generator: Optional[torch.Generator] = None,
+           valid_mask: Optional[torch.Tensor] = None,
+           group_offset: int = 0, total_groups: Optional[int] = None,
+           comm=None) -> KMeansResult:
     """Batched Lloyd k-means over G independent groups.
 
-    x [G, N, d]; points at index >= valid_len are excluded from training.
+    x [G, N, d]; points at index >= valid_len are excluded from training,
+    or, with ``valid_mask`` [G or 1, N], the points where it is false.
     Seeds by k-means++ from ``generator`` (a new one seeded with ``seed`` on
     x's device when None), or starts from ``init_centroids`` [G, C, d].
     Runs exactly ``iters`` Lloyd iterations; the e-th empty cluster (by
     cluster index) is relocated to the e-th farthest valid point (sklearn's
-    strategy)."""
+    strategy).
+
+    A head shard of a larger clustering passes its first group's global
+    index ``group_offset`` and ``total_groups``, and seeds what the
+    unsharded run seeds for its groups. ``comm`` (``parallel.collectives.
+    Comm``) runs distributed Lloyd over SEQUENCE-sharded points: x is this
+    shard's points, each iteration's cluster sums and counts are
+    all-reduced, so every shard holds the same centroids; an empty cluster
+    moves to the globally farthest point (the shard holding the largest
+    distance wins; exact ties average, which is a no-op on identical rows;
+    with no valid nomination anywhere the mean update stands), and the
+    seeding pools candidates from every shard."""
     G, N, d = x.shape
     x = x.float()
     valid_len = N if valid_len is None else int(valid_len)
@@ -157,26 +255,45 @@ def kmeans(x: torch.Tensor, n_clusters: int, iters: int, *,
     Npad = _round_up(N, chunk)
     if Npad != N:
         x = torch.nn.functional.pad(x, (0, 0, 0, Npad - N))
-    w = (torch.arange(Npad, device=x.device) < valid_len).float()
-    w = w[None].expand(G, Npad)
+    if valid_mask is not None:
+        w = torch.nn.functional.pad(valid_mask.float(), (0, Npad - N))
+    else:
+        w = (torch.arange(Npad, device=x.device) < valid_len).float()[None]
+    w = w.expand(G, Npad)
 
     if init_centroids is not None:
         centroids = init_centroids.to(device=x.device, dtype=torch.float32)
     else:
         if generator is None:
             generator = torch.Generator(device=x.device).manual_seed(seed)
-        centroids = _kmeanspp_init(x, valid_len, n_clusters, generator)
+        if comm is not None:
+            centroids = _kmeanspp_init_sharded(x, w, n_clusters, generator,
+                                               comm)
+        else:
+            centroids = _kmeanspp_init(x, valid_len, n_clusters, generator,
+                                       group_offset=group_offset,
+                                       total_groups=total_groups)
 
     gidx = torch.arange(G, device=x.device)[:, None]
     for _ in range(iters):
         _, sums, counts, pdist = _assign_chunked(x, w, centroids, chunk)
+        if comm is not None:
+            sums, counts = comm.all_reduce(sums), comm.all_reduce(counts)
         new = sums / torch.clamp(counts, min=1.0)[..., None]
         empty = counts <= 0.0                                # [G, C]
-        _, far_idx = _topk_stable(torch.where(w > 0, pdist, -1.0),
-                                  n_clusters)                # [G, C]
+        far_val, far_idx = _topk_stable(torch.where(w > 0, pdist, -1.0),
+                                        n_clusters)          # [G, C]
         rank = torch.clamp(torch.cumsum(empty.long(), -1) - 1, 0,
                            n_clusters - 1)
         reloc = x[gidx, far_idx.gather(-1, rank)]            # [G, C, d]
+        if comm is not None:
+            val = far_val.gather(-1, rank)
+            vmax = comm.all_reduce(val.clone(), op="max")
+            win = ((val >= vmax) & (vmax >= 0.0)).float()
+            n_win = comm.all_reduce(win.clone())
+            reloc = (comm.all_reduce(reloc * win[..., None])
+                     / torch.clamp(n_win, min=1.0)[..., None])
+            empty = empty & (n_win > 0.0)
         centroids = torch.where(empty[..., None], reloc, new)
     codes, _, _, _ = _assign_chunked(x, w, centroids, chunk)
     return KMeansResult(centroids=centroids, codes=codes[:, :N])

@@ -34,11 +34,14 @@ from pqcache_tpu_torch.runtime.stages import stage
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device=None) -> dict:
+                dtype=torch.bfloat16, device=None, layer_slice=None) -> dict:
     """Random parameters (normal, std 0.02; norms at 1) with the JAX
     package's layout, drawn from ``generator`` (which must live on
     ``device``, cuda unless given). Drawn layer by layer so the float32 draw
-    never holds more than one layer's matrix."""
+    never holds more than one layer's matrix. ``layer_slice(name, w)``,
+    when given, replaces each layer's matrix w of leaf ``name`` as it is
+    drawn (``parallel/sharding.init_params_shard`` keeps one rank's slice:
+    the same values, without ever holding the whole model)."""
     device = resolve_device(device)
     E, H, Hkv, D, I, L, V = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                              cfg.head_dim, cfg.intermediate_size,
@@ -48,24 +51,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return (torch.randn(shape, generator=generator, device=device)
                 * 0.02).to(dtype)
 
-    def n(*shape):
-        if len(shape) == 2:
-            return draw(shape)
-        return torch.stack([draw(shape[1:]) for _ in range(shape[0])])
+    def stacked(name, *shape):
+        return torch.stack([
+            draw(shape) if layer_slice is None
+            else layer_slice(name, draw(shape)) for _ in range(L)])
 
     ones = lambda *s: torch.ones(s, dtype=dtype, device=device)  # noqa: E731
     params = {
-        "embed": n(V, E),
+        "embed": draw((V, E)),
         "final_norm": ones(E),
         "layers": {
             "ln1": ones(L, E), "ln2": ones(L, E),
-            "wq": n(L, E, H * D), "wk": n(L, E, Hkv * D),
-            "wv": n(L, E, Hkv * D), "wo": n(L, H * D, E),
-            "gate": n(L, E, I), "up": n(L, E, I), "down": n(L, I, E),
+            "wq": stacked("wq", E, H * D),
+            "wk": stacked("wk", E, Hkv * D),
+            "wv": stacked("wv", E, Hkv * D),
+            "wo": stacked("wo", H * D, E),
+            "gate": stacked("gate", E, I), "up": stacked("up", E, I),
+            "down": stacked("down", I, E),
         },
     }
     params["lm_head"] = (params["embed"].T.contiguous()
-                         if cfg.tie_word_embeddings else n(E, V))
+                         if cfg.tie_word_embeddings else draw((E, V)))
     return params
 
 
@@ -181,13 +187,23 @@ def mlp(lp: dict, x: torch.Tensor, chunk: int = 16384) -> torch.Tensor:
 
 
 def _finish_layer(cfg: ModelConfig, lp: dict, hidden: torch.Tensor,
-                  att: torch.Tensor) -> torch.Tensor:
+                  att: torch.Tensor, comm=None) -> torch.Tensor:
     """Post-attention half of one decoder layer — the single copy of the
     residual / norm / MLP tail that prefill and decode both call.
-    att: [T, H*D] flattened head outputs."""
-    hidden = hidden + _mm(att, lp, "wo")
-    return hidden + mlp(lp, rms_norm(hidden, lp["ln2"], cfg.rms_norm_eps),
-                        chunk=cfg.mlp_chunk)
+    att: [T, H*D] flattened head outputs. With ``comm`` (tensor
+    parallelism, ``parallel/collectives.Comm``) lp holds this rank's
+    column / row slices, and the two row-parallel products (attention
+    output, MLP down) are all-reduced in the activation dtype: the
+    Megatron pattern of the JAX package's psums."""
+    attn_out = _mm(att, lp, "wo")
+    if comm is not None:
+        attn_out = comm.all_reduce(attn_out)
+    hidden = hidden + attn_out
+    mlp_out = mlp(lp, rms_norm(hidden, lp["ln2"], cfg.rms_norm_eps),
+                  chunk=cfg.mlp_chunk)
+    if comm is not None:
+        mlp_out = comm.all_reduce(mlp_out)
+    return hidden + mlp_out
 
 
 def _rope_q(cfg: ModelConfig, yq: torch.Tensor, cos, sin):
@@ -217,7 +233,8 @@ def _kv_proj(cfg: ModelConfig, lp: dict, h_norm: torch.Tensor, cos, sin):
                     sin)
 
 
-def _layer_fwd(cfg: ModelConfig, lp: dict, hidden, attn_fn, cos, sin):
+def _layer_fwd(cfg: ModelConfig, lp: dict, hidden, attn_fn, cos, sin,
+               comm=None):
     """One decoder layer; attn_fn(q, k, v) -> (attn [H, T, D], extra)."""
     T = hidden.shape[0]
     H, D = cfg.num_heads, cfg.head_dim
@@ -227,7 +244,7 @@ def _layer_fwd(cfg: ModelConfig, lp: dict, hidden, attn_fn, cos, sin):
     q = _rope_q(cfg, yq, cos, sin)
     attn, extra = attn_fn(q, k, v)
     hidden = _finish_layer(cfg, lp, hidden,
-                           attn.transpose(0, 1).reshape(T, H * D))
+                           attn.transpose(0, 1).reshape(T, H * D), comm)
     return hidden, extra
 
 
@@ -244,9 +261,11 @@ def _logits(cfg: ModelConfig, params: dict, last: torch.Tensor):
 
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params: dict, policy, state,
-            tokens: torch.Tensor, pad_len: int, true_len: int):
+            tokens: torch.Tensor, pad_len: int, true_len: int, comm=None):
     """Process a LEFT-padded prompt: tokens [P] (positions [0, pad_len) are
-    padding). Fills ``state`` and returns the last token's logits [V] f32."""
+    padding). Fills ``state`` and returns the last token's logits [V] f32.
+    ``comm``: the tensor-parallel group (``_finish_layer``), None on one
+    device; every function below that runs layers takes it alike."""
     P = tokens.shape[0]
     hidden = embed_lookup(params, tokens)
     positions = torch.clamp(torch.arange(P, device=tokens.device) - pad_len,
@@ -257,7 +276,7 @@ def prefill(cfg: ModelConfig, params: dict, policy, state,
             return policy.prefill_attn(state, idx, q, k, v, pad_len,
                                        true_len), None
         hidden, _ = _layer_fwd(cfg, _layer_params(params, idx), hidden,
-                               attn_fn, cos, sin)
+                               attn_fn, cos, sin, comm)
     return _logits(cfg, params, hidden[P - 1:P])
 
 
@@ -280,7 +299,7 @@ def kv_full_chunked(cfg: ModelConfig, lp: dict, hidden: torch.Tensor,
 
 def attn_mlp_chunk(cfg: ModelConfig, lp: dict, h_c: torch.Tensor, cos_c,
                    sin_c, k: torch.Tensor, v: torch.Tensor, pad_len, c0: int,
-                   *, use_kernel: bool = True) -> torch.Tensor:
+                   *, use_kernel: bool = True, comm=None) -> torch.Tensor:
     """Pass B of chunked prefill: the attention of one chunk of rows h_c
     [ch, E], whose first row is key index c0, against the keys k/v
     [H_kv, Tk, D] (K2 at q_offset = c0; keys past the chunk are masked by
@@ -290,13 +309,14 @@ def attn_mlp_chunk(cfg: ModelConfig, lp: dict, h_c: torch.Tensor, cos_c,
     q = _q_proj(cfg, lp, h_norm, cos_c, sin_c)
     att = prefill_chunk_attention(q, k, v, pad_len, q_offset=c0,
                                   use_kernel=use_kernel)
-    return _finish_layer(cfg, lp, h_c, att.transpose(0, 1).reshape(ch, -1))
+    return _finish_layer(cfg, lp, h_c, att.transpose(0, 1).reshape(ch, -1),
+                         comm)
 
 
 @torch.no_grad()
 def prefill_chunked(cfg: ModelConfig, params: dict, policy, state,
                     tokens: torch.Tensor, pad_len: int, true_len: int, *,
-                    chunk: int):
+                    chunk: int, comm=None):
     """``prefill`` with its transients bounded at ``chunk`` rows (the JAX
     package's ``prefill_chunked``): per layer (A) the full-length K/V from
     row chunks, (B) each chunk's queries against the keys before it through
@@ -324,7 +344,7 @@ def prefill_chunked(cfg: ModelConfig, params: dict, policy, state,
             c1 = c0 + chunk
             hidden[c0:c1] = attn_mlp_chunk(
                 cfg, lp, hidden[c0:c1], cos[c0:c1], sin[c0:c1], k, v,
-                pad_len, c0, use_kernel=use_kernel)
+                pad_len, c0, use_kernel=use_kernel, comm=comm)
         policy.prefill_tail(state, idx, k, v, pad_len, true_len)
     return _logits(cfg, params, hidden[P - 1:P])
 
@@ -332,7 +352,8 @@ def prefill_chunked(cfg: ModelConfig, params: dict, policy, state,
 @torch.no_grad()
 def prefill_chunk_step(cfg: ModelConfig, params: dict, kbuf: torch.Tensor,
                        vbuf: torch.Tensor, hidden_c: torch.Tensor, pad_len,
-                       c0: int, *, use_kernel: bool = True) -> torch.Tensor:
+                       c0: int, *, use_kernel: bool = True,
+                       comm=None) -> torch.Tensor:
     """Chunk-major prefill slab (the JAX package's ``prefill_chunk_step``):
     the prompt rows [c0, c0 + ch) through every layer, each layer's rope'd
     K/V written into the admission buffers kbuf/vbuf [L, H_kv, P, D] in
@@ -357,7 +378,8 @@ def prefill_chunk_step(cfg: ModelConfig, params: dict, kbuf: torch.Tensor,
         kbuf[idx, :, c0:c0 + ch], vbuf[idx, :, c0:c0 + ch] = _kv_proj(
             cfg, lp, h_norm, cos, sin)
         hidden = attn_mlp_chunk(cfg, lp, hidden, cos, sin, kbuf[idx],
-                                vbuf[idx], pad_len, c0, use_kernel=use_kernel)
+                                vbuf[idx], pad_len, c0, use_kernel=use_kernel,
+                                comm=comm)
     return hidden
 
 
@@ -430,7 +452,7 @@ def prefill_with_prefix(cfg: ModelConfig, params: dict, policy, state,
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: dict, policy, state,
-                token: torch.Tensor, pos: int):
+                token: torch.Tensor, pos: int, comm=None):
     """One decode step. token: 0-d or [1] int tensor on the device; pos:
     the token's absolute position. Returns logits [V] f32. A policy with
     ``deferred_appends`` gets all layers' new tokens committed to ``state``
@@ -444,7 +466,7 @@ def decode_step(cfg: ModelConfig, params: dict, policy, state,
         def attn_fn(q, k, v, idx=idx):
             return policy.decode_attn(state, idx, q, k, v, shared)
         hidden, payload = _layer_fwd(cfg, _layer_params(params, idx), hidden,
-                                     attn_fn, cos, sin)
+                                     attn_fn, cos, sin, comm)
         payloads.append(payload)
     if getattr(policy, "deferred_appends", False):
         policy.commit_appends(state, (torch.stack([p[0] for p in payloads]),
@@ -457,7 +479,7 @@ def decode_step(cfg: ModelConfig, params: dict, policy, state,
 @torch.no_grad()
 def decode_loop(cfg: ModelConfig, params: dict, policy, state,
                 token: torch.Tensor, pos: int, n_steps: int, *,
-                sample=None, noise=None) -> torch.Tensor:
+                sample=None, noise=None, comm=None) -> torch.Tensor:
     """Decode of n_steps tokens; tokens[i] is the model's output after
     consuming the previous one (token for i = 0). Greedy, or with
     ``sample`` (``core/sampling.make_sampler``) one draw per step from
@@ -467,7 +489,7 @@ def decode_loop(cfg: ModelConfig, params: dict, policy, state,
     out = []
     tok = token.reshape(())
     for i in range(n_steps):
-        logits = decode_step(cfg, params, policy, state, tok, pos + i)
+        logits = decode_step(cfg, params, policy, state, tok, pos + i, comm)
         if sample is None:
             tok = torch.argmax(logits)
         else:
@@ -488,7 +510,7 @@ def _apply_rope_batched(x: torch.Tensor, cos, sin) -> torch.Tensor:
 
 @torch.no_grad()
 def decode_step_batched(cfg: ModelConfig, params: dict, policy, state,
-                        tokens: torch.Tensor, pos: torch.Tensor):
+                        tokens: torch.Tensor, pos: torch.Tensor, comm=None):
     """One greedy-decode step for B slots: tokens, pos [B] int tensors on
     the device. Returns logits [B, V] f32. Every count stays on the device,
     so the step can be captured into a CUDA graph."""
@@ -510,7 +532,8 @@ def decode_step_batched(cfg: ModelConfig, params: dict, policy, state,
         attn, (k_new, v_new) = policy.decode_attn_batched(state, idx, q, k, v,
                                                           shared)
         with stage("out_mlp"):
-            hidden = _finish_layer(cfg, lp, hidden, attn.reshape(B, H * D))
+            hidden = _finish_layer(cfg, lp, hidden, attn.reshape(B, H * D),
+                                   comm)
         ks.append(k_new)
         vs.append(v_new)
     with stage("commit"):
@@ -525,8 +548,8 @@ def decode_step_batched(cfg: ModelConfig, params: dict, policy, state,
 @torch.no_grad()
 def decode_loop_batched(cfg: ModelConfig, params: dict, policy, state,
                         tokens: torch.Tensor, pos: torch.Tensor,
-                        n_steps: int, *, sample=None,
-                        noise=None) -> torch.Tensor:
+                        n_steps: int, *, sample=None, noise=None,
+                        comm=None) -> torch.Tensor:
     """Decode of n_steps tokens for B slots, eagerly: tokens, pos [B].
     Greedy, or with ``sample`` and ``noise`` as in ``decode_loop``: one draw
     of [B, V] noise per step samples every slot, as the JAX package's one
@@ -540,4 +563,4 @@ def decode_loop_batched(cfg: ModelConfig, params: dict, policy, state,
     from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
     return BatchedDecoder(cfg, params, policy, state, chunk=n_steps,
                           graph=False, device=tokens.device, sample=sample,
-                          noise=noise).decode(tokens, pos, n_steps)
+                          noise=noise, comm=comm).decode(tokens, pos, n_steps)

@@ -139,6 +139,10 @@ class PQSearchPolicy:
         # `local` columns, so every ring token is still in the local window
         self.ring_k = (min(cfg.pq.ring_cap, budget.local)
                        if budget.local >= 1 else 0)
+        # (rank, size) of the tensor-parallel group whose kv-head shard
+        # this policy holds (set by the parallel engines): k-means++ seeds
+        # each group by its global index
+        self.shard = (0, 1)
 
     # -- helpers ----------------------------------------------------------
 
@@ -246,8 +250,10 @@ class PQSearchPolicy:
             self.cfg.pq.kmeans_seed)
         iters = (int(min(3 + P // 4096, 25)) if self.cfg.pq.adaptive_iters
                  else self.cfg.pq.kmeans_iters)
+        G = xb.shape[0]
         res = pq.kmeans(xb, self.C, iters=iters, valid_len=n_valid_tail,
-                        generator=gen)
+                        generator=gen, group_offset=self.shard[0] * G,
+                        total_groups=self.shard[1] * G)
         n_src = P - b.sink
 
         dt = state.k_sink.dtype

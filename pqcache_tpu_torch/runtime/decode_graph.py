@@ -62,11 +62,17 @@ class BatchedDecoder:
     device: cuda unless given; ``graph=True`` (the default) needs a CUDA
     device and replays each step from a CUDA graph, ``graph=False`` runs the
     same step eagerly. check_room=False leaves the room check to the
-    caller."""
+    caller. ``comm``: the tensor-parallel group of the step's
+    all-reduces; such a step runs eagerly, as a gloo collective cannot be
+    captured (``graph=True`` with a group raises)."""
 
     def __init__(self, cfg: ModelConfig, params: dict, policy, state, *,
                  chunk: int = 0, graph: bool = True, device=None,
-                 sample=None, noise=None, check_room: bool = True):
+                 sample=None, noise=None, check_room: bool = True,
+                 comm=None):
+        if graph and comm is not None:
+            raise ValueError("a step with collectives is not captured: pass "
+                             "graph=False under a process group")
         self.device = resolve_device(device)
         if graph and self.device.type != "cuda":
             raise ValueError("a CUDA graph needs a CUDA device; pass "
@@ -80,6 +86,7 @@ class BatchedDecoder:
                              f"chunk {chunk} must be at least 1")
         self.cfg, self.params, self.policy, self.state = (cfg, params, policy,
                                                           state)
+        self.comm = comm
         self.chunk, self.ring = chunk, bool(ring_k)
         self.use_graph = graph
         self.graph = None
@@ -103,7 +110,8 @@ class BatchedDecoder:
 
     def _step(self) -> None:
         logits = llama.decode_step_batched(self.cfg, self.params, self.policy,
-                                           self.state, self.tok, self.pos)
+                                           self.state, self.tok, self.pos,
+                                           self.comm)
         with stage("argmax"):
             nxt = (torch.argmax(logits, -1).to(torch.int32)
                    if self.sample is None else

@@ -83,7 +83,7 @@ class BatchOffloadEngine:
     given."""
 
     def __init__(self, cfg: EngineConfig, params: dict, *, batch_size: int,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, comm=None, shard=(0, 1)):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.B = batch_size
@@ -92,7 +92,8 @@ class BatchOffloadEngine:
         self.D = m.head_dim
         # the single-sequence engine provides the prefill and the layer
         # pieces the two tiers share
-        self._se = OffloadEngine(cfg, params, dtype, device=self.device)
+        self._se = OffloadEngine(cfg, params, dtype, device=self.device,
+                                 comm=comm, shard=shard)
         self.params = self._se.params
         self.S, self.C, self.bs = self._se.S, self._se.C, self._se.bs
         self.kv_int8 = self._se.kv_int8
@@ -172,7 +173,8 @@ class BatchOffloadEngine:
             (k_new[:, None].to(dt), v_new[:, None].to(dt), None)])
         lp = llama._layer_params(self.params, idx)
         hidden = llama._finish_layer(m, lp, hidden,
-                                     out.reshape(B, m.num_heads * D))
+                                     out.reshape(B, m.num_heads * D),
+                                     self._se.comm)
         # ring evict of every slot: the oldest local row out, the new token
         # in, the evicted key encoded as candidate n_cand[slot]
         heads, ptr_h = step["heads"], step["ptr_h"]
@@ -435,11 +437,24 @@ class BatchOffloadEngine:
 
     # -- public API -----------------------------------------------------------
 
+    @property
+    def logits_log(self) -> Optional[list]:
+        """Set to [] to record the logits of each admission's prefill [V]
+        and of every decode step [B, V] (``OffloadEngine.logits_log``)."""
+        return self._se.logits_log
+
+    @logits_log.setter
+    def logits_log(self, log: Optional[list]) -> None:
+        self._se.logits_log = log
+
     def generate_batch(self, prompts, max_new_tokens: int, eos_ids=(), *,
-                       noise=None) -> List[list]:
+                       noise=None, forced=None) -> List[list]:
         """Decode B prompts concurrently (all slots prefilled first).
         noise: the sampler's noise source; GumbelNoise of sample_seed when
-        None. Returns a list of token lists."""
+        None. forced: teacher forcing for accuracy checks, a token list per
+        slot: after step i slot s is fed forced[s][i] instead of the token
+        it produced (which is still returned). Returns a list of token
+        lists."""
         if len(prompts) != self.B:
             raise ValueError(f"need exactly {self.B} prompts, "
                              f"got {len(prompts)}")
@@ -450,13 +465,22 @@ class BatchOffloadEngine:
             adm = self._admission_start(slot, slot, ids)
             while not self._admission_step(adm):
                 pass
+        return self._decode_until_done(max_new_tokens, eos_ids, forced)
+
+    def _decode_until_done(self, max_new_tokens: int, eos_ids=(),
+                           forced=None) -> List[list]:
+        """Decode every admitted slot until EOS or max_new_tokens (the rest
+        of ``generate_batch``, shared with the sharded tier's ring
+        prefill; ``forced`` as there). Returns a list of token lists."""
         for s in self.slots:
             if s.tokens[-1] in eos_ids or max_new_tokens <= 1:
                 s.done = True
         while any(not s.done for s in self.slots):
             active = np.asarray([not s.done for s in self.slots])
-            next_toks = np.asarray([s.tokens[-1] for s in self.slots],
-                                   np.int64)
+            next_toks = np.asarray(
+                [s.tokens[-1] if forced is None
+                 else forced[b_i][len(s.tokens) - 1]
+                 for b_i, s in enumerate(self.slots)], np.int64)
             nxt = self._decode_step(next_toks, active)
             for b_i, s in enumerate(self.slots):
                 if s.done:

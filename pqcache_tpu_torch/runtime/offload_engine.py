@@ -92,10 +92,14 @@ class OffloadPQState:
 class OffloadEngine:
     """Single-sequence pq_search generation with host-offloaded KV.
 
-    device: cuda unless given; params are moved there in ``dtype``."""
+    device: cuda unless given; params are moved there in ``dtype``.
+    Tensor parallelism (``parallel/offload_tp.py``): ``comm``, the group of
+    the row-parallel all-reduces, and ``shard``, this kv-head shard's
+    (rank, size), by which k-means++ seeds each group's global index;
+    params and cfg are then the shard's."""
 
     def __init__(self, cfg: EngineConfig, params: dict, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, *, comm=None, shard=(0, 1)):
         self.device = resolve_device(device)
         if cfg.runtime.policy != "pq_search":
             raise ValueError(f"the offload tier runs pq_search, not "
@@ -129,6 +133,8 @@ class OffloadEngine:
         self.store: Optional[HostKVStore] = None
         self.timings: dict = {}
         self.budget: Optional[Budget] = None
+        self.comm = comm
+        self.shard = shard
 
     # -- state -------------------------------------------------------------
 
@@ -185,9 +191,12 @@ class OffloadEngine:
             xb, st.phi[idx] = pq.ip2l2_lift(xb, n_valid_tail)
         gen = torch.Generator(device=k.device).manual_seed(
             self.cfg.pq.kmeans_seed)
+        G = xb.shape[0]
         res = pq.kmeans(xb, self.C,
                         iters=self.cfg.pq.kmeans_iters,
-                        valid_len=n_valid_tail, generator=gen)
+                        valid_len=n_valid_tail, generator=gen,
+                        group_offset=self.shard[0] * G,
+                        total_groups=self.shard[1] * G)
         H_kv = k.shape[0]
         n_src = P - b.sink
         codes_src = res.codes.reshape(H_kv, self.S, n_src).to(torch.uint8)
@@ -236,7 +245,8 @@ class OffloadEngine:
                     c1 = c0 + ch
                     hidden[c0:c1] = llama.attn_mlp_chunk(
                         m, lp, hidden[c0:c1], cos[c0:c1], sin[c0:c1], k,
-                        v, pad, c0, use_kernel=self.use_kernel)
+                        v, pad, c0, use_kernel=self.use_kernel,
+                        comm=self.comm)
                     yield
             else:
                 kv = {}
@@ -246,7 +256,7 @@ class OffloadEngine:
                     return dense_prefill_attention(
                         q, k, v, pad, use_kernel=self.use_kernel)[0], None
                 hidden, _ = llama._layer_fwd(m, lp, hidden, attn_fn, cos,
-                                             sin)
+                                             sin, self.comm)
                 k, v = kv["k"], kv["v"]
             self._tail_update(st, idx, k, v, pad, true_len)
             offload_fn(idx, k, v, st)
@@ -387,7 +397,8 @@ class OffloadEngine:
             (k_new.to(dt), v_new.to(dt), None)])
         lp = llama._layer_params(self.params, idx)
         hidden = llama._finish_layer(m, lp, hidden,
-                                     out.transpose(0, 1).reshape(1, -1))
+                                     out.transpose(0, 1).reshape(1, -1),
+                                     self.comm)
         ptr, n_cand = st.ring_ptr, st.n_cand
         ev_k = st.k_local[idx, :, ptr:ptr + 1].clone()
         ev_v = st.v_local[idx, :, ptr:ptr + 1].clone()

@@ -1195,3 +1195,80 @@ def test_w8_two_streams_at_once_match_one_stream(dev):
     for i in range(2):
         for got in outs[i]:
             assert all(torch.equal(g, w) for g, w in zip(got, want[i]))
+
+
+# ---------------------------------------------------------------------------
+# The parallel engines on the card: ranks are processes that share the one
+# card over gloo (NCCL refuses two ranks on one device)
+
+def _launch_on_card(fn, n, *args, **kwargs):
+    from pqcache_tpu_torch.parallel import launch
+    return launch.launch(fn, n, backend="gloo", devices=["cuda:0"] * n,
+                         args=args, kwargs=kwargs, timeout=600)
+
+
+def test_parallel_collective_routes_on_cuda(dev):
+    """Every Comm operation on CUDA tensors between two ranks of one card:
+    gloo's collectives take them directly, its point-to-point does not (it
+    hands the device pointer to its socket), so ring_shift takes the named
+    pinned-host route."""
+    from pqcache_tpu_torch.parallel import collectives, workers
+    res = _launch_on_card(workers.comm_ops, 2)
+    for r, out in enumerate(res):
+        assert out["all_reduce"].tolist() == [3.0] * 3
+        assert out["all_reduce_max"].tolist() == [1.0]
+        assert out["all_gather"].tolist() == [[0.0, 1.0]] * 2
+        want = torch.cat([torch.arange(12.).reshape(4, 3)[2 * r:2 * r + 2]
+                          + 100 * s for s in range(2)], 1)
+        assert torch.equal(out["all_to_all"], want)
+        assert out["ring_shift"][0].tolist() == [float(1 - r)] * 4
+        assert out["ring_shift"][1].tolist() == [1 - r]
+        assert out["all_true"] == (False, True)
+        routes = {k: s["route"] for k, s in out["stats"].items()}
+        assert routes.pop("ring_shift") == collectives.STAGED_ROUTE
+        assert set(routes.values()) == {"direct"}
+
+
+def test_parallel_tp2_on_one_card_matches_engine(dev):
+    """TPEngine at tp 2, two gloo ranks on the card, kernels on (K2 at
+    prefill, K1 at decode, each at the shard's 4 q / 2 kv heads), against
+    the single-process Engine: both teacher-forced with the Engine's
+    tokens, every step's logits within 0.125 (bf16; the all-reduce sums
+    the wo / down partials in another order). Budget 1.0: the top-k takes
+    every candidate, so a near tie of random weights' block masses cannot
+    part the two runs' selections."""
+    from pqcache_tpu_torch.parallel import workers
+    m = config.ModelConfig(name="tp-card", vocab_size=2048, hidden_size=1024,
+                           intermediate_size=2048, num_layers=2, num_heads=8,
+                           num_kv_heads=4, head_dim=128)
+    cfg = config.EngineConfig(
+        model=m, pq=config.PQConfig(n_subvec_per_head=2, n_subbits=6,
+                                    kmeans_iters=4, select_block=256),
+        budget=config.BudgetConfig(compress_ratio=1.0, recent_ratio=0.5,
+                                   sink_size=32),
+        cache=config.CacheConfig(kv_dtype="int8"),
+        runtime=config.RuntimeConfig(policy="pq_search", prefill_bucket=1024,
+                                     max_new_tokens=16, max_seq_len=8192))
+    params = llama.init_params(m, torch.Generator(device=dev).manual_seed(0),
+                               dtype=torch.bfloat16, device=dev)
+    ids = np.random.default_rng(0).integers(0, m.vocab_size, 4000)
+    ref = Engine(cfg, params, device=dev).generate(ids, 12).tokens
+    pol = get_policy(cfg, compute_budget(cfg.budget, 4096, 16), dev)
+    state = pol.init_state(torch.bfloat16)
+    toks = np.zeros(4096, np.int64)
+    toks[96:] = ids
+    with torch.no_grad():
+        own = [llama.prefill(m, params, pol, state,
+                             torch.from_numpy(toks).to(dev), 96, 4000)]
+        own += [llama.decode_step(m, params, pol, state,
+                                  torch.tensor(t, device=dev), 4000 + i)
+                for i, t in enumerate(ref[:-1])]
+    own = torch.stack(own).float().cpu()
+    res = _launch_on_card(workers.tp_generate, 2, cfg, 0, ids, 4096, 16,
+                          forced=ref, dtype=torch.bfloat16)
+    assert res[0]["tokens"] == res[1]["tokens"]
+    assert (res[0]["forced_logits"] - own).abs().max().item() <= 0.125
+    steps = len(res[0]["tokens"]) - 1
+    for r in res:
+        assert r["launches"]["flash_attention"] == m.num_layers
+        assert r["launches"]["block_topk_attention"] == m.num_layers * steps
