@@ -11,16 +11,25 @@ weights from a seeded generator) on the block path (joint-histogram scorer + K1)
 the per-token path (select_block 1: K5, and K6 with gather_mode "pallas"),
 the fused block-scorer path (K3 + K1) and the score-reading policies h2o
 ("sum" and "max") and infllm (K2 + K4 at prefill), checks that each request
-launched exactly the kernels of its path, profiles a few decode steps of
-each path (device time and launches per step), then holds the kernels
-against the plain versions end to end at reduced depth. Then bench.py's
-batched protocol at 8 layers: one 32k prompt inserted into B = 8 and B = 1
-slots, pq_search (int8 tail, K1 with the local window), its per-token arm
+launched exactly the kernels of its path. The trace phase then splits a few
+decode steps of five paths (block, per-token, K3, h2o, infllm) at 32000
+tokens into pq / fetch / transfer / model device time with
+``harness/trace.py`` (the JAX package's scopes around each launch; the
+buckets must add up, every device event must join a host launch, fetch
+time shows only on the block paths and pq time on no dense policy), with
+their device time, launches and top kernels per step, and runs the trace
+and profile_decode command lines at their defaults on the card. Then the
+kernels are held against the plain versions end to end at reduced depth.
+Then bench.py's batched protocol at 8 layers: one 32k prompt inserted
+into B = 8 and B = 1 slots, pq_search (int8 tail, K1 with the local window), its per-token arm
 (BENCH_PQ_BLOCK=1: K5 at 64 folded heads) and `original`, one chunk
 decoded eagerly and replayed from a CUDA graph with identical tokens and
-states, launches per step by stage, device busy share, capture time and
-peak memory; K1 at the batched shapes, K3 at B 8, and 2-layer batched
-kernels-vs-plain checks. The W8 kernel (weight-only int8 decode products)
+states, launches per step by stage, the replayed steps split into pq /
+fetch / transfer / model (``trace.decompose_replayed``: each replayed
+kernel takes the scope of the eager step's kernel at its index; every
+replayed device event joined, the split's total the profile's device
+time), device busy share, capture time and peak memory; K1 at the
+batched shapes, K3 at B 8, and 2-layer batched kernels-vs-plain checks. The W8 kernel (weight-only int8 decode products)
 is held against its plain version at every weight shape of the path and at
 its two groups of one launch (q/k/v, gate/up) at M 1 and 8, each launch
 timed by graph replay, and timed per batched step (4 launches a layer); the Engine also serves a W8 request, a
@@ -88,6 +97,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -96,6 +106,7 @@ import torch
 from pqcache_tpu_torch import bench, config
 from pqcache_tpu_torch.core import pq, quant
 from pqcache_tpu_torch.core.budget import compute_budget
+from pqcache_tpu_torch.harness import profile_decode, trace
 from pqcache_tpu_torch.models import llama
 from pqcache_tpu_torch.native import lfu_cache
 from pqcache_tpu_torch.ops import _build, adc, block_attn, dispatch, w8
@@ -111,7 +122,7 @@ from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
 from pqcache_tpu_torch.parallel import workers
 from pqcache_tpu_torch.policies import h2o, infllm
 from pqcache_tpu_torch.policies.base import get_policy
-from pqcache_tpu_torch.runtime import offload_engine, stages
+from pqcache_tpu_torch.runtime import offload_engine
 from pqcache_tpu_torch.runtime.generate import (Engine, bucket_length,
                                                 params_to)
 from pqcache_tpu_torch.runtime.offload_engine import OffloadEngine
@@ -223,6 +234,15 @@ W8_HEAD = (4096, 128256)
 
 def log(*a):
     print(*a, flush=True)
+
+
+# the Chrome traces of the trace phase and the batched splits: one
+# temporary directory for the run, removed at its end (main)
+_TRACES = None
+
+
+def _trace_dir(label: str) -> str:
+    return os.path.join(_TRACES.name, label)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1154,44 +1174,98 @@ def main_path(dev, params, model) -> dict:
     return total
 
 
+# The engines of the trace phase's eager split (a), and what each must show:
+# K1 runs under pq_fetch on the block paths; the per-token path gathers by
+# an unscoped index (gather_mode "xla"), as the JAX package does; h2o and
+# infllm call no scoped function
+TRACE_ENGINES = ("block-bf16", "token", "k3", "h2o-sum", "infllm")
+TRACE_STEPS = 4
+
+
+def _hold_split(what: str, res: dict, fetch: bool, pq_time: bool) -> None:
+    """The buckets add up to total_ms, every device event joined a host
+    launch, and fetch / pq time is there or not as the path says."""
+    parts = sum(res[f"{b}_ms"] for b in trace.BUCKETS)
+    ok = (abs(parts - res["total_ms"]) <= 1e-9 * max(1.0, res["total_ms"])
+          and res["unmapped_ms"] == 0 and res["total_ms"] > 0
+          and (res["fetch_ms"] > 0) == fetch and (res["pq_ms"] > 0) == pq_time)
+    if not ok:
+        raise SystemExit(f"{what}: the split fails its holds (fetch "
+                         f"{'>' if fetch else '='} 0, pq "
+                         f"{'>' if pq_time else '='} 0, unmapped 0): {res}")
+
+
+def _split_line(res: dict) -> str:
+    return ", ".join(f"{b} {res[f'{b}_ms']:.3f}" for b in trace.BUCKETS) + (
+        f", total {res['total_ms']:.3f}, unmapped {res['unmapped_ms']:.3f} "
+        f"ms/step")
+
+
 def decode_profile(dev, params, model, engine: str, n_prompt: int = 32000,
-                   steps: int = 4) -> None:
-    """Where a decode step's time goes: torch.profiler over `steps` decode
-    steps after the prefill of one request. Prints the device time per step
-    (the sum of the CUDA kernels' own times, one stream, so they do not
-    overlap), the kernel launches per step and the kernels that take the
-    most device time, beside the profiled wall time per step. The profiler
-    adds host time per op, so the device's busy share is read against the
-    unprofiled decode ms/token of the main path."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+                   steps: int = TRACE_STEPS) -> None:
+    """Where a decode step's time goes: ``harness/trace.decompose`` over
+    `steps` decode steps after the prefill of one request (a warm run, then
+    a run profiled with the scope marks on). Prints the split into pq /
+    fetch / transfer / model device ms per step, the device time per step
+    (the device events' own times, one stream, so they do not overlap), the
+    kernel launches per step and the kernels that take the most device
+    time, beside the profiled wall time per step, and holds the split
+    (``_hold_split``). The profiler adds host time per op, so the device's
+    busy share is read against the unprofiled decode ms/token of the main
+    path."""
     eng = Engine(engine_cfg(model, engine), params, device=dev)
     ids = np.random.default_rng(SEED + 2).integers(0, model.vocab_size,
                                                    n_prompt)
-    it = eng.generate_stream(ids, steps + 1, chunk=steps)
+    it = eng.generate_stream(ids, 2 * steps + 1, chunk=steps)
     next(it)                                  # prefill and the first token
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    toks, walls = [], []
+
+    def run():
         t = time.perf_counter()
-        toks = list(it)
+        toks.extend(next(it) for _ in range(steps))
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3 / steps
-    if len(toks) != steps:
-        raise SystemExit(f"decode profile ({engine}): {len(toks)} tokens")
-    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / steps
-    if not ev or dev_ms <= 0:
-        log(f"decode profile {engine} prompt={n_prompt}: the profiler saw no "
-            f"device time (not measured); wall {wall_ms:.2f} ms/step")
-        return
-    launches = sum(e.count for e in ev) / steps
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"decode profile {engine} prompt={n_prompt}: device "
-        f"{dev_ms:.3f} ms/step in {launches:.0f} kernel launches/step; wall "
-        f"under the profiler {wall_ms:.2f} ms/step; top kernels (ms/step): "
-        + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / steps:.3f}"
-                    for e in top))
+        walls.append((time.perf_counter() - t) * 1e3 / steps)
+    res = trace.decompose(run, steps=steps, trace_dir=_trace_dir(engine))
+    s = res["summary"]
+    if len(toks) != 2 * steps or s["dev_ms"] <= 0:
+        raise SystemExit(f"decode profile ({engine}): {len(toks)} tokens, "
+                         f"device {s['dev_ms']} ms")
+    log(f"decode profile {engine} prompt={n_prompt}: split "
+        + _split_line(res) + f"; device {s['dev_ms']:.3f} ms/step in "
+        f"{s['kernels']:.0f} kernel launches/step (+ {s['copies']:.0f} "
+        f"copies, {s['copy_ms']:.3f} ms); wall under the profiler "
+        f"{walls[-1]:.2f} ms/step; top kernels (ms/step): {s['top']}")
+    _hold_split(f"decode profile {engine}", res,
+                fetch=engine in ("block-bf16", "k3"),
+                pq_time=engine in ("block-bf16", "k3", "token"))
+
+
+def trace_clis(dev) -> None:
+    """The two command lines at their defaults, in process: the trace CLI
+    for pq_search at BLOCK 1 and 256 and for `original` (each JSON line's
+    split held as the eager split is), profile_decode for `original` and
+    pq_search from the randomized state and with PREFILL=1."""
+    t = time.perf_counter()
+    for env, names, fetch in ((dict(), ["pq_search", "original"], False),
+                              (dict(BLOCK="256"), ["pq_search"], True)):
+        env["TRACE_DIR"] = _trace_dir(f"cli-{env.get('BLOCK', '1')}")
+        for line in trace.main(names, env=env):
+            pq_path = line["policy"] == "pq_search"
+            _hold_split(f"trace CLI {line['policy']} BLOCK "
+                        f"{line['block']}", line, fetch and pq_path, pq_path)
+            if line["device"] != "cuda" or not line["gpu_name_power"]:
+                raise SystemExit(f"trace CLI line off the card: {line}")
+        torch.cuda.empty_cache()
+    for env in (dict(), dict(PREFILL="1")):
+        got = profile_decode.main([], env=env)
+        for name, loops in got.items():
+            if len(loops) != 4 or not all(
+                    bool(((x >= 0) & (x < 128256)).all()) for x in loops):
+                raise SystemExit(f"profile_decode {env} {name}: {loops}")
+        torch.cuda.empty_cache()
+    log(f"trace and profile_decode command lines: "
+        f"{time.perf_counter() - t:.1f} s")
 
 
 def _policy(model, engine: str, kernels: str, n_prompt: int, dev,
@@ -1475,8 +1549,9 @@ BATCH_CTX = 32768         # bench.py's prompt: one 32k prompt, no pad
 BATCH_GEN = 128           # bench.py's gen: one chunk of ring_k = 128 steps
 BATCH_PROFILE = 4         # profiled steps (a short chunk of its own)
 # the most steps the phase decodes on one batched state (two chunks, the
-# profiled steps, a whole profiled chunk), reserved as max_new_tokens
-BATCH_STEPS = 3 * BATCH_GEN + BATCH_PROFILE
+# profiled steps with trace.decompose_replayed's three eager steps and its
+# leading replay, a whole profiled chunk), reserved as max_new_tokens
+BATCH_STEPS = 3 * BATCH_GEN + BATCH_PROFILE + 4
 BATCH_SEGMENT = 16        # steps per profile of a whole replayed chunk
 # the batched arms: bench.py's default (select_block 256, the jhist scorer,
 # K1), the same with bench.py's default W8 weights (BENCH_W_INT8=1: the W8
@@ -1530,68 +1605,14 @@ def batched_cfg(model, policy: str, kernels: str = "auto",
             max_seq_len=BATCH_CTX + 2048, kernels=kernels))
 
 
-def _profile(run, steps: int) -> dict:
-    """torch.profiler over run() (a chunk of `steps` steps and its flush):
-    device kernels per step by name and their device ms per step; host
-    launches per step (kernel launches, graph launches) attributed to the
-    stage ranges that hold them (runtime/stages.py), and device ms per
-    step attributed to the stage ranges' device spans that hold each
-    kernel's start (marked steps only: an eager run under recording())."""
-    import bisect
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    evs = prof.events()
-    # device events: kernels (not copies, not the stage marks' own device
-    # ranges, which span their kernels)
-    dev_ev = [e for e in evs if e.device_type == DeviceType.CUDA
-              and not e.name.startswith(("Memcpy", "Memset", stages.PREFIX))]
-    by_name = {}
-    for e in dev_ev:
-        by_name[e.name] = by_name.get(e.name, 0) + 1
-    ranges = sorted((e.time_range.start, e.time_range.end,
-                     e.name[len(stages.PREFIX):]) for e in evs
-                    if e.name.startswith(stages.PREFIX))
-    starts = [r[0] for r in ranges]
-    by_stage, graph_launches = {}, 0
-    for e in evs:
-        if e.device_type == DeviceType.CUDA:
-            continue
-        if "GraphLaunch" in e.name:
-            graph_launches += 1
-        if "LaunchKernel" not in e.name:
-            continue
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        st = (ranges[i][2] if i >= 0 and e.time_range.start < ranges[i][1]
-              else "other")
-        by_stage[st] = by_stage.get(st, 0) + 1
-    dev_t = {}
-    for e in dev_ev:
-        dev_t[e.name] = dev_t.get(e.name, 0.0) + e.self_device_time_total
-    spans = sorted((e.time_range.start, e.time_range.end,
-                    e.name[len(stages.PREFIX):]) for e in evs
-                   if e.device_type == DeviceType.CUDA
-                   and e.name.startswith(stages.PREFIX))
-    span_starts = [r[0] for r in spans]
-    dev_stage = {}
-    for e in dev_ev:
-        i = bisect.bisect_right(span_starts, e.time_range.start) - 1
-        st = (spans[i][2] if i >= 0 and e.time_range.start < spans[i][1]
-              else "other")
-        dev_stage[st] = dev_stage.get(st, 0.0) + e.self_device_time_total
-    top = sorted(dev_t.items(), key=lambda kv: -kv[1])[:8]
-    return dict(
-        kernels=len(dev_ev) / steps,
-        dev_ms=sum(e.self_device_time_total for e in dev_ev) / 1e3 / steps,
-        top="; ".join(f"{k[:56]} {v / 1e3 / steps:.3f}" for k, v in top),
-        host_launches=sum(by_stage.values()) / steps,
-        graph_launches=graph_launches / steps,
-        by_stage={k: v / steps for k, v in sorted(by_stage.items())},
-        dev_stage={k: v / 1e3 / steps for k, v in sorted(dev_stage.items())},
-        by_name=by_name)
+def _profile(run, steps: int, record: bool = False) -> dict:
+    """torch.profiler over run() (`steps` steps), summarized by
+    ``harness/trace.summarize``: device kernels per step by name and their
+    device ms per step; host launches per step attributed to the stage
+    ranges that hold them, and device ms per step to the stage ranges'
+    device spans (with ``record``: an eager run with its stages marked)."""
+    return trace.summarize(trace.profiled(run, record=record).events(),
+                           steps)
 
 
 def _same_state(a, b) -> bool:
@@ -1651,13 +1672,17 @@ def batched_run(dev, model, params, pol, state, first: int, B: int,
     # the tail has room for it (the pq arm at B 8), a whole replayed chunk
     # of ring_k steps in BATCH_SEGMENT-step profiles, counted per segment
     steps = BATCH_PROFILE
-    with stages.recording():
-        prof_eager = _profile(lambda: eager.decode(
-            want[-1], pos + n, steps), steps)
+    prof_eager = _profile(lambda: eager.decode(want[-1], pos + n, steps),
+                          steps, record=True)
+    # the replayed steps split by cause (harness/trace.py): three eager
+    # steps of the replaying decoder (the last one's kernels named and
+    # scoped in launch order), then the replays, joined to it by order
     _zero_counts()
-    prof_replay = _profile(lambda: replay.decode(
-        got[-1], pos + 2 * n, steps), steps)
+    split = trace.decompose_replayed(replay, got[-1], pos + 2 * n,
+                                     steps=steps,
+                                     trace_dir=_trace_dir(f"{name}-B{B}"))
     replay_counted = _counts()
+    prof_replay = split["summary"]
     path = BATCH_ARMS[name][2]
 
     def path_seen(profiles):
@@ -1666,7 +1691,7 @@ def batched_run(dev, model, params, pol, state, first: int, B: int,
     seen = path_seen([prof_replay])
     whole = ""
     if name == "pq_search" and B == 8:
-        replay.begin(got[-1], pos + 2 * n + steps)
+        replay.begin(got[-1], pos + 2 * n + steps + 4)
         segs = [_profile(lambda: [replay.step()
                                   for _ in range(BATCH_SEGMENT)],
                          BATCH_SEGMENT) for _ in range(n // BATCH_SEGMENT)]
@@ -1704,25 +1729,47 @@ def batched_run(dev, model, params, pol, state, first: int, B: int,
         f"host; device {prof_replay['dev_ms']:.3f} ms/step, "
         f"busy {prof_replay['dev_ms'] / replay_ms:.1%} of the unprofiled "
         f"replayed step; path kernels seen {seen}, counted by the wrappers "
-        f"during the replays {replay_counted}; top kernels (ms/step): "
+        f"in the split's three eager steps (the replays count none) "
+        f"{replay_counted}; top kernels (ms/step): "
         + prof_replay["top"] + whole)
+    events = prof_replay["kernels"] + prof_replay["copies"]
+    log(f"batched {name} B={B} replayed split over {steps} steps (each "
+        f"replayed kernel given the scope of the eager step's kernel at its "
+        f"index): " + _split_line(split) + f"; {split['joined']} replayed "
+        f"device events joined to an eager step of {split['kernels']}, "
+        f"{split['launched']} launched by the host around the replays")
+    _hold_split(f"batched {name} B={B} replayed split", split,
+                fetch="block_topk_attention" in path,
+                pq_time=name.startswith("pq_search"))
     want_eager = {k: n * _per_step(k, L) * (k in path) for k in KERNELS}
     want_capture = {k: 2 * _per_step(k, L) * (k in path) for k in KERNELS}
+    want_trace = {k: 3 * _per_step(k, L) * (k in path) for k in KERNELS}
     if (not same_tokens or not same_state or eager_counts != want_eager
             or capture_counts != want_capture
             or any(seen[k] != _per_step(k, L) * steps for k in path)
-            or any(replay_counted.values())
+            or replay_counted != want_trace
+            or split["joined"] != split["kernels"] * steps
+            or split["joined"] + split["launched"] != round(events * steps)
+            or abs(split["total_ms"] - prof_replay["dev_ms"]
+                   - prof_replay["copy_ms"]) > 1e-9 * split["total_ms"]
             or not bool(((got >= 0) & (got < model.vocab_size)).all())):
         raise SystemExit(
             f"batched {name} B={B} failed: tokens {same_tokens}, states "
             f"{same_state}, eager launches {eager_counts} (expected "
             f"{want_eager}), capture {capture_counts} (expected "
-            f"{want_capture}), replayed path kernels {seen}")
+            f"{want_capture}), replayed path kernels {seen}, launches of "
+            f"the split's three eager steps {replay_counted} (expected "
+            f"{want_trace}), joined {split['joined']} and launched "
+            f"{split['launched']} of {events * steps:.0f} device events, "
+            f"split total "
+            f"{split['total_ms']} of {prof_replay['dev_ms']} + "
+            f"{prof_replay['copy_ms']} ms")
     replayed = {k: replay.replays * seen[k] // steps for k in path}
     out = dict(eager_ms=eager_ms, replay_ms=replay_ms, peak_gib=peak,
                capture_s=replay.capture_seconds, counts=eager_counts,
-               replayed=replayed,
-               capture_counts=capture_counts, bstate=bstate)
+               replayed=replayed, split=split,
+               capture_counts=capture_counts, trace_counts=replay_counted,
+               bstate=bstate)
     del twin, eager, replay
     return out
 
@@ -1856,7 +1903,8 @@ def batched_phase(dev, params, model) -> tuple:
         for B in (8, 1):
             r = batched_run(dev, model, arm_params, pol, state, first, B,
                             name)
-            for counts in (r["counts"], r["capture_counts"]):
+            for counts in (r["counts"], r["capture_counts"],
+                           r["trace_counts"]):
                 for k, v in counts.items():
                     launches[k] += v
             for k, v in r["replayed"].items():
@@ -3174,6 +3222,8 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global _TRACES
+    _TRACES = tempfile.TemporaryDirectory(prefix="chip_smoke_traces_")
     t0 = time.perf_counter()
     environment()
     entries = [k2_phase(dev), k4_phase(dev), k1_phase(dev), k3_phase(dev),
@@ -3190,9 +3240,13 @@ def main() -> int:
     launches = main_path(dev, params, model)
     log(f"main path done at {time.perf_counter() - t0:.0f} s; launches "
         f"{launches}")
-    for engine in ("block-bf16", "token", "k3", "h2o-sum", "infllm"):
+    t_trace = time.perf_counter()
+    for engine in TRACE_ENGINES:
         decode_profile(dev, params, model, engine)
-    log(f"decode profiles done at {time.perf_counter() - t0:.0f} s")
+    torch.cuda.empty_cache()
+    trace_clis(dev)
+    log(f"trace phase done at {time.perf_counter() - t0:.0f} s "
+        f"({time.perf_counter() - t_trace:.1f} s)")
     self_check(dev, params, model, "block-bf16")
     self_check(dev, params, model, "token", shared_compress=0.2)
     self_check(dev, params, model, "k3")
@@ -3250,6 +3304,7 @@ def main() -> int:
             "replayed_launches", "max_abs_err",
             "max_row_rel_err", "ms", "call_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    _TRACES.cleanup()
     log(f"total {time.perf_counter() - t0:.0f} s")
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from pqcache_tpu_torch.runtime.stages import scoped
+
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
@@ -221,6 +223,7 @@ def _kmeanspp_init_sharded(x, w, n_clusters: int, generator: torch.Generator,
     return torch.stack(out, 1)
 
 
+@scoped("pq_kmeans")
 def kmeans(x: torch.Tensor, n_clusters: int, iters: int, *,
            seed: int = 4321, valid_len=None, chunk: int = 4096,
            init_centroids: Optional[torch.Tensor] = None,
@@ -299,6 +302,7 @@ def kmeans(x: torch.Tensor, n_clusters: int, iters: int, *,
     return KMeansResult(centroids=centroids, codes=codes[:, :N])
 
 
+@scoped("pq_append")
 def pq_encode(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Nearest-centroid encoding. x [G, M, d], centroids [G, C, d] ->
     codes [G, M] int64."""
@@ -308,6 +312,7 @@ def pq_encode(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     return dist.argmin(-1)
 
 
+@scoped("pq_score")
 def adc_lut_euc(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Inner-product lookup table for the "euc" metric. q [H, S, d] per
     q-head subvectors; centroids [H_kv, S, C, d], shared over the GQA group.
@@ -319,6 +324,7 @@ def adc_lut_euc(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
         H, S, -1)
 
 
+@scoped("pq_score")
 def adc_lut_ip(q_lifted: torch.Tensor, centroids: torch.Tensor
                ) -> torch.Tensor:
     """Squared-L2 lookup table of the "ip" metric. q_lifted [H, S, d+1];
@@ -331,6 +337,7 @@ def adc_lut_ip(q_lifted: torch.Tensor, centroids: torch.Tensor
     return (diff * diff).sum(-1).reshape(H, S, -1)
 
 
+@scoped("pq_score")
 def adc_gather_scores(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """Gather and sum the LUT by PQ codes. lut [H, S, C]; codes [H_kv, S, T]
     (shared by each GQA group). Returns scores [H, T] f32 with
@@ -358,6 +365,7 @@ def jhist_dtype(block: int) -> torch.dtype:
     return torch.uint8
 
 
+@scoped("pq_score")
 def build_joint_hist(codes: torch.Tensor, n_valid: int, *, n_centroids: int,
                      block: int) -> torch.Tensor:
     """codes [H_kv, 2, T] (T % block == 0); tokens at index >= n_valid are
@@ -385,6 +393,7 @@ def jhist_increment(J: torch.Tensor, idx) -> None:
     J[idx] = torch.clamp(cur + 1, max=255).to(J.dtype)
 
 
+@scoped("pq_append")
 def jhist_add_tokens(J: torch.Tensor, codes_tok: torch.Tensor, pos: int, *,
                      n_centroids: int, block: int) -> None:
     """Count newly-joined candidate tokens into the histogram, in place.
@@ -407,6 +416,7 @@ def jhist_exp_lut(lut: torch.Tensor, head_dim: int) -> torch.Tensor:
     return torch.exp((lut.float() - m) / (head_dim ** 0.5))
 
 
+@scoped("pq_score")
 def joint_block_mass(lut: torch.Tensor, J: torch.Tensor, *, head_dim: int,
                      normalize: bool = True) -> torch.Tensor:
     """Per-q-head block attention mass from the joint histogram.
@@ -459,6 +469,7 @@ def _group_mass(scores, n_valid, group: int, head_dim: int):
     return probs.reshape(H_kv, group, T).sum(1), valid_kv
 
 
+@scoped("pq_select")
 def group_scores(scores: torch.Tensor, n_valid, *, group: int, head_dim: int,
                  metric: str = "euc") -> torch.Tensor:
     """GQA-reduced per-kv-head candidate importances: euc, the softmax
@@ -476,6 +487,7 @@ def group_scores(scores: torch.Tensor, n_valid, *, group: int, head_dim: int,
     return torch.where(valid_kv, g, -torch.inf)
 
 
+@scoped("pq_select")
 def mips_topk(scores: torch.Tensor, n_valid, k: int, *, group: int,
               head_dim: int, metric: str = "euc", approx: bool = False):
     """GQA-reduced per-token top-k (ties to the lower index). euc:
@@ -496,6 +508,7 @@ def mips_topk(scores: torch.Tensor, n_valid, k: int, *, group: int,
     return _topk_stable(torch.where(valid_kv, g, -torch.inf), k)[1], g
 
 
+@scoped("pq_select")
 def mips_topk_blocks(scores: torch.Tensor, n_valid, k_tokens: int, *,
                      group: int, head_dim: int, block: int,
                      metric: str = "euc", approx: bool = False):
@@ -525,6 +538,7 @@ def mips_topk_blocks(scores: torch.Tensor, n_valid, k_tokens: int, *,
                                 block=block), g
 
 
+@scoped("pq_select")
 def topk_from_block_mass(blk_mass: torch.Tensor, n_valid, k_tokens: int, *,
                          group: int, block: int,
                          approx: bool = False) -> torch.Tensor:

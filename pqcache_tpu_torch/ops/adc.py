@@ -17,11 +17,13 @@ import math
 import torch
 
 from pqcache_tpu_torch.ops import _build
+from pqcache_tpu_torch.runtime.stages import scoped
 
 SUPPORTED_SUBVECS = (1, 2, 4, 8, 16)
 MAX_GROUP = 8             # K3: q heads per kv head (csrc/adc.cu MAX_G)
 
 
+@scoped("pq_score")
 def adc_scores_ref(lut: torch.Tensor, codes: torch.Tensor, *,
                    round_lut_bf16: bool = False) -> torch.Tensor:
     """Plain version of adc_scores (same contract)."""
@@ -54,6 +56,7 @@ def _check_adc(name, lut, codes):
     return lut.contiguous(), codes.contiguous()
 
 
+@scoped("pq_score")
 def adc_scores(lut: torch.Tensor, codes: torch.Tensor, *,
                round_lut_bf16: bool = False) -> torch.Tensor:
     """Per-token ADC scores.
@@ -90,6 +93,7 @@ def _n_cand_rows(n_cand, B: int, device):
     return n_cand
 
 
+@scoped("pq_score")
 def adc_block_scores_ref(lut: torch.Tensor, codes: torch.Tensor, n_cand, *,
                          sel_block: int, head_dim: int) -> torch.Tensor:
     """Plain version of adc_block_scores (same contract)."""
@@ -109,6 +113,7 @@ def adc_block_scores_ref(lut: torch.Tensor, codes: torch.Tensor, n_cand, *,
     return out if batched else out[0]
 
 
+@scoped("pq_score")
 def adc_block_scores(lut: torch.Tensor, codes: torch.Tensor, n_cand, *,
                      sel_block: int, head_dim: int) -> torch.Tensor:
     """Fused ADC -> softmax -> per-block attention mass (euclidean metric).

@@ -18,6 +18,7 @@ import torch
 
 from pqcache_tpu_torch.ops import _build
 from pqcache_tpu_torch.ops.attention_ref import NEG_INF
+from pqcache_tpu_torch.runtime.stages import scoped
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 SUPPORTED_GROUPS = (1, 2, 4, 8)
@@ -44,6 +45,7 @@ def _per_head(x, H_kv: int, device) -> torch.Tensor:
     return torch.full((H_kv,), int(x), dtype=torch.long, device=device)
 
 
+@scoped("pq_fetch")
 def block_topk_attention_ref(q, kv_tail, layer, blk_idx, n_cand, *, block,
                              pair: bool = False, win_len=None,
                              win_max: int = 0):
@@ -100,6 +102,7 @@ def _count_arg(x, H_kv: int, device, what: str):
     return x, x.data_ptr(), int(x.dim() == 1), 0
 
 
+@scoped("pq_fetch")
 def block_topk_attention(q: torch.Tensor, kv_tail: torch.Tensor, layer,
                          blk_idx: torch.Tensor, n_cand, *, block: int,
                          n_par: int = 4, pair: bool = False, win_len=None,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from pqcache_tpu_torch.ops import _build
+from pqcache_tpu_torch.runtime.stages import scoped
 
 
 def _heads(src, idx, head_offset: int):
@@ -24,6 +25,7 @@ def _heads(src, idx, head_offset: int):
     return H, T
 
 
+@scoped("pq_fetch")
 def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor,
                     head_offset: int = 0) -> torch.Tensor:
     """Plain version of gather_rows (same contract)."""
@@ -33,6 +35,7 @@ def gather_rows_ref(src: torch.Tensor, idx: torch.Tensor,
     return src[heads[:, None], idx.long().clamp(0, T - 1)]
 
 
+@scoped("pq_fetch")
 def gather_rows(src: torch.Tensor, idx: torch.Tensor,
                 head_offset: int = 0) -> torch.Tensor:
     """src [H_total, T, D'] of any dtype; idx [H, K] int32 or int64 ->

@@ -151,13 +151,15 @@ class BatchedDecoder:
         self.graph = graph
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, eager: bool = False) -> None:
         """One decode step of the chunk begun: replayed, captured first if
-        need be, or eager."""
+        need be, or eager (always with ``eager``: the captured step's
+        launches op by op, which ``harness/trace.py`` profiles to name the
+        kernels of a replay)."""
         self._check_room(1)
         if self.noise is not None:
             self.noise.fill_(self.gumbel)
-        if not self.use_graph:
+        if eager or not self.use_graph:
             self._step()
         elif self.graph is None:
             self._warm_up_and_capture()

@@ -700,6 +700,36 @@ def test_graph_replay_matches_eager_decode(dev, case):
                            twin.n_cand.cpu())
 
 
+def test_decompose_replayed_joins_every_replayed_kernel(dev, tmp_path):
+    # harness/trace.py's split of a replayed BatchedDecoder: every device
+    # event of 4 replays joined, by launch order, to the eager step's
+    # kernels (what the host launches around a replay joins its host op);
+    # K1 under pq_fetch, the scorer under pq_score; the split's total the
+    # replayed profile's device time; one graph launch a step
+    from pqcache_tpu_torch.harness import trace
+    from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
+    cfg, params, pol, state, tok, pos = _batched_setup(
+        dev, "pq_search", dict(select_block=64))
+    dec = BatchedDecoder(cfg, params, pol, state, chunk=12)
+    res = trace.decompose_replayed(dec, tok, pos, steps=4,
+                                   trace_dir=str(tmp_path))
+    s = res["summary"]
+    assert dec.replays == 5
+    assert res["joined"] == res["kernels"] * 4
+    assert res["joined"] + res["launched"] == round(
+        (s["kernels"] + s["copies"]) * 4)
+    assert res["unmapped_ms"] == 0.0, res
+    assert res["pq_ms"] > 0 and res["fetch_ms"] > 0 and res["model_ms"] > 0
+    assert res["total_ms"] == pytest.approx(s["dev_ms"] + s["copy_ms"])
+    assert res["total_ms"] == pytest.approx(
+        sum(res[f"{b}_ms"] for b in trace.BUCKETS))
+    assert s["graph_launches"] == 1.0
+    # the eager split of the same decoder's steps joins its launches too
+    dec.begin(tok, pos)
+    eager = trace.decompose(lambda: [dec.step(eager=True) for _ in range(2)],
+                            steps=2)
+    assert eager["unmapped_ms"] == 0.0 and eager["fetch_ms"] > 0
+
 def test_segment_merge_in_bf16_gemms_matches_f32_copies(dev):
     # the decode segment merge multiplies bf16 q, keys and probabilities
     # with bf16 values as bf16 GEMMs that write f32: the same products as
