@@ -16,6 +16,11 @@ Every weight product goes through ``_mm``, ``embed_lookup`` and
 of ``core/quant.quantize_weight_tree`` (int8 matrices beside '<name>_s'
 scales): decode rows through the W8 kernel (``ops/w8.py``), prefill rows
 through a dequantized copy and ``torch.matmul``.
+
+Each prefill entry point (``prefill``, ``prefill_chunked``,
+``prefill_with_prefix``, ``prefill_chunk_step``, ``prefill_finish_tail``)
+runs in a ``prefill`` span (``runtime/stages.py``) with its rows as
+``tokens``.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from pqcache_tpu_torch.config import ModelConfig
 from pqcache_tpu_torch.ops import w8
 from pqcache_tpu_torch.ops.dispatch import (dense_prefill_attention,
                                             prefill_chunk_attention)
-from pqcache_tpu_torch.runtime.stages import stage
+from pqcache_tpu_torch.runtime.stages import span, stage
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -267,18 +272,18 @@ def prefill(cfg: ModelConfig, params: dict, policy, state,
     ``comm``: the tensor-parallel group (``_finish_layer``), None on one
     device; every function below that runs layers takes it alike."""
     P = tokens.shape[0]
-    hidden = embed_lookup(params, tokens)
-    positions = torch.clamp(torch.arange(P, device=tokens.device) - pad_len,
-                            min=0)
-    cos, sin = rope_cos_sin(cfg, positions)
-    for idx in range(cfg.num_layers):
-        def attn_fn(q, k, v, idx=idx):
-            return policy.prefill_attn(state, idx, q, k, v, pad_len,
-                                       true_len), None
-        hidden, _ = _layer_fwd(cfg, _layer_params(params, idx), hidden,
-                               attn_fn, cos, sin, comm)
-    return _logits(cfg, params, hidden[P - 1:P])
-
+    with span("prefill", tokens=P):
+        hidden = embed_lookup(params, tokens)
+        positions = torch.clamp(
+            torch.arange(P, device=tokens.device) - pad_len, min=0)
+        cos, sin = rope_cos_sin(cfg, positions)
+        for idx in range(cfg.num_layers):
+            def attn_fn(q, k, v, idx=idx):
+                return policy.prefill_attn(state, idx, q, k, v, pad_len,
+                                           true_len), None
+            hidden, _ = _layer_fwd(cfg, _layer_params(params, idx), hidden,
+                                   attn_fn, cos, sin, comm)
+        return _logits(cfg, params, hidden[P - 1:P])
 
 def kv_full_chunked(cfg: ModelConfig, lp: dict, hidden: torch.Tensor,
                     cos, sin, chunk: int):
@@ -333,20 +338,21 @@ def prefill_chunked(cfg: ModelConfig, params: dict, policy, state,
         raise ValueError(f"prefill length {P} not a multiple of chunk "
                          f"{chunk}")
     use_kernel = getattr(policy, "use_kernel", True)
-    hidden = embed_lookup(params, tokens)
-    positions = torch.clamp(torch.arange(P, device=tokens.device) - pad_len,
-                            min=0)
-    cos, sin = rope_cos_sin(cfg, positions)
-    for idx in range(cfg.num_layers):
-        lp = _layer_params(params, idx)
-        k, v = kv_full_chunked(cfg, lp, hidden, cos, sin, chunk)
-        for c0 in range(0, P, chunk):
-            c1 = c0 + chunk
-            hidden[c0:c1] = attn_mlp_chunk(
-                cfg, lp, hidden[c0:c1], cos[c0:c1], sin[c0:c1], k, v,
-                pad_len, c0, use_kernel=use_kernel, comm=comm)
-        policy.prefill_tail(state, idx, k, v, pad_len, true_len)
-    return _logits(cfg, params, hidden[P - 1:P])
+    with span("prefill", tokens=P):
+        hidden = embed_lookup(params, tokens)
+        positions = torch.clamp(
+            torch.arange(P, device=tokens.device) - pad_len, min=0)
+        cos, sin = rope_cos_sin(cfg, positions)
+        for idx in range(cfg.num_layers):
+            lp = _layer_params(params, idx)
+            k, v = kv_full_chunked(cfg, lp, hidden, cos, sin, chunk)
+            for c0 in range(0, P, chunk):
+                c1 = c0 + chunk
+                hidden[c0:c1] = attn_mlp_chunk(
+                    cfg, lp, hidden[c0:c1], cos[c0:c1], sin[c0:c1], k, v,
+                    pad_len, c0, use_kernel=use_kernel, comm=comm)
+            policy.prefill_tail(state, idx, k, v, pad_len, true_len)
+        return _logits(cfg, params, hidden[P - 1:P])
 
 
 @torch.no_grad()
@@ -368,19 +374,20 @@ def prefill_chunk_step(cfg: ModelConfig, params: dict, kbuf: torch.Tensor,
     by causality, so its inputs are ``prefill_chunked``'s, and the two give
     the same bits."""
     ch = hidden_c.shape[0]
-    positions = torch.clamp(
-        c0 + torch.arange(ch, device=hidden_c.device) - pad_len, min=0)
-    cos, sin = rope_cos_sin(cfg, positions)
-    hidden = hidden_c
-    for idx in range(cfg.num_layers):
-        lp = _layer_params(params, idx)
-        h_norm = rms_norm(hidden, lp["ln1"], cfg.rms_norm_eps)
-        kbuf[idx, :, c0:c0 + ch], vbuf[idx, :, c0:c0 + ch] = _kv_proj(
-            cfg, lp, h_norm, cos, sin)
-        hidden = attn_mlp_chunk(cfg, lp, hidden, cos, sin, kbuf[idx],
-                                vbuf[idx], pad_len, c0, use_kernel=use_kernel,
-                                comm=comm)
-    return hidden
+    with span("prefill", tokens=ch):
+        positions = torch.clamp(
+            c0 + torch.arange(ch, device=hidden_c.device) - pad_len, min=0)
+        cos, sin = rope_cos_sin(cfg, positions)
+        hidden = hidden_c
+        for idx in range(cfg.num_layers):
+            lp = _layer_params(params, idx)
+            h_norm = rms_norm(hidden, lp["ln1"], cfg.rms_norm_eps)
+            kbuf[idx, :, c0:c0 + ch], vbuf[idx, :, c0:c0 + ch] = _kv_proj(
+                cfg, lp, h_norm, cos, sin)
+            hidden = attn_mlp_chunk(cfg, lp, hidden, cos, sin, kbuf[idx],
+                                    vbuf[idx], pad_len, c0,
+                                    use_kernel=use_kernel, comm=comm)
+        return hidden
 
 
 @torch.no_grad()
@@ -392,10 +399,11 @@ def prefill_finish_tail(cfg: ModelConfig, params: dict, policy, state,
     row (a left-padded prompt ends there). With ``prefill_chunk_step`` this
     computes what ``prefill_chunked`` computes, sliced so that a scheduler
     can interleave."""
-    for idx in range(cfg.num_layers):
-        policy.prefill_tail(state, idx, kbuf[idx], vbuf[idx], pad_len,
-                            true_len)
-    return _logits(cfg, params, h_last[-1:])
+    with span("prefill", tokens=kbuf.shape[2]):
+        for idx in range(cfg.num_layers):
+            policy.prefill_tail(state, idx, kbuf[idx], vbuf[idx], pad_len,
+                                true_len)
+        return _logits(cfg, params, h_last[-1:])
 
 
 @torch.no_grad()
@@ -435,19 +443,20 @@ def prefill_with_prefix(cfg: ModelConfig, params: dict, policy, state,
     P_suf = tokens.shape[0]
     T_pre = pre_k.shape[2]
     use_kernel = getattr(policy, "use_kernel", True)
-    hidden = embed_lookup(params, tokens)
-    cos, sin = rope_cos_sin(
-        cfg, T_pre + torch.arange(P_suf, device=tokens.device))
-    for idx in range(cfg.num_layers):
-        lp = _layer_params(params, idx)
-        h_norm = rms_norm(hidden, lp["ln1"], cfg.rms_norm_eps)
-        k_suf, v_suf = _kv_proj(cfg, lp, h_norm, cos, sin)
-        k = torch.cat([pre_k[idx], k_suf], 1)
-        v = torch.cat([pre_v[idx], v_suf], 1)
-        hidden = attn_mlp_chunk(cfg, lp, hidden, cos, sin, k, v, 0, T_pre,
-                                use_kernel=use_kernel)
-        policy.prefill_tail(state, idx, k, v, 0, T_pre + int(true_suf))
-    return _logits(cfg, params, hidden[int(true_suf) - 1:int(true_suf)])
+    with span("prefill", tokens=P_suf):
+        hidden = embed_lookup(params, tokens)
+        cos, sin = rope_cos_sin(
+            cfg, T_pre + torch.arange(P_suf, device=tokens.device))
+        for idx in range(cfg.num_layers):
+            lp = _layer_params(params, idx)
+            h_norm = rms_norm(hidden, lp["ln1"], cfg.rms_norm_eps)
+            k_suf, v_suf = _kv_proj(cfg, lp, h_norm, cos, sin)
+            k = torch.cat([pre_k[idx], k_suf], 1)
+            v = torch.cat([pre_v[idx], v_suf], 1)
+            hidden = attn_mlp_chunk(cfg, lp, hidden, cos, sin, k, v, 0,
+                                    T_pre, use_kernel=use_kernel)
+            policy.prefill_tail(state, idx, k, v, 0, T_pre + int(true_suf))
+        return _logits(cfg, params, hidden[int(true_suf) - 1:int(true_suf)])
 
 
 @torch.no_grad()

@@ -17,8 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
+
+from pqcache_tpu_torch.runtime.stages import count, span
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "build" / "kernels"
@@ -41,7 +42,7 @@ SIGNATURES = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
-build_seconds: float | None = None   # wall time of the last build
+build_seconds: float | None = None   # host seconds of the last build span
 
 
 def _nvcc() -> str:
@@ -63,45 +64,51 @@ def _lib_path(src: Path) -> Path:
 
 
 def build_all(verbose: bool = False) -> dict[str, ctypes.CDLL]:
-    """Compile (if not cached) and load every kernel library. Returns
+    """Compile (if not cached) and load every kernel library, in a
+    host-only ``build`` span (``runtime/stages.py``) whose host time is
+    ``build_seconds``; the counters ``build.compiled`` and ``build.loaded``
+    count the libraries nvcc compiled and those the cache held. Returns
     {source stem: CDLL}. Raises with nvcc's output on a failed build."""
     global build_seconds
     if _libs:
         return _libs
-    t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = sorted(CSRC.glob("*.cu"))
-    procs = []
-    for src in sources:
-        dst = _lib_path(src)
-        if dst.exists():
-            continue
-        tmp = dst.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-               str(src)]
-        procs.append((src, dst, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failed = []
-    for src, dst, tmp, p in procs:
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            failed.append(f"--- {src.name} (nvcc rc {p.returncode})\n{log}")
-            continue
-        if verbose:
-            print(f"[build] {src.name}\n{log}", flush=True)
-        os.replace(tmp, dst)
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    for src in sources:
-        lib_ = ctypes.CDLL(str(_lib_path(src)))
-        for name, argtypes in SIGNATURES.get(src.stem, {}).items():
-            fn = getattr(lib_, name)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _libs[src.stem] = lib_
-    build_seconds = time.perf_counter() - t0
+    with span("build", host_only=True) as sp:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        sources = sorted(CSRC.glob("*.cu"))
+        procs = []
+        for src in sources:
+            dst = _lib_path(src)
+            if dst.exists():
+                continue
+            tmp = dst.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+                   str(src)]
+            procs.append((src, dst, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for src, dst, tmp, p in procs:
+            log, _ = p.communicate()
+            if p.returncode != 0:
+                failed.append(f"--- {src.name} (nvcc rc {p.returncode})\n"
+                              f"{log}")
+                continue
+            if verbose:
+                print(f"[build] {src.name}\n{log}", flush=True)
+            os.replace(tmp, dst)
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n"
+                               + "\n".join(failed))
+        for src in sources:
+            lib_ = ctypes.CDLL(str(_lib_path(src)))
+            for name, argtypes in SIGNATURES.get(src.stem, {}).items():
+                fn = getattr(lib_, name)
+                fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            _libs[src.stem] = lib_
+        count("build.compiled", len(procs))
+        count("build.loaded", len(sources) - len(procs))
+    build_seconds = sp.host_s
     return _libs
-
 
 def lib(stem: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<stem>.cu``."""

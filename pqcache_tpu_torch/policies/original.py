@@ -16,7 +16,7 @@ from pqcache_tpu_torch.core.budget import Budget
 from pqcache_tpu_torch.ops.attention_ref import decode_window_attention_segments
 from pqcache_tpu_torch.ops.dispatch import dense_prefill_attention
 from pqcache_tpu_torch.policies.base import register_policy, use_kernels
-from pqcache_tpu_torch.runtime.stages import stage
+from pqcache_tpu_torch.runtime.stages import span, stage
 from pqcache_tpu_torch.runtime.state import (DenseState, make_dense_state,
                                              per_head)
 
@@ -89,11 +89,12 @@ class OriginalPolicy:
         """Write a prefilled single-sequence cache into slot ``slot``."""
         H_kv = self.cfg.model.num_kv_heads
         h = slice(slot * H_kv, (slot + 1) * H_kv)
-        bstate.k_cache[:, h] = state.k_cache
-        bstate.v_cache[:, h] = state.v_cache
-        bstate.length[slot] = state.length
-        bstate.start[slot] = state.start
-        bstate.pos[slot] = state.pos
+        with span("insert_slot", slot=slot):
+            bstate.k_cache[:, h] = state.k_cache
+            bstate.v_cache[:, h] = state.v_cache
+            bstate.length[slot] = state.length
+            bstate.start[slot] = state.start
+            bstate.pos[slot] = state.pos
 
     def decode_attn_batched(self, state: DenseState, idx: int, q, k_new,
                             v_new, shared):

@@ -79,7 +79,7 @@ from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
 from pqcache_tpu_torch.ops.dispatch import dense_prefill_attention
 from pqcache_tpu_torch.ops.gather import gather_rows
 from pqcache_tpu_torch.policies.base import register_policy, use_kernels
-from pqcache_tpu_torch.runtime.stages import stage
+from pqcache_tpu_torch.runtime.stages import span, stage
 from pqcache_tpu_torch.runtime.state import PQState, make_pq_state, per_head
 
 
@@ -232,50 +232,51 @@ class PQSearchPolicy:
     def prefill_tail(self, state: PQState, idx: int, k, v, pad_len: int,
                      true_len: int) -> None:
         """Codebook training and layer-state writes from this layer's full
-        K/V [H_kv, P, D]."""
-        b = self.budget
-        P = k.shape[1]
-        # left-padded prompt -> roll so real tokens start at index 0; the
-        # rolled-around padding lands after the valid region, masked there
-        k_r = torch.roll(k, -int(pad_len), dims=1)
-        v_r = torch.roll(v, -int(pad_len), dims=1)
-        k_tail_src, v_tail_src = k_r[:, b.sink:], v_r[:, b.sink:]
-        n_valid_tail = int(true_len) - b.sink
+        K/V [H_kv, P, D], in a ``prefill_tail`` span (``runtime/stages``)."""
+        with span("prefill_tail", layer=idx):
+            b = self.budget
+            P = k.shape[1]
+            # left-padded prompt -> roll so real tokens start at index 0; the
+            # rolled-around padding lands after the valid region, masked there
+            k_r = torch.roll(k, -int(pad_len), dims=1)
+            v_r = torch.roll(v, -int(pad_len), dims=1)
+            k_tail_src, v_tail_src = k_r[:, b.sink:], v_r[:, b.sink:]
+            n_valid_tail = int(true_len) - b.sink
 
-        xb = self._to_groups(k_tail_src)                     # [G, P-sink, d]
-        phi = None
-        if self.metric == "ip":
-            xb, phi = pq.ip2l2_lift(xb, n_valid_tail)
-        gen = torch.Generator(device=k.device).manual_seed(
-            self.cfg.pq.kmeans_seed)
-        iters = (int(min(3 + P // 4096, 25)) if self.cfg.pq.adaptive_iters
-                 else self.cfg.pq.kmeans_iters)
-        G = xb.shape[0]
-        res = pq.kmeans(xb, self.C, iters=iters, valid_len=n_valid_tail,
-                        generator=gen, group_offset=self.shard[0] * G,
-                        total_groups=self.shard[1] * G)
-        n_src = P - b.sink
+            xb = self._to_groups(k_tail_src)                 # [G, P-sink, d]
+            phi = None
+            if self.metric == "ip":
+                xb, phi = pq.ip2l2_lift(xb, n_valid_tail)
+            gen = torch.Generator(device=k.device).manual_seed(
+                self.cfg.pq.kmeans_seed)
+            iters = (int(min(3 + P // 4096, 25)) if self.cfg.pq.adaptive_iters
+                     else self.cfg.pq.kmeans_iters)
+            G = xb.shape[0]
+            res = pq.kmeans(xb, self.C, iters=iters, valid_len=n_valid_tail,
+                            generator=gen, group_offset=self.shard[0] * G,
+                            total_groups=self.shard[1] * G)
+            n_src = P - b.sink
 
-        dt = state.k_sink.dtype
-        state.k_sink[idx] = k_r[:, :b.sink].to(dt)
-        state.v_sink[idx] = v_r[:, :b.sink].to(dt)
-        if self.kv_int8:
-            ks, vs = quant.kv_channel_scales(k_tail_src, v_tail_src,
-                                             n_valid_tail)
-            state.k_scale[idx], state.v_scale[idx] = ks, vs
-        state.kv_tail[idx, :, :n_src] = self._tail_kv(k_tail_src, v_tail_src,
-                                                      state, idx)
-        codes_src = res.codes.reshape(self.H_kv, self.S, n_src)
-        state.codes[idx, :, :, :n_src] = codes_src.to(torch.uint8)
-        state.centroids[idx] = res.centroids.reshape(self.H_kv, self.S,
-                                                     self.C, -1)
-        state.phi[idx] = 0.0 if phi is None else phi
-        n_cand0 = max(n_valid_tail - b.local, 0)
-        state.n_cand, state.pos = n_cand0, int(true_len)
-        if self.use_jhist:
-            state.jhist[idx] = pq.build_joint_hist(
-                state.codes[idx], n_cand0, n_centroids=self.C,
-                block=self.select_block)
+            dt = state.k_sink.dtype
+            state.k_sink[idx] = k_r[:, :b.sink].to(dt)
+            state.v_sink[idx] = v_r[:, :b.sink].to(dt)
+            if self.kv_int8:
+                ks, vs = quant.kv_channel_scales(k_tail_src, v_tail_src,
+                                                 n_valid_tail)
+                state.k_scale[idx], state.v_scale[idx] = ks, vs
+            state.kv_tail[idx, :, :n_src] = self._tail_kv(
+                k_tail_src, v_tail_src, state, idx)
+            codes_src = res.codes.reshape(self.H_kv, self.S, n_src)
+            state.codes[idx, :, :, :n_src] = codes_src.to(torch.uint8)
+            state.centroids[idx] = res.centroids.reshape(self.H_kv, self.S,
+                                                         self.C, -1)
+            state.phi[idx] = 0.0 if phi is None else phi
+            n_cand0 = max(n_valid_tail - b.local, 0)
+            state.n_cand, state.pos = n_cand0, int(true_len)
+            if self.use_jhist:
+                state.jhist[idx] = pq.build_joint_hist(
+                    state.codes[idx], n_cand0, n_centroids=self.C,
+                    block=self.select_block)
 
     # -- decode -----------------------------------------------------------
 
@@ -549,23 +550,25 @@ class PQSearchPolicy:
     def insert_slot(self, bstate: PQState, state: PQState, slot: int) -> None:
         """Write a prefilled single-sequence state into slot ``slot`` of a
         batched state, in place. The batched buffers are wider on the token
-        and block axes (the tail pad): the state fills their leading part."""
-        Hk, S = self.H_kv, self.S
-        h = slice(slot * Hk, (slot + 1) * Hk)
-        N = state.kv_tail.shape[2]
-        bstate.k_sink[:, h] = state.k_sink
-        bstate.v_sink[:, h] = state.v_sink
-        bstate.kv_tail[:, h, :N] = state.kv_tail
-        bstate.codes[:, h, :, :N] = state.codes
-        bstate.centroids[:, h] = state.centroids
-        bstate.phi[:, slot * Hk * S:(slot + 1) * Hk * S] = state.phi
-        bstate.n_cand[slot] = state.n_cand
-        bstate.pos[slot] = state.pos
-        if self.use_jhist:
-            bstate.jhist[:, h, :state.jhist.shape[2]] = state.jhist
-        if self.kv_int8:
-            bstate.k_scale[:, h] = state.k_scale
-            bstate.v_scale[:, h] = state.v_scale
+        and block axes (the tail pad): the state fills their leading part.
+        An ``insert_slot`` span (``runtime/stages``)."""
+        with span("insert_slot", slot=slot):
+            Hk, S = self.H_kv, self.S
+            h = slice(slot * Hk, (slot + 1) * Hk)
+            N = state.kv_tail.shape[2]
+            bstate.k_sink[:, h] = state.k_sink
+            bstate.v_sink[:, h] = state.v_sink
+            bstate.kv_tail[:, h, :N] = state.kv_tail
+            bstate.codes[:, h, :, :N] = state.codes
+            bstate.centroids[:, h] = state.centroids
+            bstate.phi[:, slot * Hk * S:(slot + 1) * Hk * S] = state.phi
+            bstate.n_cand[slot] = state.n_cand
+            bstate.pos[slot] = state.pos
+            if self.use_jhist:
+                bstate.jhist[:, h, :state.jhist.shape[2]] = state.jhist
+            if self.kv_int8:
+                bstate.k_scale[:, h] = state.k_scale
+                bstate.v_scale[:, h] = state.v_scale
 
     def _local_window(self, state: PQState, idx: int, q_flat, n_cand_h, r):
         """The per-token path's local window as a partial: the contiguous

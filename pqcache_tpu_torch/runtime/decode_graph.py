@@ -32,6 +32,12 @@ Kernel wrappers count a launch when they are called, so a captured step
 adds its kernels to the counts once, at capture, and a replay adds nothing;
 ``replays`` counts the replays.
 
+Each ``decode`` call is a ``chunk`` span (``runtime/stages.py``; ids its
+sequence number and steps) holding a ``replay`` span over its steps
+(``captured`` where the first of them captured the graph) and the ring's
+``flush``; the warm step and the capture are a ``capture`` span. None lies
+inside a step.
+
 The state has room for the ``max_new_tokens`` its policy's budget reserved
 past each slot's prompt, and a write past the end would be clamped onto the
 last rows on the card without a word. A standalone decoder counts its steps
@@ -44,14 +50,12 @@ writes clamped inside its own rows, and its tokens are dropped.
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.config import ModelConfig
 from pqcache_tpu_torch.models import llama
-from pqcache_tpu_torch.runtime.stages import stage
+from pqcache_tpu_torch.runtime.stages import span, stage
 
 
 class BatchedDecoder:
@@ -90,9 +94,10 @@ class BatchedDecoder:
         self.chunk, self.ring = chunk, bool(ring_k)
         self.use_graph = graph
         self.graph = None
-        self.capture_seconds = None
+        self.capture_seconds = None     # host seconds of the capture span
         self.pool_bytes = None      # device memory the capture reserved
         self.replays = 0
+        self.chunks = 0             # decode calls: each chunk's sequence no.
         self.check_room = check_room
         self.steps_left = policy.budget.max_new_tokens
         if (sample is None) != (noise is None):
@@ -124,31 +129,33 @@ class BatchedDecoder:
     def _warm_up_and_capture(self) -> None:
         """Step once eagerly on a side stream (a real step), then capture
         the step on the same stream (the W8 kernel's scratch is per
-        stream, made at the eager step); the capture runs nothing."""
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            prev = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
+        stream, made at the eager step); the capture runs nothing. The
+        ``capture`` span holds both: ``capture_seconds`` is its host time."""
+        with span("capture") as sp:
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    self._step()
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+            cur.wait_stream(side)
+            # the capture starts by emptying the allocator's cache: so does
+            # the measurement of the pool it reserves
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
                 self._step()
-            finally:
-                torch.cuda.set_sync_debug_mode(prev)
-        cur.wait_stream(side)
-        # the capture starts by emptying the allocator's cache: so does the
-        # measurement of the pool it reserves
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            self._step()
-        torch.cuda.synchronize(self.device)
-        self.capture_seconds = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        self.graph = graph
+            torch.cuda.synchronize(self.device)
+            self.pool_bytes = (torch.cuda.memory_reserved(self.device)
+                               - reserved)
+            self.graph = graph
+        self.capture_seconds = sp.host_s
 
     @torch.no_grad()
     def step(self, eager: bool = False) -> None:
@@ -185,7 +192,7 @@ class BatchedDecoder:
         """End a chunk of n_steps steps: flush the ring. Returns the
         chunk's tokens [n_steps, B]."""
         if self.ring:
-            with stage("flush"):
+            with span("flush"):
                 self.policy.flush_ring_batched(self.state)
         return self.out[:n_steps].clone()
 
@@ -199,10 +206,14 @@ class BatchedDecoder:
             raise ValueError(f"a chunk takes 1 to {self.chunk} steps, not "
                              f"{n_steps}")
         self._check_room(n_steps)
-        self.begin(tokens, pos)
-        for _ in range(n_steps):
-            self.step()
-        return self.finish(n_steps)
+        with span("chunk", chunk=self.chunks, steps=n_steps):
+            self.chunks += 1
+            self.begin(tokens, pos)
+            with span("replay", steps=n_steps,
+                      captured=self.use_graph and self.graph is None):
+                for _ in range(n_steps):
+                    self.step()
+            return self.finish(n_steps)
 
     def generate(self, tokens: torch.Tensor, pos: torch.Tensor,
                  n_steps: int) -> torch.Tensor:
