@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pqcache_tpu_torch/csrc``, holds each
-(K1–K6) against its plain PyTorch version at the main path's shapes (K2
+(K1–K6, and the joint-histogram scorer at the 128k decode cell's shapes)
+against its plain PyTorch version at the main path's shapes (K2
 also on the serving path's admission slabs at q_offset and on the 128k
 chunked prefill's slabs against 131072 keys), serves requests
 through ``Engine.generate`` at Llama-3.1-8B width and 8 layers (random
@@ -119,6 +120,7 @@ from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
 from pqcache_tpu_torch.ops.flash_attention import flash_attention
 from pqcache_tpu_torch.ops.flash_scores import flash_scores
 from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
+from pqcache_tpu_torch.ops.jhist import jhist_block_mass, jhist_block_mass_ref
 from pqcache_tpu_torch.parallel import workers
 from pqcache_tpu_torch.policies import h2o, infllm
 from pqcache_tpu_torch.policies.base import get_policy
@@ -803,6 +805,95 @@ def k3_phase(dev) -> dict:
                 library_ms=None)
 
 
+# the 128k decode cell's one layer: 24 slots x 8 kv heads folded, 514
+# blocks of 256, C 64, g 4, 128 deferred joins of which 77 are live
+JHIST_SHAPE = dict(Hf=192, NB=514, C=64, g=4, block=256, K=128, ring_r=77)
+
+
+def jhist_phase(dev) -> dict:
+    """The joint-histogram scorer's kernel at JHIST_SHAPE: a histogram
+    built from skewed codes (the last two rows empty) and a pending span
+    that crosses a block boundary. Held to its plain version at 1e-5
+    relative, bit for bit between two calls, and the block top-k of the
+    cell (52 blocks per folded kv head) the same but at near ties (1e-5 of
+    the boundary's group mass). The timed launches cycle over 2 layers of
+    histogram (808 MB, far above the 50 MB L2), as decode reads each
+    layer's cold. The library yardstick is ``torch.bmm`` of the pair table
+    with an f32 copy of the histogram, the copy included: the plain
+    version's product."""
+    sh = JHIST_SHAPE
+    Hf, NB, C, g, bs, K = (sh[k] for k in ("Hf", "NB", "C", "g", "block",
+                                            "K"))
+    L = 2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    lut = torch.randn((Hf * g, 2, C), generator=gen, device=dev) * 4
+    e = pq.jhist_exp_lut(lut, 128)
+    n_cand = NB * bs - 2 * bs
+    Js = []
+    for _ in range(L):
+        u = torch.rand((Hf, 2, NB * bs), generator=gen, device=dev)
+        codes = (C * u * u).long().clamp(max=C - 1).to(torch.uint8)
+        Js.append(pq.build_joint_hist(codes, n_cand, n_centroids=C,
+                                      block=bs))
+        del u, codes
+    nc = torch.full((Hf,), n_cand, device=dev)
+    pending = ((nc - sh["ring_r"])[:, None] + torch.arange(K, device=dev),
+               torch.randint(0, C, (Hf, 2, K), generator=gen, device=dev),
+               torch.tensor(sh["ring_r"], dtype=torch.int32, device=dev))
+    got = jhist_block_mass(e, Js[0], pending, block=bs)
+    again = jhist_block_mass(e, Js[0], pending, block=bs)
+    torch.cuda.synchronize()
+    ref = jhist_block_mass_ref(e, Js[0], pending, block=bs)
+    err = (got - ref).abs().max().item()
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1e-30)).max().item()
+    same_bits = torch.equal(got, again)
+
+    def blocks(m):
+        m = m / m.sum(-1, keepdim=True).clamp(min=1e-30)
+        return torch.sort(pq.topk_from_block_mass(m, nc, 52 * bs, group=g,
+                                                  block=bs), -1).values
+    a, b = blocks(got), blocks(ref)
+    gm = (ref / ref.sum(-1, keepdim=True)).reshape(Hf, g, NB).sum(1)
+    partings = 0
+    for row in (a != b).any(-1).nonzero()[:, 0].tolist():
+        alone = sorted(set(a[row].tolist()) ^ set(b[row].tolist()))
+        v = gm[row, alone]
+        if (v.max() - v.min()).item() > 1e-5 * v.max().item():
+            raise SystemExit(f"jhist: folded head {row} selects {alone} "
+                             f"apart from its plain version")
+        partings += 1
+    log(f"jhist: max_abs_err {err:.3e}, {rel:.3e} relative (tol 1e-5); two "
+        f"calls bitwise equal: {same_bits}; block top-k identical but "
+        f"{partings} near ties of {Hf} folded heads")
+    if not rel <= 1e-5 or not same_bits:
+        raise SystemExit("jhist disagrees with its plain version")
+    layer = iter(range(10 ** 9))
+    ms = graph_ms(lambda: jhist_block_mass(e, Js[next(layer) % L], pending,
+                                           block=bs), 4 * L)
+    plain_ms = graph_ms(lambda: jhist_block_mass_ref(
+        e, Js[next(layer) % L], pending, block=bs), L)
+    pair = (e[:, 0, :, None] * e[:, 1, None, :]).reshape(Hf, g, C * C)
+    lib_ms = graph_ms(lambda: torch.bmm(pair, Js[next(layer) % L].float(
+    ).transpose(1, 2)), L)
+    call_ms = cuda_ms(lambda: jhist_block_mass(
+        e, Js[next(layer) % L], pending, block=bs), 40, warmup=4)
+    nbytes = Js[0].numel() + e.numel() * 4 + got.numel() * 4
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    log(f"jhist: kernel {ms * 1e3:.1f} us of device time per call, histogram "
+        f"cold ({nbytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%} of its "
+        f"bound), {call_ms * 1e3:.1f} us per call from Python; plain "
+        f"{plain_ms * 1e3:.1f} us; library (f32 copy + torch.bmm) "
+        f"{lib_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us (bytes)")
+    del Js, pair, got, again, ref
+    torch.cuda.empty_cache()
+    return dict(name="jhist_block_mass", route="cuda",
+                source="pqcache_tpu_torch/csrc/jhist_mass.cu",
+                replaces="none: pqcache_tpu/core/pq.py:498 (XLA einsum)",
+                max_abs_err=err, max_row_rel_err=rel, ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=lib_ms)
+
+
 def k6_phase(dev) -> dict:
     """K6 at the 32k decode shapes: TOPK sorted rows below N_CAND per kv
     head out of the stacked [L * 8, N_TAIL, 256] tail, layer 3 by head
@@ -1034,11 +1125,15 @@ def _expected_launches(engine: str, policy: str, L: int, steps: int,
         dec = {"adc_scores"} | ({"gather_rows"} if pq_kw.get(
             "gather_mode") == "pallas" else set())
     elif policy == "pq_search":
-        # the ip metric has no block scorer: K5 scores per token
+        # the ip metric has no block scorer: K5 scores per token; the
+        # euclidean block path scores from the joint histogram unless
+        # scorer "kernel" asks for K3
         dec = ({"block_topk_attention"}
                | ({"adc_block_scores"} if pq_kw.get("scorer") == "kernel"
                   else set())
-               | ({"adc_scores"} if pq_kw.get("metric") == "ip" else set()))
+               | ({"adc_scores"} if pq_kw.get("metric") == "ip" else set())
+               | ({"jhist_block_mass"} if pq_kw.get("scorer") != "kernel"
+                  and pq_kw.get("metric") != "ip" else set()))
     pre = {"flash_scores"} if policy in SCORE_POLICIES else set()
     out = {k: L * (k in pre) + L * steps * (k in dec) for k in KERNELS}
     out["flash_attention"] = k2 * L
@@ -1559,9 +1654,10 @@ BATCH_SEGMENT = 16        # steps per profile of a whole replayed chunk
 # GQA top-k, advanced-index row gather) and `original`; policy, PQConfig
 # overrides, path kernels (W8 weights where w8_matmul is one)
 BATCH_ARMS = {
-    "pq_search": ("pq_search", {}, ("block_topk_attention",)),
+    "pq_search": ("pq_search", {}, ("block_topk_attention",
+                                    "jhist_block_mass")),
     "pq_search-w8": ("pq_search", {}, ("block_topk_attention",
-                                       "w8_matmul")),
+                                       "jhist_block_mass", "w8_matmul")),
     "pq_search-token": ("pq_search", dict(select_block=1, adc_mode="v2",
                                           gather_mode="xla"),
                         ("adc_scores",)),
@@ -1574,7 +1670,8 @@ DEVICE_NAMES = {"block_topk_attention": "::block_attn_kernel<",
                 "adc_block_scores": "::block_scores_kernel<",
                 "adc_scores": "::adc_scores_kernel<",
                 "gather_rows": "::gather_kernel<",
-                "w8_matmul": "::w8_kernel<"}
+                "w8_matmul": "::w8_kernel<",
+                "jhist_block_mass": "::jhist_mass_kernel<"}
 
 
 def _per_step(kernel: str, L: int) -> int:
@@ -1998,10 +2095,12 @@ SERVE_ARGS = ["--ctx", "32768", "--layers", "8", "--pool", "8",
               "--select-block", "256"]
 # the rows: (policy, extra flags, the path kernels that must launch)
 SERVE_ROWS = [
-    ("pq_search", [], ("flash_attention", "block_topk_attention")),
+    ("pq_search", [], ("flash_attention", "block_topk_attention",
+                       "jhist_block_mass")),
     ("original", [], ("flash_attention",)),
     ("pq_search", ["--kv-dtype", "int8", "--weight-int8"],
-     ("flash_attention", "block_topk_attention", "w8_matmul")),
+     ("flash_attention", "block_topk_attention", "jhist_block_mass",
+      "w8_matmul")),
 ]
 # interleaved against monolithic admission: pool 2, 4 prompts of different
 # lengths, 32 new tokens
@@ -2338,9 +2437,10 @@ def offload_phase(dev, params, model) -> dict:
     assembled from the wrong slot (_WrongSlot), which that hold must
     reject; then an int8 store in stale mode, free-running; (b)
     and (c) through harness/offload_bench.py. Each run's kernel counts are
-    set to 0 before it and read after: K2 on every prefill, no other
-    kernel on the offload tier (its decode attends the assembled blocks
-    with the plain segment merge; the HBM twin decodes through K1).
+    set to 0 before it and read after: K2 on every prefill, the
+    joint-histogram scorer's kernel on every tier's block selection, no
+    other kernel on the offload tier (its decode attends the assembled
+    blocks with the plain segment merge; the HBM twin decodes through K1).
     Returns the launches."""
     from pqcache_tpu_torch.harness import offload_bench
     total = dict.fromkeys(KERNELS, 0)
@@ -2349,9 +2449,12 @@ def offload_phase(dev, params, model) -> dict:
                                                     OFFLOAD_CTX)
 
     def counted(what: str, want_k2: int, **more) -> int:
+        # every tier selects blocks through the joint-histogram scorer's
+        # kernel: a count the caller does not give must only be positive
         got = _counts()
         for k in total:
             total[k] += got[k]
+        more.setdefault("jhist_block_mass", max(got["jhist_block_mass"], 1))
         want = dict(dict.fromkeys(KERNELS, 0), flash_attention=want_k2,
                     **more)
         if got != want:
@@ -2365,9 +2468,11 @@ def offload_phase(dev, params, model) -> dict:
         hbm = Engine(offload_cfg(model, offload=False), params,
                      device=dev).generate(ids, OFFLOAD_GEN)
     hbm_logits = [rec.last] + dec.seen
-    # the device tier decodes through K1, the offload tier through none
+    # the device tier decodes through K1, the offload tier through no
+    # attention kernel; both score blocks through the jhist kernel
     k2 = counted("HBM twin", L,
-                 block_topk_attention=L * (len(hbm.tokens) - 1))
+                 block_topk_attention=L * (len(hbm.tokens) - 1),
+                 jhist_block_mass=L * (len(hbm.tokens) - 1))
     hbm_ms = hbm.decode_seconds / (len(hbm.tokens) - 1) * 1e3
     log(f"offload (a) HBM twin (select_block 128, bf16 tail): TTFT "
         f"{hbm.prefill_seconds * 1e3:.1f} ms, decode {hbm_ms:.2f} ms/token, "
@@ -2628,15 +2733,16 @@ def par_tp(dev, params, model, total: dict) -> None:
     _tp_line("(a) TPEngine tp 2, collectives timed", out[0][5], timed=True)
     _rank_lines("(a)", res)
     _rank_lines("(a) timed", [r[5] for r in out], timed=True)
-    _rank_counts("(a)", res, {"flash_attention", "block_topk_attention"},
-                 total)
+    _rank_counts("(a)", res, {"flash_attention", "block_topk_attention",
+                              "jhist_block_mass"}, total)
     tp_logits = res[0]["forced_logits"].to(dev)
     _hold_par("(a) TPEngine tp 2 against the single-process Engine",
               {"xla": ref.tokens, "auto": res[0]["tokens"]}, own, tp_logits)
     _tp_line("(c) generate_ring sp 2", rr[0])
     _rank_lines("(c)", rr)
     # the ring prefill attends in plain float32 (XLA einsums in JAX): no K2
-    _rank_counts("(c)", rr, {"block_topk_attention"}, total)
+    _rank_counts("(c)", rr, {"block_topk_attention", "jhist_block_mass"},
+                 total)
     _hold_par("(c) generate_ring sp 2 against (a)'s generate",
               {"xla": res[0]["tokens"], "auto": rr[0]["tokens"]}, tp_logits,
               rr[0]["forced_logits"].to(dev))
@@ -2764,8 +2870,8 @@ def par_batch(dev, params, model, total: dict) -> None:
         f" ms a step; every rank returned the same {PAR_SLOTS} streams: "
         f"{same}")
     _rank_lines("(b)", res)
-    _rank_counts("(b)", res, {"flash_attention", "block_topk_attention"},
-                 total)
+    _rank_counts("(b)", res, {"flash_attention", "block_topk_attention",
+                              "jhist_block_mass"}, total)
     if not same:
         raise SystemExit("parallel (b): ranks returned different streams")
     got = torch.cat([r["forced_logits"] for r in sorted(
@@ -2811,7 +2917,7 @@ def par_offload(dev, params, model, total: dict) -> None:
         f"{t['wait_s'] / t['steps'] * 1e3:.2f}), hit rate over both "
         f"stores {res[0]['hit_rate']:.4f}")
     _rank_lines("(d)", res)
-    _rank_counts("(d)", res, {"flash_attention"}, total)
+    _rank_counts("(d)", res, {"flash_attention", "jhist_block_mass"}, total)
     got = res[0]["forced_logits"]
     for s in range(PAR_OFFLOAD_B):
         _hold_par(f"(d) slot {s} against BatchOffloadEngine",
@@ -3227,7 +3333,7 @@ def main() -> int:
     t0 = time.perf_counter()
     environment()
     entries = [k2_phase(dev), k4_phase(dev), k1_phase(dev), k3_phase(dev),
-               k5_phase(dev), k6_phase(dev)]
+               k5_phase(dev), k6_phase(dev), jhist_phase(dev)]
     entries.append(w8_step_entry(dev, w8_phase(dev)))
     log(f"kernel phases done at {time.perf_counter() - t0:.0f} s")
 

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from pqcache_tpu_torch.ops.jhist import jhist_block_mass, jhist_block_mass_ref
 from pqcache_tpu_torch.runtime.stages import scoped
 
 
@@ -418,17 +419,18 @@ def jhist_exp_lut(lut: torch.Tensor, head_dim: int) -> torch.Tensor:
 
 @scoped("pq_score")
 def joint_block_mass(lut: torch.Tensor, J: torch.Tensor, *, head_dim: int,
-                     normalize: bool = True) -> torch.Tensor:
+                     normalize: bool = True, pending=None, block: int = 1,
+                     kernel: bool = True) -> torch.Tensor:
     """Per-q-head block attention mass from the joint histogram.
 
-    lut [H, 2, C] f32; J [H_kv, NB, C^2]. Returns [H, NB] f32, rows summing
-    to 1 over non-empty blocks (normalize=True)."""
-    H, S, C = lut.shape
-    H_kv = J.shape[0]
-    e = jhist_exp_lut(lut, head_dim)                         # [H, 2, C]
-    pair = (e[:, 0, :, None] * e[:, 1, None, :]).reshape(H_kv, H // H_kv,
-                                                         C * C)
-    mass = torch.bmm(pair, J.float().transpose(1, 2)).reshape(H, -1)
+    lut [H, 2, C] f32; J [H_kv, NB, C^2] uint8. ``pending``: the deferred
+    joins the histogram lags by, (pos, codes, ring_r) at ``block``
+    (``ops/jhist.jhist_block_mass``), their exact mass added. ``kernel``:
+    the scorer's wrapper (the CUDA kernel on a CUDA tensor), else its plain
+    version. Returns [H, NB] f32, rows summing to 1 over non-empty blocks
+    (normalize=True)."""
+    fn = jhist_block_mass if kernel else jhist_block_mass_ref
+    mass = fn(jhist_exp_lut(lut, head_dim), J, pending, block=block)
     if not normalize:
         return mass
     return mass / torch.clamp(mass.sum(-1, keepdim=True), min=1e-30)

@@ -38,6 +38,8 @@ SIGNATURES = {
             "pq_adc_block_scores": [_P, _P, _P] + [_I] * 9 + [_P] * 2,
             "pq_adc_block_scores_ctas": []},
     "gather": {"pq_gather_rows": [_P, _P] + [_I] * 6 + [_P, _P]},
+    "jhist_mass": {"pq_jhist_block_mass": [_P, _P] + [_I] * 4 + [_P] * 3
+                   + [_I, _I, _P, _P]},
     "w8_matmul": {"pq_w8_group": [_P] * 10 + [_I] * 8 + [_P] * 3},
 }
 

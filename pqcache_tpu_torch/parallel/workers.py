@@ -35,13 +35,15 @@ from pqcache_tpu_torch.ops.block_attn import block_topk_attention
 from pqcache_tpu_torch.ops.flash_attention import flash_attention
 from pqcache_tpu_torch.ops.flash_scores import flash_scores
 from pqcache_tpu_torch.ops.gather import gather_rows
+from pqcache_tpu_torch.ops.jhist import jhist_block_mass
 from pqcache_tpu_torch.ops.w8 import w8_matmul
 from pqcache_tpu_torch.parallel.factory import make_mesh
 
 KERNELS = {"flash_attention": flash_attention, "flash_scores": flash_scores,
            "block_topk_attention": block_topk_attention,
            "adc_scores": adc_scores, "adc_block_scores": adc_block_scores,
-           "gather_rows": gather_rows, "w8_matmul": w8_matmul}
+           "gather_rows": gather_rows, "w8_matmul": w8_matmul,
+           "jhist_block_mass": jhist_block_mass}
 
 
 def _zero_counts() -> None:

@@ -79,7 +79,7 @@ from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
 from pqcache_tpu_torch.ops.dispatch import dense_prefill_attention
 from pqcache_tpu_torch.ops.gather import gather_rows
 from pqcache_tpu_torch.policies.base import register_policy, use_kernels
-from pqcache_tpu_torch.runtime.stages import span, stage
+from pqcache_tpu_torch.runtime.stages import scope, span, stage
 from pqcache_tpu_torch.runtime.state import PQState, make_pq_state, per_head
 
 
@@ -294,7 +294,8 @@ class PQSearchPolicy:
     def _select_blocks(self, state: PQState, idx: int, lut, n_cand,
                        slot_counts=None, pending=None):
         """Sorted block top-k [H_kv (or B·H_kv), kb] from the joint
-        histogram (plus the deferred joins' ``pending`` mass), the fused
+        histogram (with the deferred joins' ``pending`` span,
+        ``_pending_span``, whose exact mass the scorer adds), the fused
         ADC block scorer K3, or per-token scores: the gather-sum on the
         euclidean plain route, K5 (``_adc``) for the "ip" metric, which has
         no block scorer (pq_search.py:330-336, 409-417).
@@ -303,15 +304,9 @@ class PQSearchPolicy:
         b, bs = self.budget, self.select_block
         codes = state.codes[idx]
         if self.use_jhist:
-            if pending is None:
-                blk_mass = pq.joint_block_mass(lut, state.jhist[idx],
-                                               head_dim=self.D)
-            else:
-                raw = pq.joint_block_mass(lut, state.jhist[idx],
-                                          head_dim=self.D,
-                                          normalize=False) + pending
-                blk_mass = raw / torch.clamp(raw.sum(-1, keepdim=True),
-                                             min=1e-30)
+            blk_mass = pq.joint_block_mass(
+                lut, state.jhist[idx], head_dim=self.D, pending=pending,
+                block=bs, kernel=self.use_kernel)
         elif self.fused_blockscore:
             lead = () if slot_counts is None else (slot_counts.shape[0],)
             blk_mass = adc_block_scores(
@@ -601,8 +596,11 @@ class PQSearchPolicy:
         if self.select_block > 1:
             with stage("scorer+topk"):
                 lut = self._lut(qf, state.centroids[idx])   # [B·H, S, C]
-                pending = (self._pending_mass(state, idx, lut, shared)
-                           if self._jhist_defer(state) else None)
+                pending = None
+                if self._jhist_defer(state):
+                    with scope("pq_score"):
+                        pos, codes = self._pending_span(state, n_cand_h, idx)
+                    pending = (pos, codes, state.ring_r)
                 blk_idx = self._select_blocks(state, idx, lut, n_cand_h,
                                               slot_counts=shared["n_cand"],
                                               pending=pending)
@@ -669,9 +667,11 @@ class PQSearchPolicy:
             >= 480_000_000
 
     def _pending_span(self, state: PQState, n_cand_h, layer=None):
-        """The chunk's pending joins: positions n_cand - ring_r + t of each
-        folded head for t < ring_k, t < ring_r valid, and their codes
-        [(L,) B·H_kv, S, ring_k] (layer idx, or all layers)."""
+        """The chunk's pending joins (pq_search.py:884-922): positions
+        n_cand - ring_r + t of each folded head for t < ring_k, of which
+        t < ring_r are live, and their codes [(L,) B·H_kv, S, ring_k]
+        (layer idx, or all layers). The scorer adds the live ones' exact
+        mass, which the lagging histogram misses."""
         K = self.ring_k
         t = torch.arange(K, device=n_cand_h.device)
         pos = (n_cand_h.long() - state.ring_r)[:, None] + t     # [Hf, K]
@@ -679,26 +679,7 @@ class PQSearchPolicy:
         N = codes.shape[-1]
         idx = pos.clamp(0, N - 1)[:, None, :].expand(-1, self.S, -1)
         cp = codes.gather(-1, idx.expand(*codes.shape[:-1], K)).long()
-        return pos, cp, t < state.ring_r
-
-    def _pending_mass(self, state: PQState, idx: int, lut, shared):
-        """The exact deferred-join correction (pq_search.py:884-922): the
-        ring_r tokens at [n_cand - ring_r, n_cand) of each slot are
-        candidates that the lagging histogram misses; their exp-LUT pair
-        terms are added into the raw block mass. Returns [B·H, NB] f32."""
-        pos, cp, ok = self._pending_span(state, shared["n_cand_h"], idx)
-        g = self.group
-        e = pq.jhist_exp_lut(lut, self.D)                  # [B·H, 2, C]
-        c = per_head(cp, g)                                    # [B·H, 2, K]
-        val = torch.where(ok, e[:, 0].gather(1, c[:, 0])
-                          * e[:, 1].gather(1, c[:, 1]), 0.0)   # [B·H, K]
-        NB = state.jhist.shape[2]
-        cols = per_head(torch.div(pos, self.select_block,
-                                  rounding_mode="floor").clamp(0, NB - 1), g)
-        # a one-hot product sums each column in a fixed order
-        onehot = (cols[..., None] == torch.arange(NB, device=cols.device)
-                  ).float()                                # [B·H, K, NB]
-        return torch.bmm(val[:, None, :], onehot)[:, 0]
+        return pos, cp
 
     def _jhist_flush_join(self, state: PQState) -> None:
         """Commit the chunk's deferred joins at once (pq_search.py:924-969):
@@ -710,7 +691,8 @@ class PQSearchPolicy:
         bs = self.select_block
         W = (self.ring_k - 1) // bs + 2
         n_cand_h = per_head(state.n_cand, self.H_kv)
-        pos, cp, ok = self._pending_span(state, n_cand_h)  # cp [L, Hf, S, K]
+        pos, cp = self._pending_span(state, n_cand_h)      # cp [L, Hf, S, K]
+        ok = torch.arange(self.ring_k, device=pos.device) < state.ring_r
         pair = cp[:, :, 0] * self.C + cp[:, :, 1]          # [L, Hf, K]
         # the region's first column, held inside the histogram as JAX's
         # dynamic slice holds it. Only a finished slot that decodes on past

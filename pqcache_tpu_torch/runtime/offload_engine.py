@@ -314,7 +314,8 @@ class OffloadEngine:
             lut = pq.adc_lut_euc(q_sub, st.centroids[idx])
         if self.use_jhist:
             mass = pq.joint_block_mass(lut, st.jhist[idx],
-                                       head_dim=m.head_dim)
+                                       head_dim=m.head_dim,
+                                       kernel=self.use_kernel)
             blk = pq.topk_from_block_mass(mass, n_sel, b.topk,
                                           group=m.num_groups, block=self.bs)
         else:

@@ -24,6 +24,10 @@ bf16 rounding boundary may land one bf16 unit (2^-8 relative) apart, and
 the scale's rounding another, so it is held at 2e-2 relative and 2e-2 of
 the largest |entry| absolute; the CTA that owns a tile cut along K adds the
 other CTAs' partials in CTA order, so two calls (eager or replayed) give
+bitwise the same output. The joint-histogram scorer sums the same f32
+products of exact counts as its plain version's f32 GEMM in another order
+(1e-5 relative), adds the pending joins in order, and gives the same block
+top-k but at near ties (1e-5 of the boundary's group mass); two calls give
 bitwise the same output.
 """
 
@@ -47,6 +51,7 @@ from pqcache_tpu_torch.ops.flash_attention import flash_attention
 from pqcache_tpu_torch.ops.flash_attention import row_stats as k2_row_stats
 from pqcache_tpu_torch.ops.flash_scores import flash_scores
 from pqcache_tpu_torch.ops.gather import gather_rows, gather_rows_ref
+from pqcache_tpu_torch.ops.jhist import jhist_block_mass, jhist_block_mass_ref
 from pqcache_tpu_torch.ops.w8 import (w8_matmul, w8_matmul_group,
                                       w8_matmul_group_ref, w8_matmul_ref)
 from pqcache_tpu_torch.policies.base import get_policy
@@ -1302,3 +1307,165 @@ def test_parallel_tp2_on_one_card_matches_engine(dev):
     for r in res:
         assert r["launches"]["flash_attention"] == m.num_layers
         assert r["launches"]["block_topk_attention"] == m.num_layers * steps
+
+
+# (Hf, g, C, NB, K, ring_r, block): both decode cells' one-layer shapes
+# (128k: 24 slots x 8 kv heads, 514 blocks; 32k: 52 x 8, 127 blocks), a
+# single sequence at 128k, the largest histogram rows (C 256) with a
+# pending span over many blocks, and every lane layout of the kernel (C
+# 128 to 2, g 1 to 8, 3 and 5 padded to 4 and 8)
+JHIST_CASES = {
+    "128k": (192, 4, 64, 514, 128, 77, 256),
+    "32k": (416, 4, 64, 127, 128, 128, 256),
+    "single-128k": (8, 4, 64, 514, 0, None, 256),
+    "C256": (4, 4, 256, 9, 128, 100, 16),
+    "C128-g2": (7, 2, 128, 20, 0, None, 64),
+    "C16-g8": (6, 8, 16, 33, 64, 1, 16),
+    "C16-g5": (3, 5, 16, 40, 64, 64, 16),
+    "C8-g3": (5, 3, 8, 70, 32, 0, 8),
+    "C4-g1": (3, 1, 4, 300, 16, 16, 4),
+    "C2-g2": (3, 2, 2, 41, 8, 5, 2),
+}
+
+
+def _jhist_inputs(dev, Hf, g, C, NB, K, ring_r, block, seed=0):
+    """Exp-LUT factors, a histogram built from skewed codes (the last two
+    rows empty, a few counts saturated) and the pending span of the
+    slots' last ring_r candidates (or None); each kv head's n_cand."""
+    gen = torch.Generator(device=dev).manual_seed(seed + Hf * NB + C)
+    lut = torch.randn((Hf * g, 2, C), generator=gen, device=dev) * 4
+    e = pq.jhist_exp_lut(lut, 128)
+    T = NB * block
+    u = torch.rand((Hf, 2, T), generator=gen, device=dev)
+    codes = (C * u * u).long().clamp(max=C - 1).to(torch.uint8)
+    n_cand = T - 2 * block
+    J = pq.build_joint_hist(codes, n_cand, n_centroids=C, block=block)
+    J[:, 1:-2:5, ::97] = 255
+    nc = torch.full((Hf,), n_cand, device=dev)
+    if ring_r is None:
+        return e, J, None, nc
+    pos = (nc - ring_r)[:, None] + torch.arange(K, device=dev)
+    cp = torch.randint(0, C, (Hf, 2, K), generator=gen, device=dev)
+    return e, J, (pos, cp, torch.tensor(ring_r, dtype=torch.int32,
+                                        device=dev)), nc
+
+
+def _assert_same_blocks(got, ref, n_cand, g, block):
+    """The block top-k of both masses (10% of the candidates), equal but
+    where the blocks one side takes alone tie within 1e-5 in the
+    reference's group mass."""
+    def norm(m):
+        return m / m.sum(-1, keepdim=True).clamp(min=1e-30)
+    k_tokens = max(int(n_cand[0]) // 10, 1)
+    a, b = (torch.sort(pq.topk_from_block_mass(norm(m), n_cand, k_tokens,
+                                               group=g, block=block),
+                       -1).values for m in (got, ref))
+    gm = norm(ref).reshape(-1, g, ref.shape[-1]).sum(1)
+    for row in (a != b).any(-1).nonzero()[:, 0].tolist():
+        alone = sorted(set(a[row].tolist()) ^ set(b[row].tolist()))
+        v = gm[row, alone]
+        assert (v.max() - v.min()).item() <= 1e-5 * v.max().item(), (row,
+                                                                     alone)
+
+
+@pytest.mark.parametrize("case", list(JHIST_CASES))
+def test_jhist_block_mass_kernel_matches_plain(dev, case):
+    Hf, g, C, NB, K, ring_r, block = JHIST_CASES[case]
+    e, J, pending, nc = _jhist_inputs(dev, Hf, g, C, NB, K, ring_r, block)
+    n0 = jhist_block_mass.launches
+    got = jhist_block_mass(e, J, pending, block=block)
+    again = jhist_block_mass(e, J, pending, block=block)
+    torch.cuda.synchronize()
+    assert jhist_block_mass.launches == n0 + 2
+    assert torch.equal(got, again)                   # bit for bit
+    ref = jhist_block_mass_ref(e, J, pending, block=block)
+    assert got.shape == ref.shape == (Hf * g, NB)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+    assert (got[:, -2:] == ref[:, -2:]).all()        # empty rows exact
+    _assert_same_blocks(got, ref, nc, g, block)
+
+
+def test_jhist_block_mass_rejects_what_the_kernel_cannot_take(dev):
+    e, J, pending, _ = _jhist_inputs(dev, 4, 4, 64, 10, 16, 3, 64)
+    with pytest.raises(ValueError, match="power of two"):
+        jhist_block_mass(e[..., :48].contiguous(),
+                         J[..., :48 * 48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        jhist_block_mass(e, J[:, ::2])
+    with pytest.raises(ValueError, match="int64"):
+        pos, cp, rr = pending
+        jhist_block_mass(e, J, (pos.int(), cp, rr), block=64)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        jhist_block_mass(e, J.cpu())
+
+
+def test_jhist_block_mass_replays_in_a_graph(dev):
+    # captured once (one launch counted, at the capture), the kernel reads
+    # new factors, counts and ring count in place at every replay: bit for
+    # bit the eager launch's output
+    e, J, pending, _ = _jhist_inputs(dev, 16, 4, 64, 40, 128, 50, 64)
+    jhist_block_mass(e, J, pending, block=64)        # built, loaded
+    torch.cuda.synchronize()
+    n0 = jhist_block_mass.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = jhist_block_mass(e, J, pending, block=64)
+    assert jhist_block_mass.launches == n0 + 1
+    e2, J2, p2, _ = _jhist_inputs(dev, 16, 4, 64, 40, 128, 50, 64, seed=9)
+    e.copy_(e2)
+    J.copy_(J2)
+    pending[2].fill_(17)
+    for _ in range(3):
+        graph.replay()
+    eager = jhist_block_mass(e, J, pending, block=64)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    torch.testing.assert_close(
+        out, jhist_block_mass_ref(e, J, pending, block=64), rtol=1e-5, atol=0)
+
+
+def test_jhist_kernel_once_per_layer_per_replayed_step(dev):
+    # the deferred-join batched decode: the scorer's one kernel per layer
+    # per step, replayed and eager; inside the scorer's wrapper (a
+    # pq_score scope within joint_block_mass's) that kernel and nothing
+    # else: no f32 copy of the histogram, no GEMM, no one-hot correction
+    import copy
+    from pqcache_tpu_torch.harness import trace
+    from pqcache_tpu_torch.runtime import stages
+    from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
+    cfg, params, pol, state, tok, pos = _batched_setup(
+        dev, "pq_search", dict(select_block=64, jhist_defer="on"))
+    assert pol._jhist_defer(state)
+    L = cfg.num_layers
+    twin = copy.deepcopy(state)
+    dec = BatchedDecoder(cfg, params, pol, state, chunk=12)
+    res = trace.decompose_replayed(dec, tok, pos, steps=4)
+    by_name = res["summary"]["by_name"]
+    assert sum(n for k, n in by_name.items()
+               if "jhist_mass_kernel" in k) == 4 * L, by_name
+    eager = BatchedDecoder(cfg, params, pol, twin, chunk=12, graph=False)
+    eager.begin(tok, pos)
+    eager.step(eager=True)
+    n0 = jhist_block_mass.launches
+    with stages.recording(), torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eager.step(eager=True)
+        torch.cuda.synchronize()
+    assert jhist_block_mass.launches == n0 + L
+    evs = prof.events()
+    host = {ev.id: ev for ev in evs if ev.device_type ==
+            torch.autograd.DeviceType.CPU and "Launch" in ev.name}
+    in_scorer = []
+    for ev in evs:
+        if ev.device_type == torch.autograd.DeviceType.CPU or \
+                ev.id not in host:
+            continue
+        p, names = host[ev.id], []
+        while p is not None:
+            names.append(p.name)
+            p = p.cpu_parent
+        if names.count("scope:pq_score") >= 2:
+            in_scorer.append(ev.name)
+    assert len(in_scorer) == L and all(
+        "jhist_mass_kernel" in k for k in in_scorer), in_scorer
