@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from ``pqcache_tpu_torch/csrc``, holds each
 (K1–K6, and the joint-histogram scorer at the 128k decode cell's shapes)
 against its plain PyTorch version at the main path's shapes (K2
 also on the serving path's admission slabs at q_offset and on the 128k
-chunked prefill's slabs against 131072 keys), serves requests
+chunked prefill's slabs against 131072 keys, and its window variant on an
+AFMoE sliding layer's 128k slabs, timed beside the band's bound), serves
+requests
 through ``Engine.generate`` at Llama-3.1-8B width and 8 layers (random
 weights from a seeded generator) on the block path (joint-histogram scorer + K1),
 the per-token path (select_block 1: K5, and K6 with gather_mode "pallas"),
@@ -198,6 +200,12 @@ SLAB, SLAB_OFFSETS = 8192, (0, 24576)
 # the offload tier's 128k chunked prefill: slabs of LONG_SLAB query rows
 # against LONG_T keys (no pad); K2 is held at the first and the deepest
 LONG_T, LONG_SLAB, LONG_OFFSETS = 131072, 32768, (0, 98304)
+# K2's window variant on an AFMoE (Trinity-Mini) sliding layer's 128k
+# chunked prefill: 32 q / 4 kv heads of 128, every LONG_SLAB slab of LONG_T
+# keys, each row attending its last WINDOW keys. A key tile of 64 dropped
+# from a row's 2048 moves it by ~18%, one key too many by ~2%: K2_TOL holds
+WINDOW, WINDOW_HEADS = 2048, (32, 4)
+WINDOW_OFFSETS = (0, 32768, 65536, 98304)
 K1_TOL = 1e-4     # float32 both sides, relative to the largest |entry|
 # K3 sums exp terms per block, then rescales, where its plain version takes
 # one softmax: float32 summation order, relative to each row's largest entry
@@ -358,7 +366,8 @@ def k2_phase(dev) -> dict:
     which are held against chunked_attention(return_stats=True), and at
     32768 on the serving path's admission slabs (8192 rows at q_offset 0
     and 24576, SLAB_OFFSETS), then on the 128k chunked prefill's slabs
-    (k2_long_slabs). At 32768
+    (k2_long_slabs), and its window variant on an AFMoE sliding layer's
+    128k slabs (k2_window_slabs). At 32768
     the device time comes from CUDA-graph replay cycling over 2 layers of
     inputs (768 MB, far above the 50 MB L2). The library yardstick is one
     SDPA call with is_causal on the valid slice [pad:] with GQA-expanded K/V
@@ -464,6 +473,7 @@ def k2_phase(dev) -> dict:
                      bound_by="operations", library_ms=lib_ms)
         del q, k, v, out, ref, mask, kr, vr
     k2_long_slabs(dev, g)
+    entry.update(k2_window_slabs(dev, g))
     return entry
 
 
@@ -491,6 +501,61 @@ def k2_long_slabs(dev, g) -> None:
             raise SystemExit(f"K2 disagrees with its plain version on the "
                              f"{LONG_T}-key slab at q_offset {c0}")
         del qs, got, want
+
+
+def k2_window_slabs(dev, g) -> dict:
+    """K2's window variant (``flash_attention(..., window=WINDOW)``, one
+    launch a slab) row by row against its plain version
+    (``chunked_attention(..., window=WINDOW)``) on each of an AFMoE sliding
+    layer's 128k prefill slabs (LONG_SLAB rows at WINDOW_OFFSETS against
+    LONG_T keys, pad 0, as afmoe's prefill_chunked gives K2), its launches
+    counted, each slab's device time beside a bound from the band's
+    operations and bytes. Returns the worst slab's time and bound."""
+    H, H_kv = WINDOW_HEADS
+    D = config.LLAMA31_8B.head_dim
+    k, v = (torch.randn((H_kv, LONG_T, D), generator=g,
+                        device=dev).bfloat16() for _ in range(2))
+    worst = dict(window_ms=0.0, window_bound_ms=0.0)
+    for c0 in WINDOW_OFFSETS:
+        qs = torch.randn((H, LONG_SLAB, D), generator=g,
+                         device=dev).bfloat16()
+
+        def call():
+            return flash_attention(qs, k, v, valid_lo=0, q_offset=c0,
+                                   window=WINDOW)
+        before = flash_attention.launches
+        got = call()
+        launched = flash_attention.launches - before
+        torch.cuda.synchronize()
+        want = chunked_attention(qs, k, v, valid_lo=0, q_offset=c0,
+                                 window=WINDOW)
+        s_rel = row_rel_err(got, want)
+        s_fin = bool(torch.isfinite(got).all())
+        ms = cuda_ms(call, 5)
+        # row r (key index c0 + r) sees min(WINDOW, c0 + r + 1) keys
+        seen = torch.arange(c0 + 1, c0 + LONG_SLAB + 1).clamp(
+            max=WINDOW).sum().item()
+        ops = 4.0 * H * D * seen
+        band = min(c0 + LONG_SLAB, LONG_T) - max(c0 - WINDOW + 1, 0)
+        nbytes = 2 * (2 * H * LONG_SLAB * D + 2 * H_kv * band * D)
+        bound_ms = max(ops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
+        by = ("operations" if ops / PEAK_BF16 >= nbytes / PEAK_BYTES
+              else "bytes")
+        log(f"K2 window {WINDOW} slab q [{H}, {LONG_SLAB}, {D}] at q_offset "
+            f"{c0}, keys [{H_kv}, {LONG_T}, {D}]: max_abs_err "
+            f"{(got.float() - want.float()).abs().max().item():.3e}, worst "
+            f"row ||err||/||ref|| {s_rel:.3e} (tol {K2_TOL}); finite "
+            f"{s_fin}; {launched} launch; kernel {ms:.3f} ms "
+            f"({ops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.1%} of its "
+            f"bound {bound_ms:.3f} ms, {by})")
+        if not s_fin or not s_rel <= K2_TOL or launched != 1:
+            raise SystemExit(f"K2's window variant disagrees with its plain "
+                             f"version (or launched {launched} kernels) on "
+                             f"the slab at q_offset {c0}")
+        if ms > worst["window_ms"]:
+            worst = dict(window_ms=ms, window_bound_ms=bound_ms)
+        del qs, got, want
+    return worst
 
 
 def head_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:

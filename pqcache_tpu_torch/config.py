@@ -59,9 +59,35 @@ class ModelConfig:
         """GQA group size (q heads per kv head)."""
         return self.num_heads // self.num_kv_heads
 
+    @property
+    def layer_kinds(self) -> tuple:
+        """Each layer's attention: "full" (every layer of this family) or
+        "sliding" (``AfmoeConfig``)."""
+        return ("full",) * self.num_layers
+
+    @property
+    def full_layers(self) -> tuple:
+        """Indices of the full-attention layers, whose KV the retrieval
+        policies keep."""
+        return tuple(i for i, k in enumerate(self.layer_kinds)
+                     if k == "full")
+
+    @property
+    def window_layers(self) -> tuple:
+        """Indices of the sliding-window layers."""
+        return tuple(i for i, k in enumerate(self.layer_kinds)
+                     if k == "sliding")
+
+    def window_of(self, idx: int) -> int:
+        """Layer idx's attention window in tokens; 0 = unbounded."""
+        return 0
+
     @staticmethod
     def from_hf_config(d: dict, name: str = "hf") -> "ModelConfig":
-        """Build from a HuggingFace config.json dict (mistral/llama families)."""
+        """Build from a HuggingFace config.json dict (mistral/llama
+        families; ``model_type`` "afmoe" gives an ``AfmoeConfig``)."""
+        if d.get("model_type") == "afmoe":
+            return AfmoeConfig.from_afmoe(d, name)
         rs = d.get("rope_scaling") or {}
         is_llama3_rs = rs.get("rope_type", rs.get("type")) == "llama3"
         head_dim = d.get("head_dim") or d["hidden_size"] // d["num_attention_heads"]
@@ -83,6 +109,95 @@ class ModelConfig:
             tie_word_embeddings=d.get("tie_word_embeddings", False),
             max_position_embeddings=d.get("max_position_embeddings", 32768),
         )
+
+
+@dataclass(frozen=True)
+class AfmoeConfig(ModelConfig):
+    """Arcee's AFMoE decoder (``model_type`` "afmoe", Trinity): GQA
+    attention with per-head RMSNorm of q and k and a sigmoid output gate
+    (``o_proj(attn * sigmoid(x @ W_gate))``), in layers of two kinds
+    (``layer_types``: "sliding_attention" layers attend the last
+    ``sliding_window`` tokens with RoPE, "full_attention" layers the whole
+    history without position encoding); sandwich norms (a norm before and
+    after attention and the MLP); the first ``num_dense_layers`` layers a
+    SwiGLU MLP, every later one a mixture of ``num_experts`` SwiGLU experts
+    of width ``moe_intermediate_size``, ``num_experts_per_tok`` routed by
+    sigmoid scores (a per-expert bias in the selection only, the selected
+    scores normalised with ``route_norm`` and times ``route_scale``) plus
+    ``num_shared_experts`` shared ones; with ``mup_enabled`` the embedding
+    times sqrt(hidden_size)."""
+
+    layer_types: tuple = ()
+    sliding_window: int = 0
+    num_dense_layers: int = 0
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    num_shared_experts: int = 1
+    route_norm: bool = True
+    route_scale: float = 1.0
+    mup_enabled: bool = True
+
+    def __post_init__(self):
+        if len(self.layer_types) != self.num_layers:
+            raise ValueError(f"{len(self.layer_types)} layer_types for "
+                             f"{self.num_layers} layers")
+        bad = set(self.layer_types) - {"sliding_attention", "full_attention"}
+        if bad:
+            raise ValueError(f"unknown layer types {sorted(bad)}")
+        if not 0 <= self.num_dense_layers <= self.num_layers:
+            raise ValueError("num_dense_layers outside [0, num_layers]")
+        if self.num_dense_layers < self.num_layers and not (
+                0 < self.num_experts_per_tok <= self.num_experts):
+            raise ValueError("MoE layers need 0 < num_experts_per_tok <= "
+                             "num_experts")
+
+    @property
+    def layer_kinds(self) -> tuple:
+        return tuple("sliding" if t == "sliding_attention" else "full"
+                     for t in self.layer_types)
+
+    def window_of(self, idx: int) -> int:
+        return (self.sliding_window if self.layer_kinds[idx] == "sliding"
+                else 0)
+
+    @property
+    def embed_scale(self) -> float:
+        return self.hidden_size ** 0.5 if self.mup_enabled else 1.0
+
+    @staticmethod
+    def from_afmoe(d: dict, name: str = "hf") -> "AfmoeConfig":
+        """From an afmoe config.json dict. Only what this port computes is
+        accepted: sigmoid scores, one expert group, no rope scaling."""
+        if d.get("score_func", "sigmoid") != "sigmoid" or max(
+                d.get("n_group", 1), d.get("topk_group", 1)) != 1:
+            raise ValueError("afmoe: only sigmoid routing over one expert "
+                             "group is supported")
+        if d.get("rope_scaling"):
+            raise ValueError("afmoe: rope_scaling is not supported")
+        return AfmoeConfig(
+            name=name, vocab_size=d["vocab_size"],
+            hidden_size=d["hidden_size"],
+            intermediate_size=d["intermediate_size"],
+            num_layers=d["num_hidden_layers"],
+            num_heads=d["num_attention_heads"],
+            num_kv_heads=d["num_key_value_heads"],
+            head_dim=d.get("head_dim") or (d["hidden_size"]
+                                           // d["num_attention_heads"]),
+            rms_norm_eps=d.get("rms_norm_eps", 1e-5),
+            rope_theta=d.get("rope_theta", 10000.0),
+            tie_word_embeddings=d.get("tie_word_embeddings", False),
+            max_position_embeddings=d.get("max_position_embeddings", 32768),
+            layer_types=tuple(d["layer_types"]),
+            sliding_window=d.get("sliding_window") or 0,
+            num_dense_layers=d.get("num_dense_layers", 0),
+            num_experts=d.get("num_experts", 0),
+            num_experts_per_tok=d.get("num_experts_per_tok", 0),
+            moe_intermediate_size=d.get("moe_intermediate_size", 0),
+            num_shared_experts=d.get("num_shared_experts", 1),
+            route_norm=bool(d.get("route_norm", True)),
+            route_scale=float(d.get("route_scale", 1.0)),
+            mup_enabled=bool(d.get("mup_enabled", True)))
 
 
 @dataclass(frozen=True)
@@ -286,8 +401,11 @@ class EngineConfig:
     @staticmethod
     def from_json(s: str) -> "EngineConfig":
         d = json.loads(s)
+        m = d.get("model", {})
+        if "layer_types" in m:
+            m = dict(m, layer_types=tuple(m["layer_types"]))
         return EngineConfig(
-            model=ModelConfig(**d.get("model", {})),
+            model=(AfmoeConfig if "layer_types" in m else ModelConfig)(**m),
             pq=PQConfig(**d.get("pq", {})),
             budget=BudgetConfig(**d.get("budget", {})),
             cache=CacheConfig(**d.get("cache", {})),

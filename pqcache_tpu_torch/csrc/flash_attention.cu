@@ -52,6 +52,13 @@
 //    transpose-B immediate: no transpose copy.
 //  * Epilogue: O / max(l, 1e-30) in bf16, stored from registers; optionally
 //    (m, l).
+// Window variant (flash_fwd_window_kernel, a sliding layer's prefill): a key
+// at index <= q_offset + row - window is masked too. A CTA starts at the key
+// tile that holds its first row's lowest key, so the tiles wholly below its
+// band are never loaded, and masks by element only the tiles that straddle
+// the band's lower edge (besides those of the bounds above). Both kernels
+// are one body, flash_fwd<D, PV, WIN>: WIN false compiles to the kernel
+// without the bound.
 // The shared-memory attribute is set once per process, so a launch inside a
 // CUDA-graph capture makes no attribute call. Tried on the H100 at T 32768
 // and slower than this loop: ping-pong turns of the two consumers at the
@@ -99,11 +106,12 @@ struct Smem {
 // One consumer warpgroup's state (64 q rows): the O accumulator, the S / P
 // tile, P in bf16 as the register A operand of P V, and the online-softmax
 // running max and sum. Thread (warp w, lane) holds rows r and r + 8.
-template <int D>
+template <int D, bool WIN>
 struct Consumer {
   static constexpr int S = Cfg<D>::STAGES;
   Smem<D> sm;
-  int cw, t, r, c0, pos_lo, j_lo, valid_lo, valid_hi, q_offset, causal;
+  int cw, t, r, c0, pos_lo, j_lo, valid_lo, valid_hi, q_offset, causal,
+      window;
   float sl2;
   float o[D / 2];
   float sc[BN / 2];
@@ -137,15 +145,20 @@ struct Consumer {
     fence_regs(sc);
     if (t == 0) mbar_arrive(sm.k_empty(it % S));
     const int kb = (j_lo + it) * BN;
+    // a row of these 64 sees keys down to pos - window + 1: the tile
+    // straddles the band's lower edge if it holds a key at or below
+    // pos_lo + 63 - window
     if (kb < valid_lo || kb + BN > valid_hi ||
-        (causal && kb + BN - 1 > pos_lo)) {
+        (causal && kb + BN - 1 > pos_lo) ||
+        (WIN && kb <= pos_lo + 63 - window)) {
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = kb + 8 * j + c0 + (e & 1);
           const int pos = q_offset + r + 8 * (e >> 1);
-          if (col < valid_lo || col >= valid_hi || (causal && col > pos))
+          if (col < valid_lo || col >= valid_hi || (causal && col > pos) ||
+              (WIN && col <= pos - window))
             sc[4 * j + e] = NEG_INF;
         }
       }
@@ -205,14 +218,12 @@ struct Consumer {
   }
 };
 
-template <int D, bool PV>
-__global__ void __launch_bounds__(NTHREADS, 1)
-flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
-                 const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v,
-                 uint16_t* __restrict__ out, float* __restrict__ m_out,
-                 float* __restrict__ l_out, int group, int Tq, int valid_lo,
-                 int valid_hi, int q_offset, int causal, float scale) {
+template <int D, bool PV, bool WIN>
+__device__ __forceinline__ void flash_fwd(
+    const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+    uint16_t* __restrict__ out, float* __restrict__ m_out,
+    float* __restrict__ l_out, int group, int Tq, int valid_lo, int valid_hi,
+    int q_offset, int causal, float scale, int window) {
   using C = Cfg<D>;
   constexpr int S = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -225,10 +236,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   // has nothing to compute
   int key_hi = valid_hi;
   if (causal) key_hi = min(key_hi, q_offset + m0 + BM);
+  // with a window, no row of the tile sees a key below its first row's
+  // band
+  const int key_lo = WIN ? max(valid_lo, q_offset + m0 - window + 1)
+                         : valid_lo;
   const bool rows =
       PV || (q_offset + m0 + BM > valid_lo && q_offset + m0 < valid_hi);
-  const int j_lo = valid_lo / BN;
-  const int n = rows && valid_lo < key_hi ? (key_hi + BN - 1) / BN - j_lo : 0;
+  const int j_lo = key_lo / BN;
+  const int n = rows && key_lo < key_hi ? (key_hi + BN - 1) / BN - j_lo : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(sm.q_full(), 1);
@@ -249,18 +264,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     setmaxnreg_dec<40>();
     if (t == 0 && n > 0) {
       mbar_expect_tx(sm.q_full(), C::Q_BYTES);
-      tma_tile<D, BM>(sm.q, &tm_q, sm.q_full(), m0, h);
+      tma_tile<D, BM>(sm.q, tm_q, sm.q_full(), m0, h);
       for (int it = 0; it < n; ++it) {
         const int s = it % S;
         const uint32_t ph = (it / S) & 1;
         const int row = (j_lo + it) * BN;
         mbar_wait(sm.k_empty(s), ph ^ 1);
         mbar_expect_tx(sm.k_full(s), C::KV_BYTES);
-        tma_tile<D, BN>(sm.k_tile(s), &tm_k, sm.k_full(s), row, hk);
+        tma_tile<D, BN>(sm.k_tile(s), tm_k, sm.k_full(s), row, hk);
         if constexpr (PV) {
           mbar_wait(sm.v_empty(s), ph ^ 1);
           mbar_expect_tx(sm.v_full(s), C::KV_BYTES);
-          tma_tile<D, BN>(sm.v_tile(s), &tm_v, sm.v_full(s), row, hk);
+          tma_tile<D, BN>(sm.v_tile(s), tm_v, sm.v_full(s), row, hk);
         }
       }
     }
@@ -268,7 +283,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     // ---------------------------------------------------------- consumers
     setmaxnreg_inc<232>();
     const int lane = t % 32;
-    Consumer<D> c;
+    Consumer<D, WIN> c;
     c.sm = sm;
     c.cw = wg;                               // which 64 rows of the tile
     c.t = t;
@@ -280,6 +295,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     c.valid_hi = valid_hi;
     c.q_offset = q_offset;
     c.causal = causal;
+    c.window = window;
     c.sl2 = scale * LOG2E;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) c.o[i] = 0.f;
@@ -331,6 +347,53 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   }
+}
+
+template <int D, bool PV>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 uint16_t* __restrict__ out, float* __restrict__ m_out,
+                 float* __restrict__ l_out, int group, int Tq, int valid_lo,
+                 int valid_hi, int q_offset, int causal, float scale) {
+  flash_fwd<D, PV, false>(&tm_q, &tm_k, &tm_v, out, m_out, l_out, group, Tq,
+                          valid_lo, valid_hi, q_offset, causal, scale, 0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_window_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        uint16_t* __restrict__ out, int group, int Tq,
+                        int valid_lo, int valid_hi, int q_offset, float scale,
+                        int window) {
+  flash_fwd<D, true, true>(&tm_q, &tm_k, &tm_v, out, nullptr, nullptr, group,
+                           Tq, valid_lo, valid_hi, q_offset, 1, scale,
+                           window);
+}
+
+template <int D>
+cudaError_t launch_window(const void* q, const void* k, const void* v,
+                          void* out, int H, int H_kv, int Tq, int Tk,
+                          int valid_lo, int valid_hi, int q_offset,
+                          int window, cudaStream_t stream) {
+  using C = Cfg<D>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_window_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = make_tmap(&tq, q, H, Tq, D, BM);
+  if (e == cudaSuccess) e = make_tmap(&tk, k, H_kv, Tk, D, BN);
+  if (e == cudaSuccess) e = make_tmap(&tv, v, H_kv, Tk, D, BN);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(H, (Tq + BM - 1) / BM);
+  flash_fwd_window_kernel<D><<<grid, NTHREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<uint16_t*>(out), H / H_kv, Tq, valid_lo,
+      valid_hi, q_offset, 1.0f / sqrtf((float)D), window);
+  return cudaGetLastError();
 }
 
 template <int D, bool PV>
@@ -393,6 +456,29 @@ extern "C" int pq_flash_attention(const void* q, const void* k, const void* v,
     case 128:
       return dispatch<128>(q, k, v, out, mf, lf, H, H_kv, Tq, Tk, valid_lo,
                            valid_hi, q_offset, causal, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The window variant of pq_flash_attention (causal, no row statistics): a
+// key at index <= q_offset + row - window is masked too; window >= 1.
+extern "C" int pq_flash_attention_window(const void* q, const void* k,
+                                         const void* v, void* out, int H,
+                                         int H_kv, int Tq, int Tk, int D,
+                                         int valid_lo, int valid_hi,
+                                         int q_offset, int window,
+                                         void* stream) {
+  if (Tq <= 0) return cudaSuccess;
+  if (Tk <= 0 || window < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch_window<64>(q, k, v, out, H, H_kv, Tq, Tk, valid_lo,
+                               valid_hi, q_offset, window, s);
+    case 128:
+      return launch_window<128>(q, k, v, out, H, H_kv, Tq, Tk, valid_lo,
+                                valid_hi, q_offset, window, s);
     default:
       return cudaErrorInvalidValue;
   }

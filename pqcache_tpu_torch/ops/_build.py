@@ -29,7 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of each library's C entry points (all return a cudaError_t)
 SIGNATURES = {
-    "flash_attention": {"pq_flash_attention": [_P] * 6 + [_I] * 9 + [_P]},
+    "flash_attention": {"pq_flash_attention": [_P] * 6 + [_I] * 9 + [_P],
+                        "pq_flash_attention_window": [_P] * 4 + [_I] * 9
+                        + [_P]},
     "flash_scores": {"pq_flash_scores": [_P] * 6 + [_I] * 8 + [_P]},
     "block_attn": {"pq_block_attn": [_P, _P] + [_I] * 6
                    + [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I] + [_P] * 4,

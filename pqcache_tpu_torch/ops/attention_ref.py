@@ -137,11 +137,13 @@ def flash_scores_ref(q: torch.Tensor, k: torch.Tensor, valid_lo=0,
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       valid_len=None, valid_lo=None, *, causal: bool = True,
                       q_offset: int = 0, block: int = 512,
-                      return_stats: bool = False):
+                      return_stats: bool = False, window: int = 0):
     """Online-softmax attention with q-block x k-block tiling in float32.
 
     Keys outside [valid_lo, valid_len) are masked (left-padded prompts);
-    with ``causal`` a key at index > q_offset + q row is masked too.
+    with ``causal`` a key at index > q_offset + q row is masked too, and
+    with ``window`` > 0 (causal only) a key at index <= q_offset + q row -
+    window: a sliding layer attends its last ``window`` keys.
     Returns out [H, Tq, D] in q.dtype; with ``return_stats`` (out, m, l),
     K2's row statistics [H, Tq] f32: m the row max of the scaled logit, l
     the sum of exp(logit - m) over the row's valid keys, and m = NEG_INF,
@@ -176,13 +178,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = torch.zeros((H_kv, group, i1 - i0), device=q.device)
         acc = torch.zeros((H_kv, group, i1 - i0, D), device=q.device)
         k_end = hi if not causal else min(hi, q_offset + i1)
-        # whole k blocks outside [lo, k_end) contribute nothing: skip them
-        for j0 in range(lo // block * block, k_end, block):
+        k_lo = max(lo, q_offset + i0 - window + 1) if window else lo
+        # whole k blocks outside [k_lo, k_end) contribute nothing: skip them
+        for j0 in range(k_lo // block * block, k_end, block):
             j1 = min(j0 + block, Tk)
             kpos = j0 + koffs[:j1 - j0]
             mask = ((kpos >= lo) & (kpos < hi))[None, :]
             if causal:
                 mask = mask & (kpos[None, :] <= qpos[:, None])
+            if window:
+                mask = mask & (kpos[None, :] > qpos[:, None] - window)
             lg = torch.einsum("hgqd,hkd->hgqk", q_i, kf[:, j0:j1])
             lg = torch.where(mask, lg, NEG_INF)
             m_new = torch.maximum(m, lg.amax(-1))

@@ -39,22 +39,30 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor | None,
 
 
 def _launch(q, k, v, out, m, l, lo: int, hi: int, q_offset: int,
-            causal: bool, what: str) -> None:
-    """One launch of K2 (v None: its stats-only mode); tensors contiguous,
-    on one card. TMA reads 16-byte aligned rows."""
+            causal: bool, what: str, window: int = 0) -> None:
+    """One launch of K2 (v None: its stats-only mode; window > 0: its
+    window variant, causal, no statistics); tensors contiguous, on one
+    card. TMA reads 16-byte aligned rows."""
     ptrs = [0 if x is None else x.data_ptr() for x in (q, k, v, out, m, l)]
     if any(p % 16 for p in ptrs[:4]):
         raise ValueError(f"{what}: q, k, v must be 16-byte aligned")
     H, Tq, D = q.shape
     H_kv, Tk, _ = k.shape
-    _build.check(_build.lib("flash_attention").pq_flash_attention(
-        *ptrs, H, H_kv, Tq, Tk, D, lo, hi, int(q_offset), int(causal),
-        _build.stream_ptr(q.device)), what)
+    lib, stream = _build.lib("flash_attention"), _build.stream_ptr(q.device)
+    if window:
+        rc = lib.pq_flash_attention_window(*ptrs[:4], H, H_kv, Tq, Tk, D, lo,
+                                           hi, int(q_offset), int(window),
+                                           stream)
+    else:
+        rc = lib.pq_flash_attention(*ptrs, H, H_kv, Tq, Tk, D, lo, hi,
+                                    int(q_offset), int(causal), stream)
+    _build.check(rc, what)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_lo=0, valid_len=None, *, causal: bool = True,
-                    q_offset: int = 0, return_stats: bool = False):
+                    q_offset: int = 0, return_stats: bool = False,
+                    window: int = 0):
     """q [H, Tq, D], k/v [H_kv, Tk, D] -> out [H, Tq, D] (q.dtype).
 
     Keys outside [valid_lo, valid_len) are masked (valid_len defaults to
@@ -62,15 +70,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Query rows that see no valid key come out 0. The kernel takes bf16 q, k
     and v with D in SUPPORTED_HEAD_DIMS.
 
+    ``window`` > 0 (causal, no statistics): a key at index <= q_offset + q
+    row - window is masked too, a sliding layer's band. The kernel's
+    window variant skips the key tiles wholly below a q tile's band and
+    masks by element only the tiles that straddle it; window 0 launches
+    the kernel without the bound.
+
     With ``return_stats`` returns (out, m, l), the row statistics K4 reads
     ([H, Tq] f32): m the row max of the scaled logit, l the sum of
     exp(logit - m) over the row's valid keys; a row that sees no key, or
     whose position q_offset + row is outside [valid_lo, valid_len), has
     m = -1e30 and l = 0."""
+    if window and (not causal or return_stats or window < 0):
+        raise ValueError("a window needs causal attention without row "
+                         "statistics")
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, valid_len=valid_len,
                                  valid_lo=valid_lo, causal=causal,
-                                 q_offset=q_offset, return_stats=return_stats)
+                                 q_offset=q_offset, return_stats=return_stats,
+                                 window=window)
     _check(q, k, v, "flash_attention")
     H, Tq, _ = q.shape
     Tk = k.shape[1]
@@ -81,7 +99,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = l = None
     if return_stats:
         m, l = torch.empty((2, H, Tq), dtype=torch.float32, device=q.device)
-    _launch(q, k, v, out, m, l, lo, hi, q_offset, causal, "flash_attention")
+    _launch(q, k, v, out, m, l, lo, hi, q_offset, causal, "flash_attention",
+            window)
     flash_attention.launches += 1
     return (out, m, l) if return_stats else out
 

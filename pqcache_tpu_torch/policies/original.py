@@ -3,7 +3,9 @@
 Counterpart of ``pqcache_tpu/policies/original.py``: the quality ceiling,
 the short-prompt fallback of ``pq_search`` and the baseline arm of the
 batched decode (B slots folded into the kv-head axis, per-slot [start,
-length) spans with device counters). State is updated in place.
+length) spans with device counters). State is updated in place. A model
+with sliding-window layers keeps the cache of its full layers and a ring
+per window layer (``policies/window.py``), as ``pq_search`` does.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from pqcache_tpu_torch.core.budget import Budget
 from pqcache_tpu_torch.ops.attention_ref import decode_window_attention_segments
 from pqcache_tpu_torch.ops.dispatch import dense_prefill_attention
 from pqcache_tpu_torch.policies.base import register_policy, use_kernels
+from pqcache_tpu_torch.policies.window import WindowLayers
 from pqcache_tpu_torch.runtime.stages import span, stage
 from pqcache_tpu_torch.runtime.state import (DenseState, make_dense_state,
                                              per_head)
@@ -31,6 +34,7 @@ class OriginalPolicy:
         self.device = resolve_device(device)
         self.max_len = budget.prefill_len + budget.max_new_tokens
         self.use_kernel = use_kernels(cfg)
+        self.kinds = WindowLayers(cfg.model)
 
     def init_state(self, dtype=torch.bfloat16) -> DenseState:
         return make_dense_state(self.cfg, self.max_len, dtype=dtype,
@@ -45,6 +49,10 @@ class OriginalPolicy:
 
     def prefill_tail(self, state: DenseState, idx: int, k, v, pad_len: int,
                      true_len: int) -> None:
+        if idx in self.kinds.ring:
+            self.kinds.prefill(state, idx, k, v, pad_len, true_len)
+            return
+        idx = self.kinds.full[idx]
         P = k.shape[1]
         state.k_cache[idx, :, :P] = k
         state.v_cache[idx, :, :P] = v
@@ -95,13 +103,18 @@ class OriginalPolicy:
             bstate.length[slot] = state.length
             bstate.start[slot] = state.start
             bstate.pos[slot] = state.pos
+            self.kinds.insert_slot(bstate, state, slot)
 
     def decode_attn_batched(self, state: DenseState, idx: int, q, k_new,
                             v_new, shared):
         """q [B, H, D]; k/v_new [B, H_kv, D] -> (out [B, H, D], payload).
         Dense attention over the folded cache, each slot's [start, length)
         as a validity mask (a per-slot slice would read a count on the
-        host)."""
+        host). A window layer attends its ring and returns no payload."""
+        if idx in self.kinds.ring:
+            return self.kinds.decode_batched(state, idx, q, k_new, v_new,
+                                             shared), None
+        idx = self.kinds.full[idx]
         B, H, D = q.shape
         Hf = k_new.shape[0] * k_new.shape[1]
         dt = state.k_cache.dtype
@@ -132,7 +145,8 @@ class OriginalPolicy:
         H_kv = self.cfg.model.num_kv_heads
         return {"length": state.length, "start": state.start,
                 "length_h": per_head(state.length, H_kv),
-                "start_h": per_head(state.start, H_kv)}
+                "start_h": per_head(state.start, H_kv),
+                **self.kinds.shared(state)}
 
     def shared_post_batched(self, state: DenseState, shared) -> None:
         state.length += 1

@@ -58,6 +58,16 @@ LUT to bf16 as the v2 TPU kernel does, on both routes, so a kernels-vs-plain
 run selects the same tokens; JAX's XLA route ignores adc_mode and sums the
 f32 LUT, which is adc_mode "v1" here.
 
+A model with sliding-window layers (``config.AfmoeConfig``): the PQ state
+above exists for its full-attention layers only, stacked over
+``ModelConfig.full_layers``; each window layer keeps a ring of its last
+``window`` keys and values beside it (``policies/window.py``).
+``prefill_tail``, ``insert_slot`` and ``decode_attn_batched`` take the
+model's layer index and dispatch on its kind; a window layer writes its
+new token into its ring inside ``decode_attn_batched`` and returns no
+payload, so ``commit_appends_batched`` and ``flush_ring_batched`` see the
+full layers alone.
+
 The state is written in place (the JAX package returns new pytrees).
 """
 
@@ -79,6 +89,7 @@ from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
 from pqcache_tpu_torch.ops.dispatch import dense_prefill_attention
 from pqcache_tpu_torch.ops.gather import gather_rows
 from pqcache_tpu_torch.policies.base import register_policy, use_kernels
+from pqcache_tpu_torch.policies.window import WindowLayers
 from pqcache_tpu_torch.runtime.stages import scope, span, stage
 from pqcache_tpu_torch.runtime.state import PQState, make_pq_state, per_head
 
@@ -143,6 +154,7 @@ class PQSearchPolicy:
         # this policy holds (set by the parallel engines): k-means++ seeds
         # each group by its global index
         self.shard = (0, 1)
+        self.kinds = WindowLayers(m)
 
     # -- helpers ----------------------------------------------------------
 
@@ -232,8 +244,13 @@ class PQSearchPolicy:
     def prefill_tail(self, state: PQState, idx: int, k, v, pad_len: int,
                      true_len: int) -> None:
         """Codebook training and layer-state writes from this layer's full
-        K/V [H_kv, P, D], in a ``prefill_tail`` span (``runtime/stages``)."""
+        K/V [H_kv, P, D], in a ``prefill_tail`` span (``runtime/stages``);
+        a window layer's ring instead."""
+        if idx in self.kinds.ring:
+            self.kinds.prefill(state, idx, k, v, pad_len, true_len)
+            return
         with span("prefill_tail", layer=idx):
+            idx = self.kinds.full[idx]
             b = self.budget
             P = k.shape[1]
             # left-padded prompt -> roll so real tokens start at index 0; the
@@ -564,6 +581,7 @@ class PQSearchPolicy:
             if self.kv_int8:
                 bstate.k_scale[:, h] = state.k_scale
                 bstate.v_scale[:, h] = state.v_scale
+            self.kinds.insert_slot(bstate, state, slot)
 
     def _local_window(self, state: PQState, idx: int, q_flat, n_cand_h, r):
         """The per-token path's local window as a partial: the contiguous
@@ -586,7 +604,12 @@ class PQSearchPolicy:
     def decode_attn_batched(self, state: PQState, idx: int, q, k_new, v_new,
                             shared):
         """q [B, H, D]; k/v_new [B, H_kv, D]. Returns (out [B, H, D],
-        (k_new, v_new) [B·H_kv, D] payload for commit_appends_batched)."""
+        (k_new, v_new) [B·H_kv, D] payload for commit_appends_batched); a
+        window layer writes its ring and returns the payload None."""
+        if idx in self.kinds.ring:
+            return self.kinds.decode_batched(state, idx, q, k_new, v_new,
+                                             shared), None
+        idx = self.kinds.full[idx]
         b = self.budget
         n_cand_h = shared["n_cand_h"]                        # [B·H_kv]
         qf = q.reshape(-1, self.D)                           # [B·H, D]
@@ -789,7 +812,8 @@ class PQSearchPolicy:
 
     def shared_pre_batched(self, state: PQState):
         return {"n_cand": state.n_cand,
-                "n_cand_h": per_head(state.n_cand, self.H_kv)}
+                "n_cand_h": per_head(state.n_cand, self.H_kv),
+                **self.kinds.shared(state)}
 
     def shared_post_batched(self, state: PQState, shared) -> None:
         state.n_cand += 1

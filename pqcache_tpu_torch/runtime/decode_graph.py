@@ -54,7 +54,7 @@ import torch
 
 from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.config import ModelConfig
-from pqcache_tpu_torch.models import llama
+from pqcache_tpu_torch.models import decoder
 from pqcache_tpu_torch.runtime.stages import span, stage
 
 
@@ -66,9 +66,11 @@ class BatchedDecoder:
     device: cuda unless given; ``graph=True`` (the default) needs a CUDA
     device and replays each step from a CUDA graph, ``graph=False`` runs the
     same step eagerly. check_room=False leaves the room check to the
-    caller. ``comm``: the tensor-parallel group of the step's
-    all-reduces; such a step runs eagerly, as a gloo collective cannot be
-    captured (``graph=True`` with a group raises)."""
+    caller. The step is ``step_fn``, the ``decode_step_batched`` of the
+    configuration's decoder (``models.decoder``). ``comm``: the
+    tensor-parallel group of the step's all-reduces; such a step runs
+    eagerly, as a gloo collective cannot be captured (``graph=True`` with
+    a group raises)."""
 
     def __init__(self, cfg: ModelConfig, params: dict, policy, state, *,
                  chunk: int = 0, graph: bool = True, device=None,
@@ -91,6 +93,7 @@ class BatchedDecoder:
         self.cfg, self.params, self.policy, self.state = (cfg, params, policy,
                                                           state)
         self.comm = comm
+        self.step_fn = decoder(cfg).decode_step_batched
         self.chunk, self.ring = chunk, bool(ring_k)
         self.use_graph = graph
         self.graph = None
@@ -114,9 +117,8 @@ class BatchedDecoder:
                        if sample is not None else None)
 
     def _step(self) -> None:
-        logits = llama.decode_step_batched(self.cfg, self.params, self.policy,
-                                           self.state, self.tok, self.pos,
-                                           self.comm)
+        logits = self.step_fn(self.cfg, self.params, self.policy, self.state,
+                              self.tok, self.pos, self.comm)
         with stage("argmax"):
             nxt = (torch.argmax(logits, -1).to(torch.int32)
                    if self.sample is None else

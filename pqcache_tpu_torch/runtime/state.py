@@ -31,6 +31,14 @@ tokens of the current decode chunk, raw until the chunk's flush) with its
 fill count ``ring_r`` (int32, 0-d), and a tail ``tail_pad`` rows longer,
 so that the flush's ring_k rows never run past it.
 
+A model with sliding-window layers (``config.AfmoeConfig``) keeps the
+retrieval state (or the dense cache) of its full-attention layers only,
+stacked over ``ModelConfig.full_layers``; its window layers keep
+``win_k/win_v`` [L_w, H_kv, window, D] beside it: a ring of each
+sequence's last ``window`` keys and values, position p at row p % window
+(``policies/window.py``). Both policies that serve such a model hold both
+kinds in one state, so a slot insert moves both.
+
 Policies update these dataclasses in place.
 """
 
@@ -63,6 +71,8 @@ class PQState:
     v_scale: Optional[torch.Tensor] = None
     ring_kv: Optional[torch.Tensor] = None  # [L, B·H_kv, ring_k, 2D]
     ring_r: Optional[torch.Tensor] = None   # int32 0-d: filled ring columns
+    win_k: Optional[torch.Tensor] = None    # [L_w, H_kv, window, D]
+    win_v: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -78,6 +88,8 @@ class DenseState:
     pos: Union[int, torch.Tensor] = 0      # position of the next token
     scores: Optional[torch.Tensor] = None   # [L, H_kv, T_max] f32
     mask: Optional[torch.Tensor] = None     # [L, H_kv, T_max] bool
+    win_k: Optional[torch.Tensor] = None    # [L_w, H_kv, window, D]
+    win_v: Optional[torch.Tensor] = None
 
 
 def per_head(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -86,6 +98,17 @@ def per_head(x: torch.Tensor, n: int) -> torch.Tensor:
     a constant, without reading a count on the host)."""
     return x[:, None].expand(x.shape[0], n, *x.shape[1:]).reshape(
         x.shape[0] * n, *x.shape[1:])
+
+
+def _window_ring(m, batch: int, dtype, device):
+    """The window layers' rings (win_k, win_v) [L_w, B·H_kv, window, D],
+    or (None, None) for a model without window layers."""
+    if not m.window_layers:
+        return None, None
+    shape = (len(m.window_layers), max(batch, 1) * m.num_kv_heads,
+             m.window_of(m.window_layers[0]), m.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _counters(batch: int, device, n: int):
@@ -111,7 +134,7 @@ def make_pq_state(cfg: EngineConfig, budget: Budget, *,
     S = cfg.pq.n_subvec_per_head
     C = cfg.pq.n_centroids
     d_lift = m.head_dim // S + (1 if cfg.pq.metric == "ip" else 0)
-    L, D = m.num_layers, m.head_dim
+    L, D = len(m.full_layers), m.head_dim
     Hf = max(batch, 1) * m.num_kv_heads
     N_tail = budget.n_tail_max + tail_pad
     kv_int8 = cfg.cache.kv_dtype == "int8"
@@ -120,6 +143,7 @@ def make_pq_state(cfg: EngineConfig, budget: Budget, *,
         return torch.zeros(shape, dtype=dt, device=device)
 
     n_cand, pos = _counters(batch, device, 2)
+    win_k, win_v = _window_ring(m, batch, dtype, device)
     return PQState(
         k_sink=z(L, Hf, budget.sink, D),
         v_sink=z(L, Hf, budget.sink, D),
@@ -137,6 +161,7 @@ def make_pq_state(cfg: EngineConfig, budget: Budget, *,
                  if kv_int8 else None),
         ring_kv=z(L, Hf, ring_k, 2 * D) if ring_k else None,
         ring_r=z(dt=torch.int32) if ring_k else None,
+        win_k=win_k, win_v=win_v,
     )
 
 
@@ -150,9 +175,10 @@ def make_dense_state(cfg: EngineConfig, max_len: int, *,
     device = resolve_device(device)
     m = cfg.model
     max_len = (max_len + 255) // 256 * 256
-    shape = (m.num_layers, max(batch, 1) * m.num_kv_heads, max_len,
+    shape = (len(m.full_layers), max(batch, 1) * m.num_kv_heads, max_len,
              m.head_dim)
     length, start, pos = _counters(batch, device, 3)
+    win_k, win_v = _window_ring(m, batch, dtype, device)
     return DenseState(
         k_cache=torch.zeros(shape, dtype=dtype, device=device),
         v_cache=torch.zeros(shape, dtype=dtype, device=device),
@@ -160,4 +186,5 @@ def make_dense_state(cfg: EngineConfig, max_len: int, *,
         scores=(torch.zeros(shape[:3], device=device) if with_scores
                 else None),
         mask=(torch.ones(shape[:3], dtype=torch.bool, device=device)
-              if with_scores else None))
+              if with_scores else None),
+        win_k=win_k, win_v=win_v)
