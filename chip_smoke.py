@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``pqcache_tpu_torch/csrc``, holds each
-(K1–K6, and the joint-histogram scorer at the 128k decode cell's shapes)
+(K1–K6, and K1 and the joint-histogram scorer at the 128k decode cell's shapes)
 against its plain PyTorch version at the main path's shapes (K2
 also on the serving path's admission slabs at q_offset and on the 128k
 chunked prefill's slabs against 131072 keys, and its window variant on an
@@ -81,8 +81,8 @@ timed run) and peak memory. The self-checks
 hold greedy tokens at every step, teacher-forced, a parting allowed only
 at a near tie, and count each route's launches. Then the port's
 bench driver runs at bench.py's defaults (and at its 128k chunked-prefill
-case when time allows) and prints its JSON line. The kernels line takes K1 and K5 at the batched shapes and W8
-per batched step. Any failure exits non-zero. Without CUDA it exits 1 and
+case when time allows) and prints its JSON line. The kernels line takes K1 at the 128k cell's
+shape, K5 at the batched shapes and W8 per batched step. Any failure exits non-zero. Without CUDA it exits 1 and
 prints no result.
 
 Output: the card's name and power limit, per-phase results, a
@@ -663,7 +663,8 @@ def k1_phase(dev) -> dict:
     n_cand. The timed launches cycle over 8 layers of the tail (110 MB of
     selected blocks per cycle, above the 50 MB L2), so blocks arrive cold as
     they do in decode. Times are device time from CUDA-graph replay; the
-    per-call time from Python is printed beside it."""
+    per-call time from Python is printed beside it. Then K1 at the 128k
+    cell's shape (k1_cell_entry), whose entry this returns."""
     m = config.LLAMA31_8B
     H, H_kv, D, bs, nb_sel, L = m.num_heads, m.num_kv_heads, m.head_dim, 256, 13, 8
     N, n_cand = N_TAIL, N_CAND         # block 99 is cut at row 226 of 256
@@ -673,7 +674,6 @@ def k1_phase(dev) -> dict:
         for _ in range(H_kv)])
     blk = torch.from_numpy(blk_np).to(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    entry = None
     for kv_dtype in ("int8", "bf16"):
         if kv_dtype == "bf16":
             kv = torch.randn((L, H_kv, N, 2 * D), generator=gen,
@@ -713,16 +713,76 @@ def k1_phase(dev) -> dict:
             f"its bound), {call_ms * 1e3:.2f} us "
             f"per call from Python; plain {plain_ms:.3f} ms; bound "
             f"{bound_ms * 1e3:.2f} us (bytes); library call: none")
-        if kv_dtype == "bf16":
-            entry = dict(name="block_topk_attention", route="cuda",
-                         source="pqcache_tpu_torch/csrc/block_attn.cu",
-                         replaces="pqcache_tpu/ops/block_attn_pallas.py:138",
-                         max_abs_err=err, max_row_rel_err=row_rel, ms=ms,
-                         call_ms=call_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by="bytes",
-                         library_ms=None)
         del kv, q, got, ref
-    return entry
+    torch.cuda.empty_cache()
+    return k1_cell_entry(dev)
+
+
+# the 128k decode cell's one K1 launch: 24 slots x 8 kv heads folded, g 4,
+# int8 rows of 2 x 128, 52 selected blocks of 256 below each head's n_cand
+# and the local window (win_max 13104, win_len 13104 - a full ring of 128)
+K1_CELL = dict(Hf=192, g=4, N=131072, nb_sel=52, win_max=13104,
+               win_len=12976)
+
+
+def k1_cell_entry(dev) -> dict:
+    """K1 at K1_CELL on one layer drawn on the card (6.4 GB of int8 tail;
+    1.3 GB of rows a call, far above the 50 MB L2, so rows arrive cold):
+    held to its plain version, timed by CUDA-graph replay beside its byte
+    bound. The kernels line's K1 entry."""
+    sh = K1_CELL
+    Hf, g, N, nb_sel, bs = sh["Hf"], sh["g"], sh["N"], sh["nb_sel"], 256
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    kv = torch.randint(-128, 128, (1, Hf, N, 256), generator=gen, device=dev,
+                       dtype=torch.int8)
+    q = torch.randn((Hf * g, 1, 128), generator=gen, device=dev) * 0.01
+    rng = np.random.default_rng(SEED + 20)
+    ncn = N - sh["win_max"] - rng.integers(1, 700, Hf)
+    blk_np = np.stack([rng.choice(-(-n // bs), nb_sel, replace=False)
+                       for n in ncn])
+    blk = torch.from_numpy(blk_np).to(dev)
+    n_c = torch.from_numpy(ncn.astype(np.int32)).to(dev)
+    wl = torch.tensor(sh["win_len"], dtype=torch.int32, device=dev)
+    kw = dict(block=bs, win_len=wl, win_max=sh["win_max"])
+    got = block_topk_attention(q, kv, 0, blk, n_c, **kw)
+    ctas = block_attn.last_ctas()
+    torch.cuda.synchronize()
+    ref = block_topk_attention_ref(q, kv, 0, blk, n_c, **kw)
+    err = max((a - b).abs().max().item() for a, b in zip(got, ref))
+    rel = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+              for a, b in zip(got, ref))
+    row_rel = row_rel_err(got[2], ref[2])
+    del ref
+    log(f"K1 at the 128k cell ({Hf} folded heads, g {g}, {nb_sel} blocks + "
+        f"window {sh['win_len']}, int8): max_abs_err {err:.3e}, {rel:.3e} "
+        f"relative to the largest entry (tol {K1_TOL}); {ctas} CTAs per kv "
+        f"head")
+    if not rel <= K1_TOL:
+        raise SystemExit("K1 at the 128k cell disagrees with its plain "
+                         "version")
+    ms = graph_ms(lambda: block_topk_attention(q, kv, 0, blk, n_c, **kw), 8)
+    plain_ms = graph_ms(lambda: block_topk_attention_ref(
+        q, kv, 0, blk, n_c, **kw), 1)
+    call_ms = cuda_ms(lambda: block_topk_attention(q, kv, 0, blk, n_c, **kw),
+                      20, warmup=2)
+    rows = int(np.minimum(bs, np.maximum(ncn[:, None] - blk_np * bs,
+                                         0)).sum()) + Hf * sh["win_len"]
+    nbytes = rows * 256 + q.numel() * 4 + Hf * g * 4 * (2 + 128)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    log(f"K1 at the 128k cell: kernel {ms * 1e3:.1f} us of device time per "
+        f"call ({rows} rows, {nbytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%}"
+        f" of its bound, {rows / (Hf * ctas) / ms / 1e3:.1f} M rows/s per "
+        f"CTA), {call_ms * 1e3:.1f} us per call from Python; plain "
+        f"{plain_ms:.1f} ms; bound {bound_ms * 1e3:.1f} us (bytes); library "
+        f"call: none")
+    del kv, q, got
+    torch.cuda.empty_cache()
+    return dict(name="block_topk_attention", route="cuda",
+                source="pqcache_tpu_torch/csrc/block_attn.cu",
+                replaces="pqcache_tpu/ops/block_attn_pallas.py:138",
+                max_abs_err=err, max_row_rel_err=row_rel, ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None)
 
 
 # ---------------------------------------------------------------------------
@@ -1936,7 +1996,7 @@ def batched_run(dev, model, params, pol, state, first: int, B: int,
     return out
 
 
-def k1_batched_entry(dev, pol, bstate) -> dict:
+def k1_batched(dev, pol, bstate) -> None:
     """K1 at the batched shapes of bench.py's path, on the real tail of the
     B = 8 state: 64 folded kv heads, 13 selected blocks of 256 rows below
     each head's n_cand, the local window of 3273 rows from n_cand (win_len
@@ -1991,12 +2051,6 @@ def k1_batched_entry(dev, pol, bstate) -> dict:
         f"its bound), {call_ms * 1e3:.2f} us per call from Python; plain "
         f"{plain_ms:.3f} ms; bound {bound_ms * 1e3:.2f} us (bytes); library "
         f"call: none")
-    return dict(name="block_topk_attention", route="cuda",
-                source="pqcache_tpu_torch/csrc/block_attn.cu",
-                replaces="pqcache_tpu/ops/block_attn_pallas.py:138",
-                max_abs_err=err, max_row_rel_err=row_rel_err(got[2], ref[2]),
-                ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes", library_ms=None)
 
 
 def k3_batched(dev, n_cand) -> None:
@@ -2034,8 +2088,8 @@ def batched_phase(dev, params, model) -> tuple:
     """bench.py's protocol through the port at BATCH_LAYERS layers, arm by
     arm (BATCH_ARMS), each arm's state freed before the next: prefilled once
     from one 32k prompt (TTFT), then decoded at B = 8 and at B = 1, eagerly
-    and replayed. Returns (the K1 entry at the batched shapes, the launches
-    the wrappers counted, the launches replayed from the graphs)."""
+    and replayed. Returns (the launches the wrappers counted, the launches
+    replayed from the graphs)."""
     model = dataclasses.replace(model, num_layers=BATCH_LAYERS)
     params = dict(params, layers={k: v[:BATCH_LAYERS]
                                   for k, v in params["layers"].items()})
@@ -2044,7 +2098,6 @@ def batched_phase(dev, params, model) -> tuple:
     toks = torch.from_numpy(ids).to(dev)
     launches = dict.fromkeys(KERNELS, 0)
     replayed = dict.fromkeys(KERNELS, 0)
-    entry = None
     for name, (policy, pq_kw, path) in BATCH_ARMS.items():
         arm_params = (quant.quantize_weight_tree(params)
                       if "w8_matmul" in path else params)
@@ -2072,7 +2125,7 @@ def batched_phase(dev, params, model) -> tuple:
             for k, v in r["replayed"].items():
                 replayed[k] += v
             if name == "pq_search" and B == 8:
-                entry = k1_batched_entry(dev, pol, r["bstate"])
+                k1_batched(dev, pol, r["bstate"])
                 k3_batched(dev, r["bstate"].n_cand)
             if name == "pq_search-token" and B == 8:
                 T = r["bstate"].codes.shape[-1]
@@ -2085,7 +2138,7 @@ def batched_phase(dev, params, model) -> tuple:
             torch.cuda.empty_cache()
         del state, pol, arm_params
         torch.cuda.empty_cache()
-    return entry, launches, replayed
+    return launches, replayed
 
 
 def batched_self_check(dev, params, model, name: str, **pq_kw) -> None:
@@ -3424,7 +3477,7 @@ def main() -> int:
     score_self_check(dev, params, model, "h2o-sum")
     score_self_check(dev, params, model, "infllm")
     log(f"self-checks done at {time.perf_counter() - t0:.0f} s")
-    k1_entry, batched, replayed = batched_phase(dev, params, model)
+    batched, replayed = batched_phase(dev, params, model)
     for k, v in batched.items():
         launches[k] += v
     batched_self_check(dev, params, model, "jhist", jhist_defer="on")
@@ -3433,10 +3486,6 @@ def main() -> int:
                        adc_mode="v2")
     log(f"batched phase done at {time.perf_counter() - t0:.0f} s; launches "
         f"{batched} from the wrappers, {replayed} replayed from the graphs")
-    # the kernels line takes K1 at the batched path's shapes (K5's entry
-    # is already the K5 phase's batched one)
-    entries = [k1_entry if e["name"] == k1_entry["name"] else e
-               for e in entries]
     for k, v in offload_phase(dev, params, model).items():
         launches[k] += v
     log(f"offload phase done at {time.perf_counter() - t0:.0f} s")

@@ -18,16 +18,26 @@
 //            holds, so a count that changes every step is read there)
 //   -> m, l  [H_kv, g] f32, acc [H_kv, g, D] f32; a head with no unmasked
 //      row gives (-1e30, 0, 0). The TPU kernel computes q, k, v and p in
-//      f32; here they reach the tensor cores as bf16 pairs that carry f32 to
-//      2^-17 (below), with f32 sums.
+//      f32; here they reach the tensor cores as bf16 or f16 pairs that carry
+//      f32 to 2^-17 or better (below), with f32 sums.
 //
 // What bounds it: every selected row is read once and used for g dot products
 // and g axpys, about 4 FLOP/byte: far below the card's ridge, so it is bound by
 // the bytes it moves: 8 kv heads x 13 blocks x 256 rows x 512 B = 13.5 MB per
 // layer-step at 32k in bf16, 4.04 us at 3.35 TB/s; half that in int8. The
-// batched decode adds the local window: at B 8 (64 folded heads, 13 blocks
-// and a window of up to 3273 rows, int8) about 6600 rows x 256 B x 64 heads
-// = 108 MB per layer-step, 32 us.
+// batched decode adds the local window and folds the slots into the heads:
+// at the 128k decode cell (24 slots x 8 kv heads = 192 folded heads, 52
+// blocks and a window of 12976 rows, int8) 26288 rows x 256 B x 192 heads =
+// 1.29 GB per layer-step, 385 us. What held it below that was per-row work
+// on the chip, not bytes: a CTA walked ~24 M rows/s whatever the row's width
+// (the producer marked each row by a read-modify-write of shared memory,
+// ~70 cycles a row at 23.5 M rows/s; the int8 consumer spent 64 MMAs and
+// 64 I2F-pair conversions on 16 rows). On an H100 (700 W) at the 128k cell's shape this
+// kernel takes 541 us (71% of the bytes' time) where that design took 1116
+// us. The 192 CTAs, one a head, put two on 60 SMs and one on 72, and the
+// pairs set the time (132 heads, one on every SM, take 475 us); with the
+// consumers' work skipped the launch takes 500 us, so what is left is the
+// ring's: one producer thread and three stages in flight per CTA.
 //
 // Design: one launch. Each kv head gets a thread-block cluster of CTAs (16
 // at H_kv = 8; the largest power of two whose clusters all fit on the card
@@ -48,25 +58,43 @@
 //   * Loads: one producer thread packs the ranges into a ring of NSTAGE
 //     32 KB stages and fills them by TMA (cp.async.bulk.tensor over the
 //     layer's tail as a 2-D tensor of rows, boxes of 32 or 8 rows, byte
-//     completion on a full mbarrier), marking the stage's rows to use. The
+//     completion on a full mbarrier), marking the stage's rows to use: a
+//     box's rows are one run of at most 32 bits, set in at most two words of
+//     a mask kept in registers and stored once a stage. The
 //     1-D bulk copy would fit contiguous rows too, but it cannot swizzle: the
 //     tensor copy writes the 128-byte swizzle that lets ldmatrix read 8 rows
 //     without bank conflicts. A range's last 8-row box may fetch up to 7 rows
 //     past its end (not marked, never used); no other row outside a range
 //     is fetched.
 //   * Compute: four consumer warps take the stages' 16-row groups in turn
-//     and run S = Q K^T and P V as mma.sync m16n8k16 (bf16 in, f32 sums):
-//     a first version on the CUDA cores, f32 FMAs from shared memory, took
-//     21-25 us on an H100 at the main shapes, held back by its instruction
-//     count, not its bytes. Accuracy as the TPU kernel's f32: a bf16 q times a bf16 or
-//     int8 k is exact; an f32 q (int8 tail) and p enter as hi + lo bf16
-//     pairs (two products), so the terms are good to 2^-17. The online
-//     softmax runs in f32 on the accumulator fragments (a row's max over the
-//     4 lanes of a quad), and P's fragment is S's, so it never leaves the
-//     registers. int8 rows are converted exactly to bf16 in registers; their
-//     channels come in fours from ldmatrix, so q is packed in that order.
-//     Rows not to use get a zero V (0 x NaN is NaN) and p = 0. A warp frees a
-//     stage by one arrival on its empty mbarrier.
+//     and multiply with mma.sync m16n8k16, f32 sums: a first version on the
+//     CUDA cores, f32 FMAs from shared memory, took 21-25 us on an H100 at
+//     the main shapes, held back by its instruction count, not its bytes.
+//     Accuracy as the TPU kernel's f32. The online softmax runs in f32 on
+//     the accumulator fragments, and P reaches the second product without
+//     leaving the registers. Rows not to use get p = 0. A warp frees a stage
+//     by one arrival on its empty mbarrier.
+//       bf16 tail: S = Q K^T and P V with the g heads on the MMA's M side
+//     (rows g..15 zero) and the rows on N; a bf16 q times a bf16 k is exact,
+//     p enters as hi + lo bf16 pairs (two products), good to 2^-17; a row's
+//     max is over the 4 lanes of a quad, and P's A fragment is S's C
+//     fragment. Rows not to use may hold anything, and 0 x NaN is NaN: their
+//     V is zeroed in the stage.
+//       int8 tail: the rows on M and the heads on N, S^T = K q^T and acc^T =
+//     V^T P^T, four heads to an n8 tile as (hi, lo) column pairs, so one MMA
+//     does a 16-channel step for every head and both halves: 16 MMAs a group
+//     at g <= 4, 32 at g 8. The MMAs are f16: an int8 row converts exactly
+//     by one byte permute and one f16x2 subtraction a pair (0x6480: 1024 +
+//     v + 128 - 1152), against two I2F and an F2F before; q, scaled per head
+//     by the power of two that puts its largest |entry| in [2^13, 2^14), and
+//     p, times 2^15, enter as f16 hi + lo pairs (2^-22, clear of f16's
+//     overflow and subnormals), and the powers of two come off the f32 sums
+//     exactly. P^T's B fragment is S^T's C fragment transposed by movmatrix;
+//     a head's max and sum run over the 8 lanes of its column. int8 rows are
+//     finite, so p = 0 alone masks a row. Measured at the 128k cell's shape
+//     (H100, 700 W): the same layout in bf16, converted by W8's byte
+//     permutes, took 627 us, by two I2F a pair 628 us, on 32-row groups 632
+//     us; this one 541 us.
 //   * Merge on chip: each CTA folds its warps into one (m, l, acc[g][D]),
 //     then sends slice p of it, and its (m, l), to CTA p of the cluster
 //     through distributed shared memory; after one cluster barrier each CTA
@@ -76,6 +104,7 @@
 //     no counterpart.
 
 #include <cooperative_groups.h>
+#include <cuda_fp16.h>
 
 #include "mma_sm90.cuh"  // mbarriers, TMA, cluster barriers and launch
 
@@ -121,16 +150,26 @@ __device__ __forceinline__ void ldsm4_t(uint32_t a, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
-// c[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, f32 out; A's rows 8..15 are 0
-// (a0: row lane / 4, k 2 (lane % 4) + {0, 1}; a2: the same at k + 8), so
-// only c[0], c[1] (row lane / 4, columns 2 (lane % 4) + {0, 1}) carry data
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a2,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+// c[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, f32 out. Lane (j, t) = (lane
+// / 4, lane % 4) holds a0: A row j, k 2t + {0, 1}; a1: row j + 8; a2, a3:
+// the same at k + 8; b0: B column j, k 2t + {0, 1}; b1: k + 8; c[0], c[1]:
+// row j, columns 2t + {0, 1}; c[2], c[3]: row j + 8
+__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+// the same with f16 A and B
+__device__ __forceinline__ void mma16816h(float (&c)[4], uint32_t a0, uint32_t a1,
+                                          uint32_t a2, uint32_t a3, uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 // two f32 as bf16 pairs hi and lo with hi + lo = (x0, x1) to 2^-17
 __device__ __forceinline__ void split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
@@ -139,9 +178,38 @@ __device__ __forceinline__ void split(float x0, float x1, uint32_t& hi, uint32_t
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x0 - f.x, x1 - f.y);
 }
-// bytes i and j of w, int8, as an exact bf16 pair
-__device__ __forceinline__ uint32_t i8x2(uint32_t w, int i, int j) {
-  return pack_bf16((float)(int8_t)(w >> (8 * i)), (float)(int8_t)(w >> (8 * j)));
+// two f32 as f16 pairs hi and lo with hi + lo = (x0, x1) to 2^-22 for
+// 2^-3 <= |x| <= 2^15 (below 2^-3, lo is subnormal: to 2^-25 absolute)
+__device__ __forceinline__ void split16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __half2 h = __floats2half2_rn(x0, x1);
+  const float2 f = __half22float2(h);
+  const __half2 l = __floats2half2_rn(x0 - f.x, x1 - f.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+// one f32 as the f16 pair (hi, lo), hi low, as split16
+__device__ __forceinline__ uint32_t hilo16(float x) {
+  const __half h = __float2half_rn(x);
+  const __half2 v = __halves2half2(h, __float2half_rn(x - __half2float(h)));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+// two bytes of an int8 word as an exact f16 pair, by one byte permute and
+// one f16x2 subtraction: wx = w ^ 0x80808080 holds v + 128 in each byte;
+// `sel` puts two of them under 0x64 high bytes, the f16s 1024 + v + 128,
+// and subtracting 0x6480 = 1152 leaves v (sel 0x4j4i: bytes i low, j high)
+__device__ __forceinline__ uint32_t i8h2(uint32_t wx, uint32_t sel) {
+  uint32_t x = __byte_perm(wx, 0x64646464u, sel);
+  asm("sub.f16x2 %0, %0, %1;\n" : "+r"(x) : "r"(0x64806480u));
+  return x;
+}
+// 2^e as an f32, for |e| < 127
+__device__ __forceinline__ float pow2(int e) { return __int_as_float((127 + e) << 23); }
+// the 8 x 8 b16 matrix whose row lane / 4 holds columns 2 (lane % 4) + {0,
+// 1} in x, transposed: lane (j, t) gets elements (2t, j), (2t + 1, j)
+__device__ __forceinline__ uint32_t movtrans(uint32_t x) {
+  uint32_t y;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 __device__ __forceinline__ uint16_t bf16_bits(__nv_bfloat16 b) {
   return *reinterpret_cast<const uint16_t*>(&b);
@@ -243,12 +311,15 @@ block_attn_kernel(const __grid_constant__ CUtensorMap tm_big,
         const int slot = st % NSTAGE;
         mbar_wait(empty0 + 8 * slot, ((st / NSTAGE) & 1) ^ 1);
         const uint32_t stage = smem_u32(ring + slot * STAGE_BYTES);
-        uint32_t* ok = rows_ok[slot];
+        uint32_t ok[C::MASK_WORDS];               // the stage's rows to use
+#pragma unroll
         for (int w = 0; w < C::MASK_WORDS; ++w) ok[w] = 0u;
         const int kb_s = kb, r_s = r, r1_s = r1, row0_s = row0;
         int filled = 0;
         for (int pass = 0; pass < 2; ++pass) {     // count and mark, then copy
           if (pass) {
+#pragma unroll
+            for (int w = 0; w < C::MASK_WORDS; ++w) rows_ok[slot][w] = ok[w];
             mbar_expect_tx(full0 + 8 * slot, (uint32_t)filled * C::ROW_BYTES);
             kb = kb_s, r = r_s, r1 = r1_s, row0 = row0_s;
             filled = 0;
@@ -263,8 +334,15 @@ block_attn_kernel(const __grid_constant__ CUtensorMap tm_big,
             const int n = r1 - r;
             const int size = n >= BIG && filled + BIG <= R ? BIG : SMALL;
             if (!pass) {
-              const int v1 = filled + min(size, n);
-              for (int i = filled; i < v1; ++i) ok[i >> 5] |= 1u << (i & 31);
+              // the box's rows to use, [filled, filled + min(size, n)): a
+              // run of at most 32 bits, so in at most two words
+              const uint64_t run = ((1ull << min(size, n)) - 1) << (filled & 31);
+              const int w0 = filled >> 5;
+#pragma unroll
+              for (int w = 0; w < C::MASK_WORDS; ++w) {
+                if (w == w0) ok[w] |= (uint32_t)run;
+                if (w == w0 + 1) ok[w] |= (uint32_t)(run >> 32);
+              }
             } else {
 #pragma unroll
               for (int c = 0; c < C::NBOX; ++c)
@@ -288,43 +366,50 @@ block_attn_kernel(const __grid_constant__ CUtensorMap tm_big,
   } else {
     // consumers: the 16-row groups of the share, counted across stages, go
     // to the warps in turn, so a stage of two groups and the next one are
-    // taken by different warps.
-    // Lane (j = lane / 4, t = lane % 4) holds q head j's scores of rows
-    // 2t, 2t + 1, 8 + 2t, 9 + 2t of a group, and its accumulator columns.
-    const int t = lane & 3, gj = lane >> 2;
-    const QT* qh = q + ((size_t)h * G + min(gj, G - 1)) * D;
-    uint32_t qa[C::KSTEPS][2], ql[C::KSTEPS][2];
+    // taken by different warps. walk(group) calls group(stage, g0, okb) on
+    // each of this warp's groups with a row to use (bit i of okb: row g0 + i
+    // of the stage), then frees the ring for the warps' partials.
+    auto walk = [&](auto&& group) {
+      for (int st = 0, gbase = 0;; ++st) {
+        const int slot = st % NSTAGE;
+        mbar_wait(full0 + 8 * slot, (st / NSTAGE) & 1);
+        const int info = st_rows[slot], filled = info & 0xffff;
+        const uint32_t stage = smem_u32(ring + slot * STAGE_BYTES);
+        const int first = (warp - gbase % NCW + NCW) % NCW;   // this warp's first group
+        gbase += (filled + 15) / 16;
+        for (int g0 = 16 * first; g0 < filled; g0 += NCW * 16) {
+          const uint32_t okb = (rows_ok[slot][g0 >> 5] >> (g0 & 31)) & 0xffffu;
+          if (okb) group(stage, g0, okb);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+        if (info >> 16) break;
+      }
+      // every stage is consumed (so every copy has landed): the ring is free
+      // for the warps' partials [NCW][G][D + 2]
+      named_bar_sync(1, NCW * 32);
+    };
+    const int t = lane & 3, gj = lane >> 2, mi = lane >> 3, lr = lane & 7;
+    float* part = reinterpret_cast<float*>(ring) + warp * G * (D + 2);
+    if constexpr (sizeof(KT) == 2) {
+      // bf16 tail: lane (j, t) holds q head j's scores of rows 2t, 2t + 1,
+      // 8 + 2t, 9 + 2t of a group, and its accumulator columns; A's rows
+      // 8..15 and those of heads past g are 0
+      const QT* qh = q + ((size_t)h * G + min(gj, G - 1)) * D;
+      uint32_t qa[C::KSTEPS][2];   // channels 16kk + 2t + 8hf + {0, 1}
 #pragma unroll
-    for (int kk = 0; kk < C::KSTEPS; ++kk)
+      for (int kk = 0; kk < C::KSTEPS; ++kk)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        // bf16 rows: channels 16kk + 2t + 8hf + {0, 1}; int8 rows (their
-        // channels come in fours, see below): 16kk + 4t + 2hf + {0, 1}
-        const int c = sizeof(KT) == 2 ? 16 * kk + 2 * t + 8 * hf
-                                      : 16 * kk + 4 * t + 2 * hf;
-        if constexpr (sizeof(KT) == 2) {
+        for (int hf = 0; hf < 2; ++hf) {
+          const int c = 16 * kk + 2 * t + 8 * hf;
           qa[kk][hf] = gj < G ? (uint32_t)bf16_bits(qh[c]) |
                                     ((uint32_t)bf16_bits(qh[c + 1]) << 16)
                               : 0u;
-          ql[kk][hf] = 0u;
-        } else {
-          split(gj < G ? qh[c] : 0.f, gj < G ? qh[c + 1] : 0.f, qa[kk][hf],
-                ql[kk][hf]);
         }
-      }
-    float acc[C::DT][4], m = MASKED, lsum = 0.f;
+      float acc[C::DT][4], m = MASKED, lsum = 0.f;
 #pragma unroll
-    for (int i = 0; i < C::DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    for (int st = 0, gbase = 0;; ++st) {
-      const int slot = st % NSTAGE;
-      mbar_wait(full0 + 8 * slot, (st / NSTAGE) & 1);
-      const int info = st_rows[slot], filled = info & 0xffff;
-      const uint32_t stage = smem_u32(ring + slot * STAGE_BYTES);
-      const int first = (warp - gbase % NCW + NCW) % NCW;   // this warp's first group
-      gbase += (filled + 15) / 16;
-      for (int g0 = 16 * first; g0 < filled; g0 += NCW * 16) {
-        const uint32_t okb = (rows_ok[slot][g0 >> 5] >> (g0 & 31)) & 0xffffu;
-        if (!okb) continue;
+      for (int i = 0; i < C::DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+      walk([&](uint32_t stage, int g0, uint32_t okb) {
         if (okb != 0xffffu) {
           // rows not to use may hold anything, and 0 x NaN is NaN in the
           // products: zero their V
@@ -332,7 +417,7 @@ block_attn_kernel(const __grid_constant__ CUtensorMap tm_big,
             const int rr = i / C::V_CHUNKS;
             if (!((okb >> rr) & 1u))
               asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(
-                               sw<R>(stage, g0 + rr, D * (int)sizeof(KT) + (i % C::V_CHUNKS) * 16)),
+                               sw<R>(stage, g0 + rr, 2 * D + (i % C::V_CHUNKS) * 16)),
                            "r"(0u) : "memory");
           }
           // order these writes before the stage's next fill by TMA
@@ -341,31 +426,12 @@ block_attn_kernel(const __grid_constant__ CUtensorMap tm_big,
         }
         // S = Q K^T over the group's 16 rows: two 8-row tiles
         float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        const int mi = lane >> 3, lr = lane & 7;
-        if constexpr (sizeof(KT) == 2) {
 #pragma unroll
-          for (int kk = 0; kk < C::KSTEPS; ++kk) {
-            uint32_t b[4];   // rows 0-7 (k, k + 8), rows 8-15 (k, k + 8)
-            ldsm4(sw<R>(stage, g0 + lr + (mi >> 1) * 8, (16 * kk + (mi & 1) * 8) * 2), b);
-            mma16816(s[0], qa[kk][0], qa[kk][1], b[0], b[1]);
-            mma16816(s[1], qa[kk][0], qa[kk][1], b[2], b[3]);
-          }
-        } else {
-          // an 8x8 b16 matrix of int8 rows gives lane (r, t) channels
-          // 4t .. 4t + 3 of 16: taken as k = 2t, 2t + 1, 2t + 8, 2t + 9,
-          // the order q was packed in
-#pragma unroll
-          for (int kk = 0; kk < C::KSTEPS; kk += 2) {
-            uint32_t b[4];   // (rows 0-7, kk), (rows 8-15, kk), then kk + 1
-            ldsm4(sw<R>(stage, g0 + lr + (mi & 1) * 8, 16 * (kk + (mi >> 1))), b);
-#pragma unroll
-            for (int x = 0; x < 4; ++x) {
-              const int k2 = kk + (x >> 1);
-              const uint32_t b0 = i8x2(b[x], 0, 1), b1 = i8x2(b[x], 2, 3);
-              mma16816(s[x & 1], qa[k2][0], qa[k2][1], b0, b1);
-              mma16816(s[x & 1], ql[k2][0], ql[k2][1], b0, b1);
-            }
-          }
+        for (int kk = 0; kk < C::KSTEPS; ++kk) {
+          uint32_t b[4];   // rows 0-7 (k, k + 8), rows 8-15 (k, k + 8)
+          ldsm4(sw<R>(stage, g0 + lr + (mi >> 1) * 8, (16 * kk + (mi & 1) * 8) * 2), b);
+          mma16816(s[0], qa[kk][0], 0u, qa[kk][1], 0u, b[0], b[1]);
+          mma16816(s[1], qa[kk][0], 0u, qa[kk][1], 0u, b[2], b[3]);
         }
         // online softmax over the group, in f32
         const float v[4] = {s[0][0] * scale, s[0][1] * scale, s[1][0] * scale,
@@ -395,60 +461,167 @@ block_attn_kernel(const __grid_constant__ CUtensorMap tm_big,
         uint32_t ph0, pl0, ph2, pl2;
         split(p[0], p[1], ph0, pl0);
         split(p[2], p[3], ph2, pl2);
-        if constexpr (sizeof(KT) == 2) {
 #pragma unroll
-          for (int tp = 0; tp < C::DT; tp += 2) {
-            uint32_t b[4];   // V^T: (d tile tp: rows 0-7, 8-15), then tp + 1
-            ldsm4_t(sw<R>(stage, g0 + lr + (mi & 1) * 8, (D + 8 * (tp + (mi >> 1))) * 2), b);
-            mma16816(acc[tp], ph0, ph2, b[0], b[1]);
-            mma16816(acc[tp], pl0, pl2, b[0], b[1]);
-            mma16816(acc[tp + 1], ph0, ph2, b[2], b[3]);
-            mma16816(acc[tp + 1], pl0, pl2, b[2], b[3]);
-          }
-        } else {
-          // transposed, a b16 of an int8 row is two columns: lane (t, c)
-          // gets columns 2c, 2c + 1 of rows 2t, 2t + 1, i.e. two tiles,
-          // even columns (bytes 0, 2) and odd ones (bytes 1, 3)
+        for (int tp = 0; tp < C::DT; tp += 2) {
+          uint32_t b[4];   // V^T: (d tile tp: rows 0-7, 8-15), then tp + 1
+          ldsm4_t(sw<R>(stage, g0 + lr + (mi & 1) * 8, (D + 8 * (tp + (mi >> 1))) * 2), b);
+          mma16816(acc[tp], ph0, 0u, ph2, 0u, b[0], b[1]);
+          mma16816(acc[tp], pl0, 0u, pl2, 0u, b[0], b[1]);
+          mma16816(acc[tp + 1], ph0, 0u, ph2, 0u, b[2], b[3]);
+          mma16816(acc[tp + 1], pl0, 0u, pl2, 0u, b[2], b[3]);
+        }
+      });
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+      if (gj < G) {
+        float* o = part + gj * (D + 2);
 #pragma unroll
-          for (int ch = 0; ch < D / 16; ch += 2) {
-            uint32_t b[4];   // (rows 0-7, chunk ch), (rows 8-15, ch), then ch + 1
-            ldsm4_t(sw<R>(stage, g0 + lr + (mi & 1) * 8, D + 16 * (ch + (mi >> 1))), b);
-#pragma unroll
-            for (int y = 0; y < 2; ++y)
-#pragma unroll
-              for (int par = 0; par < 2; ++par) {
-                const uint32_t b0 = i8x2(b[2 * y], par, 2 + par);
-                const uint32_t b1 = i8x2(b[2 * y + 1], par, 2 + par);
-                float (&a)[4] = acc[2 * (ch + y) + par];
-                mma16816(a, ph0, ph2, b0, b1);
-                mma16816(a, pl0, pl2, b0, b1);
-              }
-          }
+        for (int i = 0; i < C::DT; ++i) {   // tile i: columns 8i + 2t + {0, 1}
+          o[2 + 8 * i + 2 * t] = acc[i][0];
+          o[3 + 8 * i + 2 * t] = acc[i][1];
+        }
+        if (t == 0) {
+          o[0] = m;
+          o[1] = lsum;
         }
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty0 + 8 * slot);
-      if (info >> 16) break;
-    }
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-    // every stage is consumed (so every copy has landed): the ring is free
-    // for the warps' partials [NCW][G][D + 2]
-    named_bar_sync(1, NCW * 32);
-    if (gj < G) {
-      float* o = reinterpret_cast<float*>(ring) + (warp * G + gj) * (D + 2);
+    } else {
+      // int8 tail: the group's 16 rows on the MMA's M side and the heads on
+      // N, four to an n8 tile as (hi, lo) column pairs: S^T = K q^T and
+      // acc^T = V^T P^T, one f16 MMA per 16 channels for every head of the
+      // tile and both halves. Lane (j, t) holds head 4T + t's scores of rows
+      // j and j + 8 of a group, and its accumulators of channels 16c + 2j
+      // (hi, lo) and 16c + 2j + 1 of each 16-channel chunk c. int8 is exact
+      // in f16; q, times a power of two that puts each head's largest |q|
+      // in [2^13, 2^14), and p, times 2^15, are f16 hi + lo pairs clear of
+      // overflow and of the subnormals; the powers of two come off the f32
+      // sums exactly. ldmatrix gives a lane an int8 row's channels in fours,
+      // 4t .. 4t + 3 of 16, taken as k = 2t, 2t + 1, 2t + 8, 2t + 9: q is
+      // packed in that order.
+      constexpr int NT = (G + 3) / 4;
+      constexpr float P_UP = 32768.f;
+      uint32_t qb[NT][C::KSTEPS][2];   // column j: head 4T + j / 2, hi (j even) or lo
+      float sc[NT];                    // head 4T + t's logit scale
 #pragma unroll
-      for (int i = 0; i < C::DT; ++i) {
-        // bf16: tile i is columns 8i + 2t + {0, 1}; int8: tile 2c + par is
-        // columns 16c + 4t + par + {0, 2}
-        const int d0 = sizeof(KT) == 2 ? 8 * i + 2 * t : 16 * (i >> 1) + 4 * t + (i & 1);
-        const int d1 = sizeof(KT) == 2 ? d0 + 1 : d0 + 2;
-        o[2 + d0] = acc[i][0];
-        o[2 + d1] = acc[i][1];
+      for (int T = 0; T < NT; ++T) {
+        const int head = 4 * T + (gj >> 1);
+        const QT* qh = q + ((size_t)h * G + min(head, G - 1)) * D;
+        float qv[C::KSTEPS][4], mx = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < C::KSTEPS; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            qv[kk][e] = head < G ? qh[16 * kk + 4 * t + e] : 0.f;
+            mx = fmaxf(mx, fabsf(qv[kk][e]));
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        int ex;
+        frexpf(mx, &ex);   // mx < 2^ex
+        const int up = mx > 0.f ? max(-126, min(126, 14 - ex)) : 0;
+#pragma unroll
+        for (int kk = 0; kk < C::KSTEPS; ++kk)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            uint32_t hi, lo;
+            split16(qv[kk][2 * hf] * pow2(up), qv[kk][2 * hf + 1] * pow2(up), hi, lo);
+            qb[T][kk][hf] = gj & 1 ? lo : hi;
+          }
+        // head 4T + t was packed by the lanes of j = 2t
+        sc[T] = scale * pow2(-__shfl_sync(0xffffffffu, up, 8 * t));
       }
-      if (t == 0) {
-        o[0] = m;
-        o[1] = lsum;
+      float acc[NT][C::KSTEPS][4], m[NT], lsum[NT];
+#pragma unroll
+      for (int T = 0; T < NT; ++T) {
+        m[T] = MASKED;
+        lsum[T] = 0.f;
+#pragma unroll
+        for (int i = 0; i < C::KSTEPS; ++i)
+          acc[T][i][0] = acc[T][i][1] = acc[T][i][2] = acc[T][i][3] = 0.f;
+      }
+      walk([&](uint32_t stage, int g0, uint32_t okb) {
+        // every int8 row is finite, so a row not to use needs only p = 0
+        float s[NT][4];
+#pragma unroll
+        for (int T = 0; T < NT; ++T) s[T][0] = s[T][1] = s[T][2] = s[T][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < C::KSTEPS; kk += 2) {
+          uint32_t b[4];   // (rows 0-7, chunk kk), (rows 8-15, kk), then kk + 1
+          ldsm4(sw<R>(stage, g0 + lr + (mi & 1) * 8, 16 * (kk + (mi >> 1))), b);
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const uint32_t w0 = b[2 * x] ^ 0x80808080u, w1 = b[2 * x + 1] ^ 0x80808080u;
+            const uint32_t a0 = i8h2(w0, 0x4140), a1 = i8h2(w1, 0x4140);
+            const uint32_t a2 = i8h2(w0, 0x4342), a3 = i8h2(w1, 0x4342);
+#pragma unroll
+            for (int T = 0; T < NT; ++T)
+              mma16816h(s[T], a0, a1, a2, a3, qb[T][kk + x][0], qb[T][kk + x][1]);
+          }
+        }
+        // online softmax over the group, in f32: a head's rows lie across
+        // the 8 lanes of its t
+        const bool ok0 = (okb >> gj) & 1u, ok1 = (okb >> (gj + 8)) & 1u;
+        uint32_t pb[NT][2];
+#pragma unroll
+        for (int T = 0; T < NT; ++T) {
+          const float v0 = (s[T][0] + s[T][1]) * sc[T], v1 = (s[T][2] + s[T][3]) * sc[T];
+          float mx = fmaxf(ok0 ? v0 : MASKED, ok1 ? v1 : MASKED);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+          const float m_new = fmaxf(m[T], mx), corr = __expf(m[T] - m_new);
+          m[T] = m_new;
+          const float p0 = ok0 ? __expf(v0 - m_new) : 0.f;
+          const float p1 = ok1 ? __expf(v1 - m_new) : 0.f;
+          lsum[T] = lsum[T] * corr + (p0 + p1);
+#pragma unroll
+          for (int i = 0; i < C::KSTEPS; ++i) {
+            acc[T][i][0] *= corr;
+            acc[T][i][1] *= corr;
+            acc[T][i][2] *= corr;
+            acc[T][i][3] *= corr;
+          }
+          // P^T's B fragment: 2^15 p as (hi, lo) of head t at rows j, j + 8
+          // is the 8 x 8 matrix [row][head, half]; its transpose is column
+          // j's rows 2t, 2t + 1
+          pb[T][0] = movtrans(hilo16(p0 * P_UP));
+          pb[T][1] = movtrans(hilo16(p1 * P_UP));
+        }
+#pragma unroll
+        for (int ch = 0; ch < C::KSTEPS; ch += 2) {
+          // transposed, a b16 of int8 rows is two channels of two rows:
+          // bytes (row 2t, 2j), (2t, 2j + 1), (2t + 1, 2j), (2t + 1, 2j + 1)
+          uint32_t b[4];   // (rows 0-7, chunk ch), (rows 8-15, ch), then ch + 1
+          ldsm4_t(sw<R>(stage, g0 + lr + (mi & 1) * 8, D + 16 * (ch + (mi >> 1))), b);
+#pragma unroll
+          for (int y = 0; y < 2; ++y) {
+            const uint32_t w0 = b[2 * y] ^ 0x80808080u, w1 = b[2 * y + 1] ^ 0x80808080u;
+            const uint32_t a0 = i8h2(w0, 0x4240), a1 = i8h2(w0, 0x4341);
+            const uint32_t a2 = i8h2(w1, 0x4240), a3 = i8h2(w1, 0x4341);
+#pragma unroll
+            for (int T = 0; T < NT; ++T)
+              mma16816h(acc[T][ch + y], a0, a1, a2, a3, pb[T][0], pb[T][1]);
+          }
+        }
+      });
+#pragma unroll
+      for (int T = 0; T < NT; ++T) {
+        float ls = lsum[T];
+        ls += __shfl_xor_sync(0xffffffffu, ls, 4);
+        ls += __shfl_xor_sync(0xffffffffu, ls, 8);
+        ls += __shfl_xor_sync(0xffffffffu, ls, 16);
+        if (4 * T + t < G) {
+          float* o = part + (4 * T + t) * (D + 2);
+#pragma unroll
+          for (int i = 0; i < C::KSTEPS; ++i) {
+            o[2 + 16 * i + 2 * gj] = (acc[T][i][0] + acc[T][i][1]) * (1.f / P_UP);
+            o[3 + 16 * i + 2 * gj] = (acc[T][i][2] + acc[T][i][3]) * (1.f / P_UP);
+          }
+          if (gj == 0) {
+            o[0] = m[T];
+            o[1] = ls;
+          }
+        }
       }
     }
   }

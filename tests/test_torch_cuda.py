@@ -197,6 +197,56 @@ def _block_attn_inputs(dev, kv_dtype, D, bs, nb_sel, group, L=2, H_kv=4,
     return q, kv, blk
 
 
+# K1 at the decode cells' one layer (N the prompt's rows): folded kv heads
+# (slots x kv heads), g, N, selected blocks of 256 rows, win_max (the local
+# window) and win_len (win_max less a full ring of 128)
+K1_CELLS = {
+    "nemo12b-128k": (192, 4, 131072, 52, 13104, 12976),
+    "mistral7b-32k": (416, 4, 32000, 13, 3196, 3068),
+    "trinity-128k": (320, 8, 131072, 52, 13104, 12976),
+}
+
+
+def _k1_cell_inputs(dev, kv_dtype, cell):
+    """K1's inputs at a cell's shape, drawn on the card (the tail is 3.4 to
+    21.5 GB): per-head n_cand a little below N - win_max, the blocks drawn
+    from those below each head's n_cand."""
+    H_kv, g, N, nb_sel, win_max, win_len = K1_CELLS[cell]
+    gen = torch.Generator(device=dev).manual_seed(H_kv + N)
+    if kv_dtype == torch.int8:
+        kv = torch.randint(-128, 128, (1, H_kv, N, 256), generator=gen,
+                           device=dev, dtype=torch.int8)
+        q = torch.randn((H_kv * g, 1, 128), generator=gen, device=dev) * 0.01
+    else:
+        kv = torch.randn((1, H_kv, N, 256), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        q = torch.randn((H_kv * g, 1, 128), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+    rng = np.random.default_rng(H_kv)
+    nc = N - win_max - rng.integers(1, 700, H_kv)
+    blk = np.stack([rng.choice(-(-n // 256), nb_sel, replace=False)
+                    for n in nc])
+    return (q, kv, torch.from_numpy(blk).to(dev),
+            torch.from_numpy(nc.astype(np.int32)).to(dev), win_len, win_max)
+
+
+def _poison_past(kv, layer, ends):
+    """Fill the 8 rows of each head past ends[h] (the last rows a range's
+    8-row box may fetch without using them) with NaN in a bf16 tail, the
+    largest value in an int8 one; returns what restores them."""
+    ends = [int(e) for e in ends]
+    saved = [(h, e, kv[layer, h, e:e + 8].clone()) for h, e in enumerate(ends)]
+    bad = float("nan") if kv.dtype == torch.bfloat16 else 127
+    for h, e, _ in saved:
+        kv[layer, h, e:e + 8] = bad
+    return saved
+
+
+def _restore(kv, layer, saved):
+    for h, e, rows in saved:
+        kv[layer, h, e:e + 8] = rows
+
+
 @pytest.mark.parametrize("idx_dtype", [torch.int64, torch.int32])
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("D,bs,nb_sel,n_cand,group,bad_ids", [
@@ -206,13 +256,21 @@ def _block_attn_inputs(dev, kv_dtype, D, bs, nb_sel, group, L=2, H_kv=4,
     # cluster's CTAs; ids out of range (all masked); a per-head n_cand
     # that includes 0
     (64, 16, 80, 1000, 4, False), (128, 48, 9, 1300, 4, False),
-    (128, 128, 6, 1000, 4, True), (128, 64, 7, [0, 700, 1536, 300], 8, False)])
+    (128, 128, 6, 1000, 4, True), (128, 64, 7, [0, 700, 1536, 300], 8, False),
+    # blocks of 48 rows (boxes of 32, 8, 8): the next block's 32-row box
+    # starts at stage row 48, its run of marks across two mask words; stages
+    # that end mid-block; n_cand off the 8-row grid
+    (128, 48, 30, 1101, 4, False), (64, 48, 25, [1021, 0, 997, 555], 2, False)])
 def test_block_attn_kernel_matches_plain(dev, kv_dtype, idx_dtype, D, bs,
                                          nb_sel, n_cand, group, bad_ids):
     N = 1536
     q, kv, blk = _block_attn_inputs(dev, kv_dtype, D, bs, nb_sel, group, N=N)
     nc = (torch.tensor(n_cand, dtype=torch.int32, device=dev)
           if isinstance(n_cand, list) else n_cand)
+    # the rows past n_cand that a block's last box fetches are not used:
+    # NaN there (bf16) must not reach the output
+    saved = _poison_past(kv, 1, n_cand if isinstance(n_cand, list)
+                         else [n_cand] * kv.shape[1])
     blk_ref = blk
     if bad_ids:
         # the kernel masks an id out of range; the plain version indexes
@@ -225,6 +283,7 @@ def test_block_attn_kernel_matches_plain(dev, kv_dtype, idx_dtype, D, bs,
     got = block_topk_attention(q, kv, 1, blk.to(idx_dtype), nc, block=bs)
     torch.cuda.synchronize()
     assert block_topk_attention.launches == n0 + 1
+    _restore(kv, 1, saved)
     ref = block_topk_attention_ref(q, kv, 1, blk_ref, nc, block=bs)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=1e-4,
@@ -312,22 +371,36 @@ def test_adc_block_scores_kernel_matches_plain(dev, B, H_kv, g, S, C, T, bs,
 
 def _decode_kernel_calls(dev):
     """K1 with int64 block ids and K3, each at the 32k decode widths (8 kv
-    heads, g 4, D 128; 13 of 129 blocks of 256 rows)."""
+    heads, g 4, D 128; 13 of 129 blocks of 256 rows), and K1 on an int8
+    tail at g 4 and g 8 with a local window read from the card."""
     q, kv, blk = _block_attn_inputs(dev, torch.bfloat16, 128, 256, 13, 4,
                                     L=1, H_kv=8, N=33024)
     lut, codes = _adc_block_inputs(dev, None, 8, 4, 2, 64, 33024, 0)
     assert blk.dtype == torch.int64
-    return (lambda: block_topk_attention(q, kv, 0, blk, 25570, block=256),
-            lambda: (adc_block_scores(lut, codes, 25570, sel_block=256,
-                                      head_dim=128),))
+    calls = [lambda: block_topk_attention(q, kv, 0, blk, 25570, block=256),
+             lambda: (adc_block_scores(lut, codes, 25570, sel_block=256,
+                                       head_dim=128),)]
+    wl = torch.tensor(3068, dtype=torch.int32, device=dev)
+    for g in (4, 8):
+        qi, kvi, blki = _block_attn_inputs(dev, torch.int8, 128, 256, 13, g,
+                                           L=1, H_kv=8, N=33024)
+        calls.append(lambda qi=qi, kvi=kvi, blki=blki: block_topk_attention(
+            qi, kvi, 0, blki, 25570, block=256, win_len=wl, win_max=3196))
+    return calls
 
 
 def test_decode_kernels_are_deterministic(dev):
-    # the on-chip merges sum in a fixed order, with no atomics
+    # the on-chip merges sum in a fixed order, with no atomics: two eager
+    # calls and a CUDA-graph replay give bitwise the same output
     for call in _decode_kernel_calls(dev):
         a, b = call(), call()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            c = call()
+        graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert all(torch.equal(x, y) for x, y in zip(a, c))
 
 
 def test_decode_kernels_launch_once(dev):
@@ -539,51 +612,59 @@ def test_score_policies_kernels_match_plain(dev, policy, score_func):
 
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("case", ["vector", "zero", "tail-end", "scalar",
-                                  "pair"])
+                                  "pair", *K1_CELLS])
 def test_block_attn_window_matches_plain(dev, kv_dtype, case):
     # K1's local-window coverage at the batched decode's widths (B 8 x 8
     # kv heads folded: 64 heads, g 4, D 128, blocks of 256): win_len read
     # from device memory, per head or one 0-d value for every head (the
     # batched path passes local - ring_r); win_len 0; windows that end on
-    # the tail's last row; the pair fetch (blocks of 128)
-    H_kv, bs, N, win_max = 64, 256, 4096, 700
-    if case == "pair":
-        bs = 128
-    q, kv, blk = _block_attn_inputs(dev, kv_dtype, 128, bs, 5, 4, L=2,
-                                    H_kv=H_kv, N=N)
-    g = torch.Generator(device=dev).manual_seed(11)
-    nc = torch.randint(0, N - win_max, (H_kv,), generator=g, device=dev,
-                       dtype=torch.int32)
-    wl = torch.randint(0, win_max + 1, (H_kv,), generator=g, device=dev,
-                       dtype=torch.int32)
-    if case == "zero":
-        wl.zero_()
-    elif case == "tail-end":
-        nc = N - wl                 # every window ends on the last row
-    elif case == "scalar":
-        wl = torch.tensor(win_max - 3, dtype=torch.int32, device=dev)
+    # the tail's last row; the pair fetch (blocks of 128); and each decode
+    # cell's one layer (K1_CELLS), a full ring's win_len as one 0-d value
+    if case in K1_CELLS:
+        q, kv, blk, nc, win_len, win_max = _k1_cell_inputs(dev, kv_dtype,
+                                                           case)
+        N, bs, layer = kv.shape[2], 256, 0
+        wl = torch.tensor(win_len, dtype=torch.int32, device=dev)
+    else:
+        H_kv, bs, N, win_max, layer = 64, 256, 4096, 700, 1
+        if case == "pair":
+            bs = 128
+        q, kv, blk = _block_attn_inputs(dev, kv_dtype, 128, bs, 5, 4, L=2,
+                                        H_kv=H_kv, N=N)
+        g = torch.Generator(device=dev).manual_seed(11)
+        nc = torch.randint(0, N - win_max, (H_kv,), generator=g, device=dev,
+                           dtype=torch.int32)
+        wl = torch.randint(0, win_max + 1, (H_kv,), generator=g, device=dev,
+                           dtype=torch.int32)
+        if case == "zero":
+            wl.zero_()
+        elif case == "tail-end":
+            nc = N - wl                 # every window ends on the last row
+        elif case == "scalar":
+            wl = torch.tensor(win_max - 3, dtype=torch.int32, device=dev)
     kw = dict(block=bs, win_len=wl, win_max=win_max, pair=case == "pair")
+    # the rows past a window's end that its last box fetches are not used
+    saved = _poison_past(kv, layer, (nc + wl).tolist())
     n0 = block_topk_attention.launches
-    got = block_topk_attention(q, kv, 1, blk, nc, **kw)
+    got = block_topk_attention(q, kv, layer, blk, nc, **kw)
     torch.cuda.synchronize()
     assert block_topk_attention.launches == n0 + 1
-    ref = block_topk_attention_ref(q, kv, 1, blk, nc, **kw)
-    for a, b in zip(got, ref):
-        torch.testing.assert_close(a, b, rtol=1e-4,
-                                   atol=1e-4 * max(1.0, b.abs().max().item()))
     # the same launch reads a changed window from the card: a graph replay
     # after an in-place update of win_len follows it
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        cap = block_topk_attention(q, kv, 1, blk, nc, **kw)
-    if isinstance(wl, torch.Tensor):
-        wl.copy_(torch.clamp(wl - 37, min=0))
+        cap = block_topk_attention(q, kv, layer, blk, nc, **kw)
+    wl0 = wl.clone()
+    wl.copy_(torch.clamp(wl - 37, min=0))
     graph.replay()
     torch.cuda.synchronize()
-    ref = block_topk_attention_ref(q, kv, 1, blk, nc, **kw)
-    for a, b in zip(cap, ref):
-        torch.testing.assert_close(a, b, rtol=1e-4,
-                                   atol=1e-4 * max(1.0, b.abs().max().item()))
+    _restore(kv, layer, saved)
+    for out, w in ((got, wl0), (cap, wl)):
+        ref = block_topk_attention_ref(q, kv, layer, blk, nc,
+                                       **dict(kw, win_len=w))
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(
+                a, b, rtol=1e-4, atol=1e-4 * max(1.0, b.abs().max().item()))
 
 
 def test_adc_scores_largest_lut_captures_into_a_graph(dev):
