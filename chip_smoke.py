@@ -126,7 +126,7 @@ from pqcache_tpu_torch.ops.jhist import jhist_block_mass, jhist_block_mass_ref
 from pqcache_tpu_torch.parallel import workers
 from pqcache_tpu_torch.policies import h2o, infllm
 from pqcache_tpu_torch.policies.base import get_policy
-from pqcache_tpu_torch.runtime import offload_engine
+from pqcache_tpu_torch.runtime import offload_batch
 from pqcache_tpu_torch.runtime.generate import (Engine, bucket_length,
                                                 params_to)
 from pqcache_tpu_torch.runtime.offload_engine import OffloadEngine
@@ -2530,17 +2530,17 @@ class _WrongSlot:
         self.on = on
 
     def __enter__(self):
-        self._orig = offload_engine.assemble_blocks
+        self._orig = offload_batch.assemble_blocks
         if self.on:
             def wrong(cache, staged, slots, miss_pos):
                 nxt = torch.where(slots >= 0, (slots + 1) % cache.shape[0],
                                   slots)
                 return self._orig(cache, staged, nxt, miss_pos)
-            offload_engine.assemble_blocks = wrong
+            offload_batch.assemble_blocks = wrong
         return self
 
     def __exit__(self, *exc):
-        offload_engine.assemble_blocks = self._orig
+        offload_batch.assemble_blocks = self._orig
 
 
 def offload_phase(dev, params, model) -> dict:

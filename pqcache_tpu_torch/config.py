@@ -214,7 +214,9 @@ class PQConfig:
     kmeans_iters: int = 8             # MAX_ITER (reference: 0 = adaptive 3..300)
     kmeans_seed: int = 4321           # RANDOM_SEED (run_llama.sh:33)
     adaptive_iters: bool = False      # pick iters from a profile table at runtime
-    approx_topk: bool = True          # TPU approx_max_k (recall 0.98) vs sort
+    # the JAX package's approx_max_k switch; the port's top-k is exact
+    # whatever its value
+    approx_topk: bool = True
     # Retrieval granularity: 1 = per-token top-k (reference parity,
     # pq_search.py:322); >1 = block-granular selection (TPU fast path —
     # contiguous fetches, block×-smaller top-k; recall-oracle-checked).

@@ -6,7 +6,11 @@ batched Lloyd k-means with empty-cluster relocation, nearest-centroid
 encoding, the euclidean and ip ADC lookup tables and their gather-sum
 scores, the uint8 joint code histogram and its block scorer, the
 GQA-reduced per-token and per-block top-k of both metrics, and the exact
-top-k recall oracle.
+top-k recall oracle. The layer decisions that the ``pq_search`` policy and
+the host-offload tier share live here too: the subvector split
+(``to_groups``), the LUT and the encode by metric (``adc_lut``,
+``encode``), a layer's codebook training (``train_layer``) and where the
+joint-histogram scorer applies (``jhist_applies``).
 
 Every selection goes through ``_topk_stable``, which breaks ties toward the
 lower index as ``jax.lax.top_k`` does (and ``approx_max_k`` off the TPU);
@@ -33,6 +37,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from pqcache_tpu_torch.core import quant
 from pqcache_tpu_torch.ops.jhist import jhist_block_mass, jhist_block_mass_ref
 from pqcache_tpu_torch.runtime.stages import scoped
 
@@ -313,6 +318,79 @@ def pq_encode(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     return dist.argmin(-1)
 
 
+def to_groups(x: torch.Tensor, S: int) -> torch.Tensor:
+    """[H, T, D] -> [H*S, T, D/S]: each head's S subvectors as groups (H
+    may be a folded B·H_kv or L·H_kv)."""
+    H, T, D = x.shape
+    return (x.reshape(H, T, S, D // S).transpose(1, 2)
+            .reshape(H * S, T, D // S))
+
+
+def encode(groups: torch.Tensor, centroids: torch.Tensor, phi, metric: str
+           ) -> torch.Tensor:
+    """PQ codes [G, T] (int64) of subvector groups [G, T, d] under their
+    codebooks [G, C, d(+1)]; "ip" lifts the groups with phi [G, 1, 1]
+    first."""
+    if metric == "ip":
+        groups = ip2l2_lift_with_phi(groups, phi)
+    return pq_encode(groups, centroids)
+
+
+class LayerCodebooks(NamedTuple):
+    """``train_layer``'s result: what a layer's state takes."""
+    k_sink: torch.Tensor      # [H_kv, sink, D]
+    v_sink: torch.Tensor
+    k_tail: torch.Tensor      # [H_kv, P - sink, D], real tokens first
+    v_tail: torch.Tensor
+    n_valid: int              # real tokens of the tail
+    codes: torch.Tensor       # [H_kv, S, P - sink] int64
+    centroids: torch.Tensor   # [H_kv, S, C, d(+1 for "ip")] f32
+    phi: Optional[torch.Tensor]       # [H_kv*S, 1, 1] ("ip"), else None
+    k_scale: Optional[torch.Tensor]   # [H_kv, 1, D] f32 (int8_scales)
+    v_scale: Optional[torch.Tensor]
+
+
+def train_layer(k: torch.Tensor, v: torch.Tensor, pad_len: int,
+                true_len: int, *, sink: int, S: int, C: int, metric: str,
+                iters: int, seed: int, shard=(0, 1),
+                int8_scales: bool = False) -> LayerCodebooks:
+    """A layer's codebooks from its K/V [H_kv, P, D] of a left-padded
+    prompt: the padding rolled out (it lands after the real tokens, past
+    n_valid), the sink split off, the "ip" lift, k-means seeded from
+    ``seed`` over the tail's subvector groups (``shard``: this kv-head
+    shard's (rank, size), so that each group seeds by its global index),
+    and with ``int8_scales`` the tail's frozen per-channel int8 scales."""
+    k_r = torch.roll(k, -int(pad_len), dims=1)
+    v_r = torch.roll(v, -int(pad_len), dims=1)
+    k_tail, v_tail = k_r[:, sink:], v_r[:, sink:]
+    n_valid = int(true_len) - sink
+    xb = to_groups(k_tail, S)                               # [G, P-sink, d]
+    phi = None
+    if metric == "ip":
+        xb, phi = ip2l2_lift(xb, n_valid)
+    gen = torch.Generator(device=k.device).manual_seed(seed)
+    G = xb.shape[0]
+    res = kmeans(xb, C, iters=iters, valid_len=n_valid, generator=gen,
+                 group_offset=shard[0] * G, total_groups=shard[1] * G)
+    scales = (quant.kv_channel_scales(k_tail, v_tail, n_valid)
+              if int8_scales else (None, None))
+    H = k.shape[0]
+    return LayerCodebooks(k_r[:, :sink], v_r[:, :sink], k_tail, v_tail,
+                          n_valid, res.codes.reshape(H, S, -1),
+                          res.centroids.reshape(H, S, C, -1), phi, *scales)
+
+
+def adc_lut(q_flat: torch.Tensor, centroids: torch.Tensor, S: int,
+            metric: str) -> torch.Tensor:
+    """ADC lookup table [H, S, C] of queries q_flat [H, D] (H may be a
+    folded B·H) against one layer's centroids [H_kv, S, C, d(+1)]: inner
+    products ("euc") or squared distances to the lifted query ("ip")."""
+    q_sub = q_flat.reshape(q_flat.shape[0], S, -1)
+    if metric == "ip":
+        return adc_lut_ip(lift_query(q_sub), centroids)
+    return adc_lut_euc(q_sub, centroids)
+
+
 @scoped("pq_score")
 def adc_lut_euc(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Inner-product lookup table for the "euc" metric. q [H, S, d] per
@@ -364,6 +442,15 @@ def jhist_dtype(block: int) -> torch.dtype:
             f"joint-histogram scorer requires select_block <= 256 (uint8 "
             f"counts saturate); got block={block}")
     return torch.uint8
+
+
+def jhist_applies(pq_cfg, block: int) -> bool:
+    """Whether the joint-histogram scorer ranks blocks of ``block`` tokens
+    under ``pq_cfg`` (a ``config.PQConfig``): scorer "auto", two subvectors
+    (the histogram is of code pairs), the euclidean metric (it sums softmax
+    mass) and uint8 counts (block at most 256)."""
+    return (pq_cfg.scorer == "auto" and pq_cfg.n_subvec_per_head == 2
+            and pq_cfg.metric == "euc" and block <= 256)
 
 
 @scoped("pq_score")
@@ -491,14 +578,13 @@ def group_scores(scores: torch.Tensor, n_valid, *, group: int, head_dim: int,
 
 @scoped("pq_select")
 def mips_topk(scores: torch.Tensor, n_valid, k: int, *, group: int,
-              head_dim: int, metric: str = "euc", approx: bool = False):
+              head_dim: int, metric: str = "euc"):
     """GQA-reduced per-token top-k (ties to the lower index). euc:
     softmax(scores / sqrt(head_dim)) per q head, summed over each group,
     largest k; ip: the distances summed over each group, smallest k.
     scores [H, T] raw ADC scores; positions >= n_valid (scalar or [H_kv])
     are padding. Returns (topk_idx [H_kv, k] int64, group mass or summed
-    distance [H_kv, T]). ``approx`` gives the exact result, as JAX's
-    approx_max_k off the TPU."""
+    distance [H_kv, T])."""
     _check_metric(metric)
     if metric == "ip":
         H, T = scores.shape
@@ -513,7 +599,7 @@ def mips_topk(scores: torch.Tensor, n_valid, k: int, *, group: int,
 @scoped("pq_select")
 def mips_topk_blocks(scores: torch.Tensor, n_valid, k_tokens: int, *,
                      group: int, head_dim: int, block: int,
-                     metric: str = "euc", approx: bool = False):
+                     metric: str = "euc"):
     """Block-granular selection: rank blocks of ``block`` candidates by
     their total GQA-reduced attention mass (euc) or by the mean negated
     summed distance over their valid candidates (ip: a sum would favour
@@ -542,14 +628,11 @@ def mips_topk_blocks(scores: torch.Tensor, n_valid, k_tokens: int, *,
 
 @scoped("pq_select")
 def topk_from_block_mass(blk_mass: torch.Tensor, n_valid, k_tokens: int, *,
-                         group: int, block: int,
-                         approx: bool = False) -> torch.Tensor:
+                         group: int, block: int) -> torch.Tensor:
     """Block selection from per-q-head block mass: group-sum [H -> H_kv],
     mask blocks past n_valid, exact top-ceil(k_tokens / block).
 
-    blk_mass [H, NB]; n_valid int or [H_kv]. Returns [H_kv, k_blocks] int64.
-    ``approx`` is accepted and gives the exact result: the TPU used
-    approx_max_k, which is exact off the TPU."""
+    blk_mass [H, NB]; n_valid int or [H_kv]. Returns [H_kv, k_blocks] int64."""
     H, NB = blk_mass.shape
     k_blocks = max((k_tokens + block - 1) // block, 1)
     g = blk_mass.reshape(H // group, group, NB).sum(1)

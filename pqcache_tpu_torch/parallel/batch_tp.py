@@ -34,7 +34,7 @@ import torch
 
 from pqcache_tpu_torch.config import EngineConfig
 from pqcache_tpu_torch.core.budget import compute_budget
-from pqcache_tpu_torch.models import llama
+from pqcache_tpu_torch.models import llama, require_llama
 from pqcache_tpu_torch.parallel.tp_decode import (check_replicated, left_pad,
                                                   local_model_config,
                                                   local_params)
@@ -56,6 +56,7 @@ class BatchTPEngine:
         chunked prefill, "on" and "auto" make ``serve_local`` admit
         slab-wise: one prompt slab per decode chunk instead of a whole
         prefill wave, so running streams stall at most one slab."""
+        require_llama(cfg.model, "BatchTPEngine")
         if cfg.runtime.policy != "pq_search":
             raise ValueError("the TP engines run pq_search")
         self.mesh = mesh

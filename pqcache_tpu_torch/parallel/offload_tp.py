@@ -32,13 +32,12 @@ from typing import List
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from pqcache_tpu_torch.config import EngineConfig
 from pqcache_tpu_torch.parallel.sharding import gather_layer
 from pqcache_tpu_torch.parallel.tp_decode import (local_model_config,
                                                   local_params)
-from pqcache_tpu_torch.runtime.offload_batch import BatchOffloadEngine, _OSlot
+from pqcache_tpu_torch.runtime.offload_batch import BatchOffloadEngine
 
 
 class ShardedOffloadEngine:
@@ -97,28 +96,28 @@ class ShardedOffloadEngine:
         """RING PREFILL -> OFFLOAD handoff: the prompt prefills
         sequence-sharded over the tp group (``ring_prefill.ring_forward``,
         each layer's weights gathered from the shards as it comes), one
-        all-to-all reshards its K/V head-major, and each
-        rank builds its state shard through the standard tail update
-        (global k-means++ seeding) and offloads its head slice into its
-        own store; decode then matches ``generate_batch`` on the same
-        prompt. Needs dp == 1 and B == 1."""
+        all-to-all reshards its K/V head-major, and each rank admits its
+        head slice into its core (``admit_prefilled``: the standard tail
+        update with global k-means++ seeding, its own store); decode then
+        matches ``generate_batch`` on the same prompt. Needs dp == 1 and
+        B == 1."""
         from pqcache_tpu_torch.parallel.ring_prefill import ring_forward
         if self.dp != 1 or self.B != 1:
             raise ValueError("generate_ring requires dp == 1 and B == 1")
-        core, se = self.core, self.core._se
+        core = self.core
         ids = np.asarray(prompt_ids, np.int64)
         true_len = int(ids.shape[0])
-        core._setup(true_len, max_new_tokens)
-        if core._chunked:
+        core.setup(true_len, max_new_tokens)
+        if core.chunked:
             raise ValueError("generate_ring prefills by ring attention; "
                              "unset runtime.prefill_chunk")
-        P, b, bs = core._P, core.budget, core.bs
+        P = core.P
         if P % self.tp:
             raise ValueError(f"prefill length {P} not divisible by tp "
                              f"{self.tp}")
         pad = P - true_len
-        tokens = torch.zeros((P,), dtype=torch.int64, device=se.device)
-        tokens[pad:] = torch.from_numpy(ids).to(se.device)
+        tokens = torch.zeros((P,), dtype=torch.int64, device=core.device)
+        tokens[pad:] = torch.from_numpy(ids).to(core.device)
         C = P // self.tp
         r = self.mesh.tp_rank
         logits, kv = ring_forward(
@@ -129,32 +128,10 @@ class ShardedOffloadEngine:
         kv_h = kv if self.comm is None else self.comm.all_to_all(
             kv, split_dim=1, concat_dim=2)            # [L, H_loc, P, 2D]
         del kv
-        D = se.cfg.model.head_dim
-        st = se._init_state(b)
-        n_store = true_len - b.sink
-        rems = []
-        for idx in range(kv_h.shape[0]):
-            k, v = kv_h[idx, ..., :D], kv_h[idx, ..., D:]
-            se._tail_update(st, idx, k, v, pad, true_len)
-            k, v = se.quant_layer_kv(st, idx, k, v)
-            part = core.store.offload_blocks_device(idx, k, v, n_store,
-                                                    pad + b.sink)
-            rems.append(torch.zeros((k.shape[0], bs, 2 * D),
-                                    dtype=core.bstate.tail.dtype,
-                                    device=se.device) if part is None
-                        else F.pad(part, (0, 0, 0, bs - part.shape[1])))
-            core.store.sync_transfers(idx)
+        core.admit_prefilled(0, kv_h, logits, pad, true_len)
         del kv_h
-        core._insert(st, 0, torch.stack(rems))
-        n_full = n_store // bs
-        core._stored[0] = n_store
-        core._valid[0] = n_full * bs
-        core._fill[0] = n_store - n_full * bs
-        core._ncand[0] = max(true_len - b.sink - b.local, 0)
-        first = int(se._next_token(logits, core.noise))
-        core.slots[0] = _OSlot(seq_id=0, tokens=[first], done=False)
-        return self._agree(core._decode_until_done(max_new_tokens,
-                                                   eos_ids))[0]
+        return self._agree(core.decode_until_done(max_new_tokens,
+                                                  eos_ids))[0]
 
     @property
     def hit_rate(self) -> float:

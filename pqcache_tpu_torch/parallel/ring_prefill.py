@@ -146,7 +146,6 @@ def sp_prefill(cfg: EngineConfig, params: dict, tokens_local: torch.Tensor,
     m = cfg.model
     S = cfg.pq.n_subvec_per_head
     C_cent = cfg.pq.n_centroids
-    d_sub = m.head_dim // S
     C = tokens_local.shape[0]
     r = 0 if comm is None else comm.rank
     logits, kv_layers = ring_forward(m, params, tokens_local, pad_len,
@@ -158,8 +157,7 @@ def sp_prefill(cfg: EngineConfig, params: dict, tokens_local: torch.Tensor,
     G = m.num_kv_heads * S
     cents, codes, phis = [], [], []
     for kv in kv_layers:
-        xb = (kv[..., :m.head_dim].reshape(m.num_kv_heads, C, S, d_sub)
-              .transpose(1, 2).reshape(G, C, d_sub).float())
+        xb = pq.to_groups(kv[..., :m.head_dim], S).float()
         if cfg.pq.metric == "ip":
             norms = (xb * xb).sum(-1, keepdim=True)          # [G, C, 1]
             phi = torch.where(is_tail[None, :, None], norms,

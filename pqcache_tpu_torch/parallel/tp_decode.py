@@ -27,7 +27,7 @@ import torch
 
 from pqcache_tpu_torch.config import EngineConfig
 from pqcache_tpu_torch.core.budget import compute_budget
-from pqcache_tpu_torch.models import llama
+from pqcache_tpu_torch.models import llama, require_llama
 from pqcache_tpu_torch.parallel.sharding import gather_layer, shard_params
 from pqcache_tpu_torch.policies.base import get_policy
 from pqcache_tpu_torch.runtime.generate import params_to
@@ -98,6 +98,7 @@ class TPEngine:
     def __init__(self, cfg: EngineConfig, params: dict, mesh,
                  prefill_len: int, max_new_tokens: int,
                  dtype=torch.bfloat16, sharded: bool = False):
+        require_llama(cfg.model, "TPEngine")
         if cfg.runtime.policy != "pq_search":
             raise ValueError("the TP engines run pq_search")
         self.mesh = mesh

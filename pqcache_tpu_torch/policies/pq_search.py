@@ -103,7 +103,6 @@ class PQSearchPolicy:
         m = cfg.model
         self.S = cfg.pq.n_subvec_per_head
         self.C = cfg.pq.n_centroids
-        self.d_sub = m.head_dim // self.S
         self.group = m.num_groups
         self.H_kv = m.num_kv_heads
         self.D = m.head_dim
@@ -111,7 +110,6 @@ class PQSearchPolicy:
         self.use_kernel = use_kernels(cfg)
         self.adc_mode = cfg.pq.adc_mode
         self.gather_mode = cfg.pq.gather_mode
-        self.approx_topk = cfg.pq.approx_topk
         self.check_recall = cfg.pq.check_recall
         self.metric = cfg.pq.metric
         self.fetch_mode = cfg.pq.fetch_mode
@@ -137,10 +135,8 @@ class PQSearchPolicy:
         # the joint-histogram scorer (pq_search.py:117-120) and the fused
         # ADC block scorer K3 where it does not apply (:315-318): euclidean
         # only, and only with deferred appends
-        self.use_jhist = (cfg.pq.scorer == "auto" and self.S == 2
-                          and self.metric == "euc"
-                          and 1 < self.select_block <= 256
-                          and self.deferred_appends)
+        self.use_jhist = (self.select_block > 1 and self.deferred_appends
+                          and pq.jhist_applies(cfg.pq, self.select_block))
         self.fused_blockscore = (self.use_kernel and self.adc_mode != "xla"
                                  and not self.use_jhist
                                  and self.select_block > 1
@@ -157,28 +153,6 @@ class PQSearchPolicy:
         self.kinds = WindowLayers(m)
 
     # -- helpers ----------------------------------------------------------
-
-    def _to_groups(self, x: torch.Tensor) -> torch.Tensor:
-        """[H_kv, T, D] -> [H_kv*S, T, d_sub] subvector groups."""
-        H_kv, T, _ = x.shape
-        return (x.reshape(H_kv, T, self.S, self.d_sub).transpose(1, 2)
-                .reshape(H_kv * self.S, T, self.d_sub))
-
-    def _lut(self, q_flat, centroids):
-        """ADC lookup table [H, S, C] of queries [H, D] (H may be a folded
-        B·H) against one layer's centroids [H_kv, S, C, d(+1)]."""
-        q_sub = q_flat.reshape(-1, self.S, self.d_sub)
-        if self.metric == "ip":
-            return pq.adc_lut_ip(pq.lift_query(q_sub), centroids)
-        return pq.adc_lut_euc(q_sub, centroids)
-
-    def _encode_groups(self, xg, centroids, phi):
-        """PQ codes (int64) of subvector groups xg [G, T, d] under their
-        codebooks centroids [G, C, d(+1)], lifted with phi [G, 1, 1] for the
-        "ip" metric."""
-        if self.metric == "ip":
-            xg = pq.ip2l2_lift_with_phi(xg, phi)
-        return pq.pq_encode(xg, centroids)
 
     def _split_rows(self, kv_rows, state: PQState, idx: int):
         """Split (and dequantize) tail rows [H_kv, T, 2D] -> (k, v) in the
@@ -253,42 +227,26 @@ class PQSearchPolicy:
             idx = self.kinds.full[idx]
             b = self.budget
             P = k.shape[1]
-            # left-padded prompt -> roll so real tokens start at index 0; the
-            # rolled-around padding lands after the valid region, masked there
-            k_r = torch.roll(k, -int(pad_len), dims=1)
-            v_r = torch.roll(v, -int(pad_len), dims=1)
-            k_tail_src, v_tail_src = k_r[:, b.sink:], v_r[:, b.sink:]
-            n_valid_tail = int(true_len) - b.sink
-
-            xb = self._to_groups(k_tail_src)                 # [G, P-sink, d]
-            phi = None
-            if self.metric == "ip":
-                xb, phi = pq.ip2l2_lift(xb, n_valid_tail)
-            gen = torch.Generator(device=k.device).manual_seed(
-                self.cfg.pq.kmeans_seed)
-            iters = (int(min(3 + P // 4096, 25)) if self.cfg.pq.adaptive_iters
-                     else self.cfg.pq.kmeans_iters)
-            G = xb.shape[0]
-            res = pq.kmeans(xb, self.C, iters=iters, valid_len=n_valid_tail,
-                            generator=gen, group_offset=self.shard[0] * G,
-                            total_groups=self.shard[1] * G)
+            pc = self.cfg.pq
+            t = pq.train_layer(
+                k, v, pad_len, true_len, sink=b.sink, S=self.S, C=self.C,
+                metric=self.metric, iters=(int(min(3 + P // 4096, 25))
+                                           if pc.adaptive_iters
+                                           else pc.kmeans_iters),
+                seed=pc.kmeans_seed, shard=self.shard,
+                int8_scales=self.kv_int8)
             n_src = P - b.sink
-
             dt = state.k_sink.dtype
-            state.k_sink[idx] = k_r[:, :b.sink].to(dt)
-            state.v_sink[idx] = v_r[:, :b.sink].to(dt)
+            state.k_sink[idx] = t.k_sink.to(dt)
+            state.v_sink[idx] = t.v_sink.to(dt)
             if self.kv_int8:
-                ks, vs = quant.kv_channel_scales(k_tail_src, v_tail_src,
-                                                 n_valid_tail)
-                state.k_scale[idx], state.v_scale[idx] = ks, vs
+                state.k_scale[idx], state.v_scale[idx] = t.k_scale, t.v_scale
             state.kv_tail[idx, :, :n_src] = self._tail_kv(
-                k_tail_src, v_tail_src, state, idx)
-            codes_src = res.codes.reshape(self.H_kv, self.S, n_src)
-            state.codes[idx, :, :, :n_src] = codes_src.to(torch.uint8)
-            state.centroids[idx] = res.centroids.reshape(self.H_kv, self.S,
-                                                         self.C, -1)
-            state.phi[idx] = 0.0 if phi is None else phi
-            n_cand0 = max(n_valid_tail - b.local, 0)
+                t.k_tail, t.v_tail, state, idx)
+            state.codes[idx, :, :, :n_src] = t.codes.to(torch.uint8)
+            state.centroids[idx] = t.centroids
+            state.phi[idx] = 0.0 if t.phi is None else t.phi
+            n_cand0 = max(t.n_valid - b.local, 0)
             state.n_cand, state.pos = n_cand0, int(true_len)
             if self.use_jhist:
                 state.jhist[idx] = pq.build_joint_hist(
@@ -335,14 +293,13 @@ class PQSearchPolicy:
             blk_mass = None
         if blk_mass is not None:
             blk_idx = pq.topk_from_block_mass(
-                blk_mass, n_cand, b.topk, group=self.group, block=bs,
-                approx=self.approx_topk)
+                blk_mass, n_cand, b.topk, group=self.group, block=bs)
         else:
             scores = (self._adc(lut, codes) if self.metric == "ip"
                       else pq.adc_gather_scores(lut, codes))
             blk_idx, _ = pq.mips_topk_blocks(
                 scores, n_cand, b.topk, group=self.group, head_dim=self.D,
-                block=bs, metric=self.metric, approx=self.approx_topk)
+                block=bs, metric=self.metric)
         return torch.sort(blk_idx, -1).values
 
     def _gather_tail_rows(self, state: PQState, idx: int, rows):
@@ -364,7 +321,8 @@ class PQSearchPolicy:
         appended the token itself)."""
         n_cand = shared["n_cand"]
         H = q.shape[0]
-        lut = self._lut(q.reshape(H, self.D), state.centroids[idx])
+        lut = pq.adc_lut(q.reshape(H, self.D), state.centroids[idx], self.S,
+                         self.metric)
         if self.select_block == 1:
             scores = self._adc(lut, state.codes[idx])
             if self.fetch_mode == "masked":
@@ -388,7 +346,7 @@ class PQSearchPolicy:
         depend on their order; the gather reads memory in order)."""
         topk_idx, _ = pq.mips_topk(
             scores, n_cand, self.budget.topk, group=self.group,
-            head_dim=self.D, metric=self.metric, approx=self.approx_topk)
+            head_dim=self.D, metric=self.metric)
         topk_idx = torch.sort(topk_idx, -1).values          # [H_kv, topk]
         kv_top = self._gather_tail_rows(state, idx, topk_idx)
         if self.check_recall:
@@ -443,7 +401,7 @@ class PQSearchPolicy:
         H = q.shape[0]
         topk_idx, _ = pq.mips_topk(
             scores, n_cand, b.topk, group=1, head_dim=self.D,
-            metric=self.metric, approx=self.approx_topk)
+            metric=self.metric)
         topk_idx = torch.sort(topk_idx, -1).values           # [H, topk]
         kv_head = torch.arange(H, device=q.device) // self.group
         kv_top = state.kv_tail[idx][kv_head[:, None], topk_idx]  # [H, k, 2D]
@@ -491,10 +449,11 @@ class PQSearchPolicy:
         """Encode and write one layer's new token (k/v_new [H_kv, 1, D]) at
         tail position slot (the in-layer append of the non-deferred
         branches)."""
-        state.codes[idx, :, :, slot] = self._encode_groups(
-            self._to_groups(k_new),
+        state.codes[idx, :, :, slot] = pq.encode(
+            pq.to_groups(k_new, self.S),
             state.centroids[idx].reshape(self.H_kv * self.S, self.C, -1),
-            state.phi[idx]).reshape(self.H_kv, self.S).to(torch.uint8)
+            state.phi[idx], self.metric).reshape(self.H_kv, self.S).to(
+                torch.uint8)
         state.kv_tail[idx, :, slot] = self._tail_kv(
             k_new, v_new, state, idx)[:, 0]
 
@@ -618,7 +577,8 @@ class PQSearchPolicy:
         partials, top = [], None
         if self.select_block > 1:
             with stage("scorer+topk"):
-                lut = self._lut(qf, state.centroids[idx])   # [B·H, S, C]
+                lut = pq.adc_lut(qf, state.centroids[idx], self.S,
+                                 self.metric)                # [B·H, S, C]
                 pending = None
                 if self._jhist_defer(state):
                     with scope("pq_score"):
@@ -636,11 +596,11 @@ class PQSearchPolicy:
                     win_max=b.local))
         else:
             with stage("scorer+topk"):
-                lut = self._lut(qf, state.centroids[idx])
+                lut = pq.adc_lut(qf, state.centroids[idx], self.S,
+                                 self.metric)
                 topk_idx, _ = pq.mips_topk(
                     self._adc(lut, state.codes[idx]), n_cand_h, b.topk,
-                    group=self.group, head_dim=self.D, metric=self.metric,
-                    approx=self.approx_topk)
+                    group=self.group, head_dim=self.D, metric=self.metric)
                 topk_idx = torch.sort(topk_idx, -1).values   # [B·H_kv, k]
             with stage("gather"):
                 partials.append(self._local_window(state, idx, qf, n_cand_h,
@@ -752,11 +712,11 @@ class PQSearchPolicy:
         (layer, head)'s codebooks."""
         L, Hf, T, D = keys.shape
         G = L * Hf * self.S
-        return self._encode_groups(
-            self._to_groups(keys.reshape(L * Hf, T, D)),
+        return pq.encode(
+            pq.to_groups(keys.reshape(L * Hf, T, D), self.S),
             state.centroids.reshape(G, self.C, -1),
-            state.phi.reshape(G, 1, 1)).reshape(L, Hf, self.S, T).to(
-                torch.uint8)
+            state.phi.reshape(G, 1, 1), self.metric).reshape(
+                L, Hf, self.S, T).to(torch.uint8)
 
     def commit_appends_batched(self, state: PQState, payloads,
                                shared) -> None:

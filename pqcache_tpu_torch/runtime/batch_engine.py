@@ -47,7 +47,7 @@ from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.config import EngineConfig
 from pqcache_tpu_torch.core.budget import compute_budget
 from pqcache_tpu_torch.core.sampling import GumbelNoise, make_sampler
-from pqcache_tpu_torch.models import llama
+from pqcache_tpu_torch.models import llama, require_llama
 from pqcache_tpu_torch.policies.base import (get_policy, policy_class,
                                              use_kernels)
 from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
@@ -109,6 +109,7 @@ class BatchEngine:
         prefix, and the admission buffers [L, H_kv, P, D] fit next to the
         resident set, ``_interleave_fits``), "on", or "off" (the monolithic,
         layer-major admission, which holds one layer's K/V)."""
+        require_llama(cfg.model, "BatchEngine")
         self.device = resolve_device(device)
         use_kernels(cfg)
         if cfg.cache.offload:

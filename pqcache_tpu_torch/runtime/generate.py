@@ -34,7 +34,7 @@ from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.config import EngineConfig
 from pqcache_tpu_torch.core.budget import compute_budget, pq_is_applicable
 from pqcache_tpu_torch.core.sampling import GumbelNoise, make_sampler
-from pqcache_tpu_torch.models import llama
+from pqcache_tpu_torch.models import llama, require_llama
 from pqcache_tpu_torch.policies.base import get_policy, use_kernels
 
 
@@ -107,6 +107,7 @@ class Engine:
 
     def __init__(self, cfg: EngineConfig, params: dict,
                  dtype=torch.bfloat16, device=None):
+        require_llama(cfg.model, "Engine")
         self.device = resolve_device(device)
         use_kernels(cfg)                      # rejects kernels modes early
         self.cfg = cfg

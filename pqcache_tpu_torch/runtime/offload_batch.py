@@ -1,33 +1,67 @@
-"""Batch-as-heads serving on the host-offload tier: B concurrent sequences
-sharing one pinned host store and one device block cache.
+"""The host-offload tier: PQ retrieval with the KV in pinned host memory,
+decode driven one layer at a time, over B sequence slots that share one
+host store and one device block cache.
 
-Counterpart of ``pqcache_tpu/runtime/offload_batch.py``
-(``BatchOffloadEngine``). The single-sequence engine
-(``runtime/offload_engine.py``) pays its per-layer host work (classify,
-stage, launch) for one stream; this engine folds B slots into the kv-head
-axis, as ``policies/pq_search.py``'s batch-as-heads layout does:
+Counterpart of ``pqcache_tpu/runtime/offload_engine.py`` (``OffloadPQState``,
+``OffloadEngine``) and ``pqcache_tpu/runtime/offload_batch.py``
+(``BatchOffloadEngine``). For contexts whose KV does not fit in device memory
+it mirrors the reference's execution (pq_search.py decode path): per layer
+the device scores the device-resident PQ codes (the joint-histogram block
+scorer, or ADC gather-sum scores with block masses) and takes a block top-k;
+the host classifies the selected blocks as hits of the device block cache or
+misses, stages the misses from pinned memory on the store's copy stream, and
+the device assembles the window and runs the rest of the layer. Sink and
+local window stay on the device (a ring, cache_manager.py:212-228); each
+slot's growing candidate tail block lives on the device and is always
+attended, so a generated token is reachable before its block completes.
+
+``BatchOffloadEngine`` is the one core, and ``OffloadEngine``
+(``runtime/offload_engine.py``) is it at one slot. The B slots fold into
+the kv-head axis, as ``policies/pq_search.py``'s batch-as-heads layout
+does:
 
   * state tensors [L, B·H_kv, ...], per-slot counters [B] on the host;
   * block ids carry a per-slot prefix (slot · blocks_per_slot + block), so
     one ``HostKVStore`` holds every slot's blocks, one LFU and device cache
     serve them all, and each layer's misses of the whole batch stage at
     once, with an explicit ``ok`` mask of the valid ids;
-  * per-slot growing tail blocks live in the state ([L, B·H_kv, bs, 2D])
-    with per-slot fill cursors; a filled tail goes to the host between
-    steps.
+  * per-slot tail blocks [L, B·H_kv, bs, 2D] with per-slot fill cursors; a
+    filled tail goes to the host between steps.
 
-Prefill runs per slot through the single-sequence engine's prefill (its
-offload writes slot-prefixed ids) and is folded into the batched state.
-``serve`` admits FIFO into free slots, one prefill unit per decode step;
-a finished slot retires: its id range is invalidated in the store and the
-LFU (``invalidate_blocks``), so the next occupant's ids never hit the old
-rows. Stale selection (``cache.stale_select``) is reseeded by one exact
-step after every admission.
+Selection is exact (``cache.stale_select`` off: each layer's block ids come
+to the host once, a sync per layer) or one step stale (on: step t fetches
+the blocks that step t-1's queries selected, so every layer runs without a
+host sync and one ``.cpu()`` per step brings back the next selections and
+the tokens; the first step after an admission runs exact and seeds them).
+The store's int8 mode (``cache.kv_dtype="int8"``) quantizes rows with
+per-channel scales frozen at prefill before they reach the store and
+dequantizes the fetched rows: host memory, PCIe bytes and the cache are
+halved.
 
-Decode per layer mirrors the JAX program: every slot's selection and
-window, the ring evict of every slot (a slot that is not live evicts too,
-into its own rows, and its tokens are dropped), the tail append of the
-slots whose eviction enters the store.
+Prefill is one pass (K2 through ``dense_prefill_attention``) or chunked
+(``RuntimeConfig.prefill_chunk``: K2 at q_offset through
+``llama.attn_mlp_chunk``), as a generator of bounded units into a
+one-sequence state that is folded into its slot at the end. ``serve``
+admits FIFO into free slots, one prefill unit per decode step; a finished
+slot retires: its id range is invalidated in the store and the LFU
+(``invalidate_blocks``), so the next occupant's ids never hit the old rows.
+``admit_prefilled`` takes a prompt's K/V prefilled elsewhere (the sharded
+tier's ring prefill). Decode per layer mirrors the JAX program: every
+slot's selection and window, the ring evict of every slot (a slot that is
+not live evicts too, into its own rows, and its tokens are dropped), the
+tail append of the slots whose eviction enters the store.
+
+Sampling takes its Gumbel noise from a source with ``fill_`` (a
+``core/sampling.GumbelNoise`` seeded with ``sample_seed`` unless the caller
+passes one): one draw for each first token, one per decode step. With
+``metric="ip"`` the codebooks cluster keys lifted by sqrt(phi - |k|^2) (phi
+kept per layer and group, evicted keys lifted with it) and the blocks are
+ranked by mean lifted distance of ADC gather-sum scores: the joint
+histogram is euclidean only (offload_engine.py:131, 170, 324-338).
+Tensor parallelism (``parallel/offload_tp.py``): ``comm``, the group of the
+row-parallel all-reduces, and ``shard``, this kv-head shard's (rank, size),
+by which k-means++ seeds each group's global index; params and cfg are
+then the shard's.
 """
 
 from __future__ import annotations
@@ -42,17 +76,45 @@ import torch.nn.functional as F
 
 from pqcache_tpu_torch import resolve_device
 from pqcache_tpu_torch.config import EngineConfig
-from pqcache_tpu_torch.core import pq
+from pqcache_tpu_torch.core import pq, quant
 from pqcache_tpu_torch.core.budget import compute_budget
-from pqcache_tpu_torch.core.sampling import GumbelNoise
-from pqcache_tpu_torch.models import llama
+from pqcache_tpu_torch.core.sampling import GumbelNoise, make_sampler
+from pqcache_tpu_torch.models import llama, require_llama
 from pqcache_tpu_torch.ops.attention_ref import \
     decode_window_attention_segments
+from pqcache_tpu_torch.ops.dispatch import dense_prefill_attention
+from pqcache_tpu_torch.policies.base import use_kernels
+from pqcache_tpu_torch.runtime.generate import (bucket_length,
+                                                chunk_plan_capped, params_to)
 from pqcache_tpu_torch.runtime.host_offload import (HostKVStore,
                                                     assemble_blocks)
-from pqcache_tpu_torch.runtime.offload_engine import (BACKPRESSURE_BLOCKS,
-                                                      OffloadEngine,
-                                                      OffloadPQState)
+
+# a staged miss stack of at least this many blocks drains its layer before
+# the next is staged (stale mode): the cache is far below the working set
+BACKPRESSURE_BLOCKS = 256
+
+
+@dataclasses.dataclass
+class OffloadPQState:
+    """Device state of the offload tier, layer-stacked over R kv-head rows
+    (H_kv for a prefill, B·H_kv for the slots). The slots' counters are
+    host int64 arrays [B]: nothing on the card reads them."""
+    k_sink: torch.Tensor        # [L, R, sink, D]
+    v_sink: torch.Tensor
+    k_local: torch.Tensor       # [L, R, local, D] ring
+    v_local: torch.Tensor
+    codes: torch.Tensor         # [L, R, S, N_tail] uint8
+    centroids: torch.Tensor     # [L, R, S, C, d(+1 for "ip")] f32
+    phi: torch.Tensor           # [L, R*S, 1, 1] f32 ("ip"; else zeros)
+    jhist: Optional[torch.Tensor] = None    # [L, R, NB, C^2] uint8
+    # int8 store: per-(layer, head, channel) scales frozen at prefill
+    k_scale: Optional[torch.Tensor] = None  # [L, R, 1, D] f32
+    v_scale: Optional[torch.Tensor] = None
+    # the slots': tail blocks [L, B·H_kv, bs, 2D] and counters [B]
+    tail: Optional[torch.Tensor] = None
+    n_cand: Optional[np.ndarray] = None
+    ring_ptr: Optional[np.ndarray] = None
+    pos: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
@@ -64,174 +126,104 @@ class _OSlot:
 
 @dataclasses.dataclass
 class _OAdmission:
-    """An admission in flight: the single-sequence prefill advanced one
-    bounded unit at a time (``OffloadEngine._prefill_pass_steps``)."""
+    """An admission in flight: its prefill advanced one bounded unit at a
+    time (``_prefill_steps``)."""
     slot: int
     seq_id: int
     gen: object                 # the prefill's step generator
-    rem_parts: dict             # layer -> remainder rows (or None)
-    n_store: int
+    st: OffloadPQState          # the one-sequence state it fills
+    rems: list                  # per layer: the remainder rows [H_kv, bs, 2D]
     true_len: int
 
 
 class BatchOffloadEngine:
-    """Fixed-pool batch decode over the shared host store (B slots).
+    """pq_search decode with host-offloaded KV over B slots.
 
     ``generate_batch`` serves a fixed batch, all slots prefilled first;
     ``serve`` is continuous: requests admit into free slots one prefill
     unit per decode step, finished slots retire. device: cuda unless
-    given."""
+    given; params are moved there in ``dtype``."""
 
     def __init__(self, cfg: EngineConfig, params: dict, *, batch_size: int,
                  dtype=torch.bfloat16, device=None, comm=None, shard=(0, 1)):
+        require_llama(cfg.model, type(self).__name__)
+        if cfg.runtime.policy != "pq_search":
+            raise ValueError(f"the offload tier runs pq_search, not "
+                             f"{cfg.runtime.policy!r}")
+        if cfg.cache.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"unsupported kv_dtype {cfg.cache.kv_dtype}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.B = batch_size
+        self.dtype = dtype
+        self.params = params_to(params, self.device, dtype)
         m = cfg.model
-        self.H_kv = m.num_kv_heads
-        self.D = m.head_dim
-        # the single-sequence engine provides the prefill and the layer
-        # pieces the two tiers share
-        self._se = OffloadEngine(cfg, params, dtype, device=self.device,
-                                 comm=comm, shard=shard)
-        self.params = self._se.params
-        self.S, self.C, self.bs = self._se.S, self._se.C, self._se.bs
-        self.kv_int8 = self._se.kv_int8
-        self.use_jhist = self._se.use_jhist
-        self.sampler = self._se.sampler
+        self.H_kv, self.D = m.num_kv_heads, m.head_dim
+        self.S = cfg.pq.n_subvec_per_head
+        self.C = cfg.pq.n_centroids
+        self.bs = cfg.cache.block_size
+        self.metric = cfg.pq.metric
+        self.use_kernel = use_kernels(cfg)
+        self.kv_int8 = cfg.cache.kv_dtype == "int8"
+        # the joint-histogram block scorer where it applies, else ADC
+        # gather-sum scores
+        self.use_jhist = pq.jhist_applies(cfg.pq, self.bs)
+        self.sampler = make_sampler(cfg.runtime.temperature,
+                                    cfg.runtime.top_k, cfg.runtime.top_p)
         self.stale = cfg.cache.stale_select
-        self._blk_stale: Optional[np.ndarray] = None   # [L, B·H_kv, kb]
+        self.comm = comm
+        self.shard = shard
+        # diagnostics: set to [] before a run to record each exact decode
+        # step's per-layer block selections [B·H_kv, kb] / the logits of
+        # each admission's prefill [V] and of every decode step [B, V]
+        self.selection_log: Optional[list] = None
+        self.logits_log: Optional[list] = None
         self.store: Optional[HostKVStore] = None
         self.timings: dict = {}
+        self.budget = None
         self.noise = None
+        self._blk_stale: Optional[np.ndarray] = None   # [L, B·H_kv, kb]
 
-    # -- batched state -----------------------------------------------------
+    # -- run setup ------------------------------------------------------------
 
-    def _insert(self, sst: OffloadPQState, slot: int,
-                rem: torch.Tensor) -> None:
-        """Fold a prefilled single-sequence state into slot ``slot``; rem
-        [L, H_kv, bs, 2D] holds the prefill's remainder rows (zero-padded
-        to a block; rows past the fill cursor are never read)."""
-        bst = self.bstate
-        hs = slice(slot * self.H_kv, (slot + 1) * self.H_kv)
-        for name in ("k_sink", "v_sink", "k_local", "v_local", "codes",
-                     "centroids", "jhist", "k_scale", "v_scale"):
-            dst = getattr(bst, name)
-            if dst is not None:
-                dst[:, hs] = getattr(sst, name)
-        bst.phi[:, slot * self.H_kv * self.S:(slot + 1) * self.H_kv
-                * self.S] = sst.phi
-        bst.tail[:, hs] = rem.to(bst.tail.dtype)
-        bst.n_cand[slot] = sst.n_cand
-        bst.ring_ptr[slot] = 0
-        bst.pos[slot] = sst.pos
-
-    # -- decode pieces (batch-as-heads) --------------------------------------
-
-    def _score_topk_b(self, idx: int, hidden, cos, sin, n_sel_h):
-        """Q/K/V and per-slot block top-k of layer idx. hidden [B, E];
-        cos/sin [B, D/2]; n_sel_h [B·H_kv]. Returns (q [B·H, 1, D], k_new,
-        v_new [B·H_kv, D], blk [B·H_kv, kb] slot-local ids, ascending)."""
-        m = self.cfg.model
-        st = self.bstate
-        B = hidden.shape[0]
-        H, Hk, D = m.num_heads, m.num_kv_heads, m.head_dim
-        lp = llama._layer_params(self.params, idx)
-        h_norm = llama.rms_norm(hidden, lp["ln1"], m.rms_norm_eps)
-        yq, yk, yv = llama._products(h_norm, lp, ("wq", "wk", "wv"))
-        q = llama._apply_rope_batched(yq.reshape(B, H, D), cos, sin)
-        k_new = llama._apply_rope_batched(yk.reshape(B, Hk, D), cos, sin)
-        v_new = yv.reshape(B, Hk, D)
-        blk = self._se._select(st, idx, q.reshape(B * H, D), n_sel_h)
-        return (q.reshape(B * H, 1, D), k_new.reshape(B * Hk, D),
-                v_new.reshape(B * Hk, D), blk)
-
-    def _attn_tail_b(self, idx: int, hidden, q, k_new, v_new, blk_idx, sel,
-                     step: dict):
-        """Window assembly, attention and MLP of layer idx for every slot,
-        then each slot's ring evict and, where ``step["app_h"]`` says so,
-        its store-tail append. Returns hidden [B, E]."""
-        m = self.cfg.model
-        st = self.bstate
-        se = self._se
-        B, Hk, D, bs = self.B, self.H_kv, self.D, self.bs
-        BH = B * Hk
-        slots, miss_pos, staged, cache = sel
-        blocks = assemble_blocks(cache, staged, slots, miss_pos)
-        self.store.admit(idx)
-        k_rows, v_rows, row_mask = se._window_rows(
-            st, idx, blocks, blk_idx, slots, miss_pos, step["n_sel_h"])
-        k_tl, v_tl = se._tail_kv(st, idx, st.tail[idx])
-        tail_mask = (torch.arange(bs, device=self.device)[None]
-                     < step["n_tail_h"][:, None])
-        dt = st.k_local.dtype
-        out = decode_window_attention_segments(q, [
-            (st.k_sink[idx], st.v_sink[idx], None),
-            (st.k_local[idx], st.v_local[idx], None),
-            (k_rows, v_rows, row_mask),
-            (k_tl, v_tl, tail_mask),
-            (k_new[:, None].to(dt), v_new[:, None].to(dt), None)])
-        lp = llama._layer_params(self.params, idx)
-        hidden = llama._finish_layer(m, lp, hidden,
-                                     out.reshape(B, m.num_heads * D),
-                                     self._se.comm)
-        # ring evict of every slot: the oldest local row out, the new token
-        # in, the evicted key encoded as candidate n_cand[slot]
-        heads, ptr_h = step["heads"], step["ptr_h"]
-        ev_k = st.k_local[idx, heads, ptr_h][:, None]          # [BH, 1, D]
-        ev_v = st.v_local[idx, heads, ptr_h][:, None]
-        ev_codes = se._encode_evicted(st, idx, ev_k)           # [BH, S]
-        kv_ev = se._evicted_row(st, idx, ev_k, ev_v).to(st.tail.dtype)
-        st.k_local[idx, heads, ptr_h] = k_new.to(dt)
-        st.v_local[idx, heads, ptr_h] = v_new.to(dt)
-        st.codes[idx, heads[:, None], step["subs"], step["code_col"]] = \
-            ev_codes
-        app = step["app_h"]
-        if app is not None:
-            st.tail[idx, app, step["fill_app"]] = kv_ev[app]
-        if self.use_jhist:
-            jh = step["jhist_rows"]
-            if jh is not None:
-                pair = (ev_codes[:, 0].long() * self.C
-                        + ev_codes[:, 1].long())
-                pq.jhist_increment(st.jhist, (idx, jh, step["jhist_blk"],
-                                              pair[jh]))
-        return hidden
-
-    # -- run setup, admission, retirement -----------------------------------
-
-    def _setup(self, max_prompt_len: int, max_new_tokens: int,
-               noise=None) -> None:
-        """Pool-wide run state: one prefill length P (one budget) for every
-        slot, the shared store sized to B id ranges, the batched state and
-        the per-slot host counters."""
-        cfg = self.cfg
-        m = cfg.model
-        self._P, pad, self._chunked, self._ch = self._se._plan(
-            max_prompt_len, max_new_tokens)
-        self.budget = b = self._se.budget
-        self.max_new = max_new_tokens
-        if b.n_tail_max % self.bs:
-            raise ValueError(f"n_tail_max {b.n_tail_max} not divisible by "
-                             f"cache block {self.bs}")
-        self._blocks_per_slot = b.n_tail_max // self.bs
+    def setup(self, max_prompt_len: int, max_new_tokens: int,
+              noise=None) -> None:
+        """Pool-wide run state: one prefill length ``P`` (one budget) for
+        every slot, ``chunked`` whether it prefills in chunks, the shared
+        store sized to B id ranges (the previous run's goes first: two
+        stores' pinned memory and device caches need not coexist), the
+        zero state and the per-slot host counters."""
+        cfg, B = self.cfg, self.B
+        m, rt = cfg.model, cfg.runtime
+        P = min(bucket_length(max_prompt_len, rt.prefill_bucket),
+                rt.max_seq_len)
+        if max_prompt_len > P:
+            raise ValueError(f"prompt {max_prompt_len} exceeds max_seq_len "
+                             f"{P}")
+        ch = rt.prefill_chunk
+        chunked = bool(ch) and P > ch
+        if chunked:
+            P, ch = chunk_plan_capped(P, ch, rt.max_seq_len)
+            chunked = ch > 0
+        self.P, self.chunked, self._ch = P, chunked, ch
+        self.budget = b = compute_budget(cfg.budget, P, max_new_tokens)
+        self._blocks_per_slot = -(-b.n_tail_max // self.bs)
         self.timings = {"host_s": 0.0, "wait_s": 0.0, "decode_s": 0.0,
                         "steps": 0}
         self.store = None
         self.store = HostKVStore(
-            m.num_layers, m.num_kv_heads, self.B * b.n_tail_max, m.head_dim,
-            block_size=self.bs, hbm_cache_tokens=cfg.cache.hbm_cache_tokens,
+            m.num_layers, self.H_kv, B * self._blocks_per_slot * self.bs,
+            self.D, block_size=self.bs,
+            hbm_cache_tokens=cfg.cache.hbm_cache_tokens,
             cache_topk_blocks=cfg.cache.cache_topk_blocks,
-            dtype=torch.int8 if self.kv_int8 else self._se.dtype,
+            dtype=torch.int8 if self.kv_int8 else self.dtype,
             device=self.device)
-        B = self.B
-        bst = self._se._init_state(b, rows=B * self.H_kv)
-        bst.n_cand = np.zeros((B,), np.int64)
-        bst.ring_ptr = np.zeros((B,), np.int64)
-        bst.pos = np.zeros((B,), np.int64)
-        bst.tail = torch.zeros(
-            (m.num_layers, B * self.H_kv, self.bs, 2 * self.D),
-            dtype=self.store.dtype, device=self.device)
+        bst = self._zero_state(B * self.H_kv)
+        bst.tail = torch.zeros((m.num_layers, B * self.H_kv, self.bs,
+                                2 * self.D), dtype=self.store.dtype,
+                               device=self.device)
+        bst.n_cand, bst.ring_ptr, bst.pos = (np.zeros((B,), np.int64)
+                                             for _ in range(3))
         self.bstate = bst
         self._stored = np.zeros((B,), np.int64)   # prefill rows per slot
         self._valid = np.zeros((B,), np.int64)    # complete-block rows
@@ -239,41 +231,142 @@ class BatchOffloadEngine:
         self._ncand = np.zeros((B,), np.int64)
         self.noise = noise
         if self.sampler is not None and noise is None:
-            self.noise = GumbelNoise(cfg.runtime.sample_seed, self.device)
+            self.noise = GumbelNoise(rt.sample_seed, self.device)
         self.slots: List[_OSlot] = [_OSlot() for _ in range(B)]
         self._head_slot = np.repeat(np.arange(B), self.H_kv)
         self._blk_stale = None
 
+    def _zero_state(self, rows: int) -> OffloadPQState:
+        """Zero state of ``rows`` kv-head rows."""
+        L, D, S, C = self.cfg.model.num_layers, self.D, self.S, self.C
+        b, dev = self.budget, self.device
+        z = lambda *s: torch.zeros(s, dtype=self.dtype, device=dev)  # noqa
+        one = lambda: (torch.ones((L, rows, 1, D), device=dev)  # noqa: E731
+                       if self.kv_int8 else None)
+        return OffloadPQState(
+            k_sink=z(L, rows, b.sink, D), v_sink=z(L, rows, b.sink, D),
+            k_local=z(L, rows, b.local, D), v_local=z(L, rows, b.local, D),
+            codes=torch.zeros((L, rows, S, b.n_tail_max), dtype=torch.uint8,
+                              device=dev),
+            centroids=torch.zeros(
+                (L, rows, S, C, D // S + (self.metric == "ip")), device=dev),
+            phi=torch.zeros((L, rows * S, 1, 1), device=dev),
+            jhist=(torch.zeros((L, rows, b.n_tail_max // self.bs, C * C),
+                               dtype=pq.jhist_dtype(self.bs), device=dev)
+                   if self.use_jhist else None),
+            k_scale=one(), v_scale=one())
+
+    # -- prefill and admission ------------------------------------------------
+
+    def _tail_update(self, st: OffloadPQState, idx: int, k, v, pad: int,
+                     true_len: int) -> None:
+        """Layer idx of a one-sequence state from its full K/V [H_kv, P, D]
+        (pad rows first): codebooks, sink, the local ring (the ``local``
+        most recent real tokens, in order), codes, histogram and int8
+        scales. The store takes the candidate rows straight from k/v."""
+        b = self.budget
+        t = pq.train_layer(k, v, pad, true_len, sink=b.sink, S=self.S,
+                           C=self.C, metric=self.metric,
+                           iters=self.cfg.pq.kmeans_iters,
+                           seed=self.cfg.pq.kmeans_seed, shard=self.shard,
+                           int8_scales=self.kv_int8)
+        n_src = k.shape[1] - b.sink
+        # JAX's dynamic slice clamps the ring's start into range
+        s0 = min(max(t.n_valid - b.local, 0), n_src - b.local)
+        dt = st.k_sink.dtype
+        if self.kv_int8:
+            st.k_scale[idx], st.v_scale[idx] = t.k_scale, t.v_scale
+        st.k_sink[idx], st.v_sink[idx] = t.k_sink.to(dt), t.v_sink.to(dt)
+        st.k_local[idx] = t.k_tail[:, s0:s0 + b.local].to(dt)
+        st.v_local[idx] = t.v_tail[:, s0:s0 + b.local].to(dt)
+        st.codes[idx, :, :, :n_src] = t.codes.to(torch.uint8)
+        st.centroids[idx] = t.centroids
+        if t.phi is not None:
+            st.phi[idx] = t.phi
+        if self.use_jhist:
+            st.jhist[idx] = pq.build_joint_hist(
+                st.codes[idx], max(t.n_valid - b.local, 0),
+                n_centroids=self.C, block=self.bs)
+
+    def _offload_layer(self, slot: int, st: OffloadPQState, idx: int, k, v,
+                       pad: int, true_len: int) -> torch.Tensor:
+        """Layer idx's prompt rows past the sink (quantized for an int8
+        store) into the slot's id range of the store: complete blocks to
+        the host; returns the remainder rows zero-padded to a block [H_kv,
+        bs, 2D] (rows past the fill cursor are never read)."""
+        if self.kv_int8:
+            k = quant.quantize_channels(k, st.k_scale[idx])
+            v = quant.quantize_channels(v, st.v_scale[idx])
+        b = self.budget
+        part = self.store.offload_blocks_device(
+            idx, k, v, true_len - b.sink, pad + b.sink,
+            id_base=slot * self._blocks_per_slot)
+        if part is None:
+            return torch.zeros((self.H_kv, self.bs, 2 * self.D),
+                               dtype=self.store.dtype, device=self.device)
+        return F.pad(part, (0, 0, 0, self.bs - part.shape[1]))
+
+    @torch.no_grad()
+    def _prefill_steps(self, st: OffloadPQState, ids, pad: int,
+                       true_len: int, offload_fn):
+        """The layer-by-layer prefill of ``ids`` into ``st`` as a generator:
+        it yields after each bounded unit (a layer; chunked: a layer's K/V,
+        each chunk slab, the tail and offload). StopIteration.value is the
+        last token's logits [V] f32. offload_fn(layer, k, v) stores a
+        layer's K/V."""
+        m, P, ch = self.cfg.model, self.P, self._ch
+        tokens = np.zeros((P,), np.int64)
+        tokens[pad:] = ids
+        tokens = torch.from_numpy(tokens).to(self.device)
+        hidden = llama.embed_lookup(self.params, tokens)
+        positions = torch.clamp(
+            torch.arange(P, device=self.device) - pad, min=0)
+        cos, sin = llama.rope_cos_sin(m, positions)
+        for idx in range(m.num_layers):
+            lp = llama._layer_params(self.params, idx)
+            if self.chunked:
+                k, v = llama.kv_full_chunked(m, lp, hidden, cos, sin, ch)
+                yield
+                for c0 in range(0, P, ch):
+                    c1 = c0 + ch
+                    hidden[c0:c1] = llama.attn_mlp_chunk(
+                        m, lp, hidden[c0:c1], cos[c0:c1], sin[c0:c1], k,
+                        v, pad, c0, use_kernel=self.use_kernel,
+                        comm=self.comm)
+                    yield
+            else:
+                kv = {}
+
+                def attn_fn(q, k, v):
+                    kv["k"], kv["v"] = k, v
+                    return dense_prefill_attention(
+                        q, k, v, pad, use_kernel=self.use_kernel)[0], None
+                hidden, _ = llama._layer_fwd(m, lp, hidden, attn_fn, cos,
+                                             sin, self.comm)
+                k, v = kv["k"], kv["v"]
+            self._tail_update(st, idx, k, v, pad, true_len)
+            offload_fn(idx, k, v)
+            del k, v
+            self.store.sync_transfers(idx)
+            yield
+        return llama._logits(m, self.params, hidden[P - 1:P])
+
     def _admission_start(self, slot: int, seq_id: int,
                          ids: np.ndarray) -> _OAdmission:
-        """Open slot ``slot`` for ``ids``: the prefill's offload writes the
-        slot's id range of the shared store; the admission advances one
-        unit per ``_admission_step``."""
-        b = self.budget
+        """Open slot ``slot`` for ``ids``; the admission advances one unit
+        per ``_admission_step``."""
         ids = np.asarray(ids, np.int64)
         true_len = int(ids.shape[0])
-        pad = self._P - true_len
+        pad = self.P - true_len
         if pad < 0:
-            raise ValueError(f"prompt {true_len} > pool prefill {self._P}")
-        n_store = true_len - b.sink
-        base = slot * self._blocks_per_slot
-        rem_parts: dict = {}
-        se = self._se
-
-        def offload_fn(idx, k, v, st):
-            k, v = se.quant_layer_kv(st, idx, k, v)
-            part = self.store.offload_blocks_device(
-                idx, k, v, n_store, pad + b.sink, id_base=base)
-            if part is not None:
-                part = F.pad(part, (0, 0, 0, self.bs - part.shape[1]))
-            rem_parts[idx] = part
-
-        gen = se._prefill_pass_steps(
-            se._init_state(b), ids, self._P, pad, true_len, self._chunked,
-            self._ch, offload_fn, self.store.sync_transfers)
-        return _OAdmission(slot=slot, seq_id=seq_id, gen=gen,
-                           rem_parts=rem_parts, n_store=n_store,
-                           true_len=true_len)
+            raise ValueError(f"prompt {true_len} > pool prefill {self.P}")
+        st = self._zero_state(self.H_kv)
+        rems: list = []
+        gen = self._prefill_steps(
+            st, ids, pad, true_len, lambda idx, k, v: rems.append(
+                self._offload_layer(slot, st, idx, k, v, pad, true_len)))
+        return _OAdmission(slot=slot, seq_id=seq_id, gen=gen, st=st,
+                           rems=rems, true_len=true_len)
 
     def _admission_step(self, adm: _OAdmission) -> bool:
         """Advance one prefill unit; True once the admission is done (first
@@ -282,29 +375,55 @@ class BatchOffloadEngine:
             next(adm.gen)
             return False
         except StopIteration as e:
-            logits, sst = e.value
-        first = int(self._se._next_token(logits, self.noise))
-        L = self.cfg.model.num_layers
-        if adm.rem_parts and adm.rem_parts[0] is not None:
-            rem = torch.stack([adm.rem_parts[i] for i in range(L)])
-        else:
-            rem = torch.zeros((L, self.H_kv, self.bs, 2 * self.D),
-                              dtype=self.bstate.tail.dtype,
-                              device=self.device)
-        with torch.no_grad():
-            self._insert(sst, adm.slot, rem)
+            self._admit(adm.slot, adm.seq_id, adm.st, adm.rems, e.value,
+                        adm.true_len)
+        return True
+
+    @torch.no_grad()
+    def admit_prefilled(self, slot: int, kv: torch.Tensor, logits,
+                        pad: int, true_len: int) -> None:
+        """Admit a prompt prefilled elsewhere into slot ``slot`` (after
+        ``setup``): kv [L, H_kv, P, 2D] its per-layer K‖V (pad rows
+        first), logits [V] its last token's. Each layer's state and
+        codebooks are built and its rows offloaded as a prefill's are."""
+        st = self._zero_state(self.H_kv)
+        rems = []
+        for idx in range(kv.shape[0]):
+            k, v = kv[idx, ..., :self.D], kv[idx, ..., self.D:]
+            self._tail_update(st, idx, k, v, pad, true_len)
+            rems.append(self._offload_layer(slot, st, idx, k, v, pad,
+                                            true_len))
+            self.store.sync_transfers(idx)
+        self._admit(slot, slot, st, rems, logits, true_len)
+
+    @torch.no_grad()
+    def _admit(self, slot: int, seq_id: int, st: OffloadPQState, rems,
+               logits, true_len: int) -> None:
+        """Take the first token from the prefill's logits, fold the
+        prefilled state and its remainder rows into slot ``slot``, set its
+        counters and make it live."""
+        first = int(self._next_token(logits, self.noise))
+        bst, b = self.bstate, self.budget
+        hs = slice(slot * self.H_kv, (slot + 1) * self.H_kv)
+        for name in ("k_sink", "v_sink", "k_local", "v_local", "codes",
+                     "centroids", "jhist", "k_scale", "v_scale"):
+            dst = getattr(bst, name)
+            if dst is not None:
+                dst[:, hs] = getattr(st, name)
+        bst.phi[:, hs.start * self.S:hs.stop * self.S] = st.phi
+        bst.tail[:, hs] = torch.stack(rems)
+        bst.n_cand[slot] = max(true_len - b.sink - b.local, 0)
+        bst.ring_ptr[slot] = 0
+        bst.pos[slot] = true_len
         # stale selections of this slot's rows came from the previous
         # occupant: the next step runs exact and reseeds them
         self._blk_stale = None
-        b = self.budget
-        n_full = adm.n_store // self.bs
-        self._stored[adm.slot] = adm.n_store
-        self._valid[adm.slot] = n_full * self.bs
-        self._fill[adm.slot] = adm.n_store - n_full * self.bs
-        self._ncand[adm.slot] = max(adm.true_len - b.sink - b.local, 0)
-        self.slots[adm.slot] = _OSlot(seq_id=adm.seq_id, tokens=[first],
-                                      done=False)
-        return True
+        n_store = true_len - b.sink
+        self._stored[slot] = n_store
+        self._valid[slot] = n_store // self.bs * self.bs
+        self._fill[slot] = n_store - self._valid[slot]
+        self._ncand[slot] = bst.n_cand[slot]
+        self.slots[slot] = _OSlot(seq_id=seq_id, tokens=[first], done=False)
 
     def _retire(self, slot: int) -> None:
         """Free a finished slot: invalidate its id range in the shared store
@@ -319,7 +438,113 @@ class BatchOffloadEngine:
         self._ncand[slot] = 0
         self.slots[slot] = _OSlot()
 
-    # -- decode step ---------------------------------------------------------
+    # -- the layer step ---------------------------------------------------------
+
+    def _score_topk(self, idx: int, hidden, cos, sin, n_sel_h):
+        """Q/K/V and per-slot block top-k of layer idx. hidden [B, E];
+        cos/sin [B, D/2]; n_sel_h [B·H_kv], each row's retrievable
+        candidates. Returns (q [B·H, 1, D], k_new, v_new [B·H_kv, D], blk
+        [B·H_kv, kb] slot-local ids, ascending)."""
+        m, st, b = self.cfg.model, self.bstate, self.budget
+        B = hidden.shape[0]
+        H, Hk, D = m.num_heads, self.H_kv, self.D
+        lp = llama._layer_params(self.params, idx)
+        h_norm = llama.rms_norm(hidden, lp["ln1"], m.rms_norm_eps)
+        yq, yk, yv = llama._products(h_norm, lp, ("wq", "wk", "wv"))
+        q = llama._apply_rope_batched(yq.reshape(B, H, D), cos, sin)
+        k_new = llama._apply_rope_batched(yk.reshape(B, Hk, D), cos, sin)
+        lut = pq.adc_lut(q.reshape(B * H, D), st.centroids[idx], self.S,
+                         self.metric)
+        if self.use_jhist:
+            mass = pq.joint_block_mass(lut, st.jhist[idx], head_dim=D,
+                                       kernel=self.use_kernel)
+            blk = pq.topk_from_block_mass(mass, n_sel_h, b.topk,
+                                          group=m.num_groups, block=self.bs)
+        else:
+            blk, _ = pq.mips_topk_blocks(
+                pq.adc_gather_scores(lut, st.codes[idx]), n_sel_h, b.topk,
+                group=m.num_groups, head_dim=D, block=self.bs,
+                metric=self.metric)
+        return (q.reshape(B * H, 1, D), k_new.reshape(B * Hk, D),
+                yv.reshape(B * Hk, D), torch.sort(blk, -1).values)
+
+    def _kv(self, idx: int, rows):
+        """Store rows [..., 2D] as (k, v) in the engine dtype (dequantized
+        with layer idx's scales for an int8 store)."""
+        dt = self.bstate.k_local.dtype
+        if self.kv_int8:
+            return quant.dequant_kv(rows, self.bstate.k_scale[idx],
+                                    self.bstate.v_scale[idx], dtype=dt)
+        return rows[..., :self.D].to(dt), rows[..., self.D:].to(dt)
+
+    def _attn_evict(self, idx: int, hidden, q, k_new, v_new, blk_idx, sel,
+                    step: dict):
+        """Window assembly, attention and MLP of layer idx for every slot,
+        then each slot's ring evict and, where ``step["app_h"]`` says so,
+        its store-tail append. The window is [sink | local ring | selected
+        blocks (rows below n_sel) | tail (its first n_tail rows) | new].
+        Returns hidden [B, E]."""
+        m, st = self.cfg.model, self.bstate
+        B, Hk, D, bs = hidden.shape[0], self.H_kv, self.D, self.bs
+        slots, miss_pos, staged, cache = sel
+        blocks = assemble_blocks(cache, staged, slots, miss_pos)
+        self.store.admit(idx)
+        BH, kb = blocks.shape[:2]
+        k_rows, v_rows = self._kv(idx, blocks.reshape(BH, kb * bs, 2 * D))
+        tok = (blk_idx[:, :, None] * bs
+               + torch.arange(bs, device=self.device)).reshape(BH, kb * bs)
+        ok = ((slots >= 0) | (miss_pos >= 0))[:, :, None].expand(
+            BH, kb, bs).reshape(BH, kb * bs)
+        k_tl, v_tl = self._kv(idx, st.tail[idx])
+        dt = st.k_local.dtype
+        out = decode_window_attention_segments(q, [
+            (st.k_sink[idx], st.v_sink[idx], None),
+            (st.k_local[idx], st.v_local[idx], None),
+            (k_rows, v_rows, (tok < step["n_sel_h"][:, None]) & ok),
+            (k_tl, v_tl, torch.arange(bs, device=self.device)[None]
+             < step["n_tail_h"][:, None]),
+            (k_new[:, None].to(dt), v_new[:, None].to(dt), None)])
+        lp = llama._layer_params(self.params, idx)
+        hidden = llama._finish_layer(m, lp, hidden,
+                                     out.reshape(B, m.num_heads * D),
+                                     self.comm)
+        # ring evict of every slot: the oldest local row out, the new token
+        # in, the evicted key encoded as candidate n_cand[slot]
+        heads, ptr_h = step["heads"], step["ptr_h"]
+        ev_k = st.k_local[idx, heads, ptr_h][:, None]          # [BH, 1, D]
+        ev_v = st.v_local[idx, heads, ptr_h][:, None]
+        ev_codes = pq.encode(
+            pq.to_groups(ev_k, self.S),
+            st.centroids[idx].reshape(BH * self.S, self.C, -1), st.phi[idx],
+            self.metric).reshape(BH, self.S).to(torch.uint8)
+        kv_ev = (quant.quantize_kv(ev_k, ev_v, st.k_scale[idx],
+                                   st.v_scale[idx])[:, 0] if self.kv_int8
+                 else torch.cat([ev_k[:, 0], ev_v[:, 0]], -1))
+        st.k_local[idx, heads, ptr_h] = k_new.to(dt)
+        st.v_local[idx, heads, ptr_h] = v_new.to(dt)
+        st.codes[idx, heads[:, None], step["subs"], step["code_col"]] = \
+            ev_codes
+        app = step["app_h"]
+        if app is not None:
+            st.tail[idx, app, step["fill_app"]] = kv_ev[app].to(
+                st.tail.dtype)
+        jh = step["jhist_rows"]
+        if jh is not None:
+            pair = ev_codes[:, 0].long() * self.C + ev_codes[:, 1].long()
+            pq.jhist_increment(st.jhist, (idx, jh, step["jhist_blk"],
+                                          pair[jh]))
+        return hidden
+
+    def _next_token(self, logits, noise):
+        """Greedy argmax, or one draw of the sampler from ``noise``."""
+        if self.logits_log is not None:
+            self.logits_log.append(logits.detach().float().cpu())
+        if self.sampler is None:
+            return torch.argmax(logits, -1)
+        return self.sampler(logits, noise.fill_(torch.empty(
+            logits.shape, dtype=torch.float32, device=logits.device)))
+
+    # -- the decode step --------------------------------------------------------
 
     def _step_indices(self, do_app: np.ndarray) -> dict:
         """The step's per-row counts and write positions as device tensors
@@ -335,8 +560,8 @@ class BatchOffloadEngine:
         jrows = np.flatnonzero(blk_h < (st.jhist.shape[2] if self.use_jhist
                                         else 0))
         return dict(
-            n_sel_h=ix(np.repeat(n_sel, Hk)), n_tail_h=ix(np.repeat(n_tail,
-                                                                     Hk)),
+            n_sel_h=ix(np.repeat(n_sel, Hk)),
+            n_tail_h=ix(np.repeat(n_tail, Hk)),
             heads=ix(np.arange(B * Hk)), ptr_h=ix(np.repeat(st.ring_ptr, Hk)),
             subs=ix(np.arange(self.S))[None],
             code_col=ix(np.repeat(np.minimum(st.n_cand, N_tail - 1),
@@ -349,21 +574,19 @@ class BatchOffloadEngine:
     @torch.no_grad()
     def _decode_step(self, next_toks: np.ndarray,
                      active: np.ndarray) -> np.ndarray:
-        """One batched decode step over all B slots (a slot that is not
-        live is masked: no selection, no append; its token is dropped).
-        Returns the next tokens [B]."""
+        """One decode step over all B slots (a slot that is not live is
+        masked: no selection, no append; its token is dropped). Returns the
+        next tokens [B]."""
         t_step = time.perf_counter()
         B, Hk, L = self.B, self.H_kv, self.cfg.model.num_layers
-        tm = self.timings
-        st = self.bstate
+        tm, st, store = self.timings, self.bstate, self.store
+        ix = store.device_index
         do_app = (self._ncand >= self._stored) & active
         step = self._step_indices(do_app)
-        hidden = llama.embed_lookup(self.params, self.store.device_index(
-            np.asarray(next_toks)))
-        cos, sin = llama.rope_cos_sin(self.cfg.model, self.store.device_index(
-            st.pos))
-        q, k_new, v_new, blk = self._score_topk_b(0, hidden, cos, sin,
-                                                  step["n_sel_h"])
+        hidden = llama.embed_lookup(self.params, ix(np.asarray(next_toks)))
+        cos, sin = llama.rope_cos_sin(self.cfg.model, ix(st.pos))
+        q, k_new, v_new, blk = self._score_topk(0, hidden, cos, sin,
+                                                step["n_sel_h"])
         cb_h = (self._valid // self.bs)[self._head_slot]   # complete blocks
         base_h = (np.arange(B) * self._blocks_per_slot)[self._head_slot]
         act_h = active[self._head_slot]
@@ -380,19 +603,18 @@ class BatchOffloadEngine:
             tm["wait_s"] += t1 - t0
             ok = (blk_np < cb_h[:, None]) & act_h[:, None]
             gids = np.where(ok, blk_np + base_h[:, None], 0)
-            slots, miss_pos, staged, cache = self.store.classify_blocks(
+            slots, miss_pos, staged, cache = store.classify_blocks(
                 idx, gids, ok=ok)
-            ix = self.store.device_index
             sel = (ix(slots), ix(miss_pos), staged, cache)
             blk_t = ix(blk_np) if stale else blk
             tm["host_s"] += time.perf_counter() - t1
-            hidden = self._attn_tail_b(idx, hidden, q, k_new, v_new, blk_t,
-                                       sel, step)
+            hidden = self._attn_evict(idx, hidden, q, k_new, v_new, blk_t,
+                                      sel, step)
             if idx < L - 1:
-                q, k_new, v_new, blk = self._score_topk_b(
+                q, k_new, v_new, blk = self._score_topk(
                     idx + 1, hidden, cos, sin, step["n_sel_h"])
                 new_blks.append(blk)
-                if (stale and self.store.cuda
+                if (stale and store.cuda
                         and staged.shape[0] >= BACKPRESSURE_BLOCKS):
                     t0 = time.perf_counter()
                     torch.cuda.current_stream(self.device).synchronize()
@@ -400,8 +622,8 @@ class BatchOffloadEngine:
         m = self.cfg.model
         last = llama.rms_norm(hidden, self.params["final_norm"],
                               m.rms_norm_eps)
-        nxt = self._se._next_token(llama.lm_head_logits(self.params, last),
-                                   self.noise)
+        nxt = self._next_token(llama.lm_head_logits(self.params, last),
+                               self.noise)
         st.n_cand += 1
         st.ring_ptr = (st.ring_ptr + 1) % self.budget.local
         st.pos += 1
@@ -417,35 +639,24 @@ class BatchOffloadEngine:
         else:
             nxt = nxt.cpu().numpy()
         tm["wait_s"] += time.perf_counter() - t0
+        if self.selection_log is not None and rec:
+            self.selection_log.append([x.copy() for x in rec])
         self._ncand += active.astype(np.int64)
         self._fill += do_app.astype(np.int64)
-        for b_i in range(B):
-            if self._fill[b_i] == self.bs:
-                # the filled tail block goes to the host
-                hs = slice(b_i * Hk, (b_i + 1) * Hk)
-                ext = st.tail[:, hs].clone()
-                gid = (b_i * self._blocks_per_slot
-                       + int(self._valid[b_i]) // self.bs)
-                for layer in range(L):
-                    self.store.adopt_block_device(layer, ext[layer],
-                                                  block_id=gid)
-                self._valid[b_i] += self.bs
-                self._fill[b_i] = 0
+        for b_i in np.flatnonzero(self._fill == self.bs):
+            # the filled tail block goes to the host
+            ext = st.tail[:, b_i * Hk:(b_i + 1) * Hk].clone()
+            gid = (b_i * self._blocks_per_slot
+                   + int(self._valid[b_i]) // self.bs)
+            for layer in range(L):
+                store.adopt_block_device(layer, ext[layer], block_id=gid)
+            self._valid[b_i] += self.bs
+            self._fill[b_i] = 0
         tm["decode_s"] += time.perf_counter() - t_step
         tm["steps"] += 1
         return nxt
 
-    # -- public API -----------------------------------------------------------
-
-    @property
-    def logits_log(self) -> Optional[list]:
-        """Set to [] to record the logits of each admission's prefill [V]
-        and of every decode step [B, V] (``OffloadEngine.logits_log``)."""
-        return self._se.logits_log
-
-    @logits_log.setter
-    def logits_log(self, log: Optional[list]) -> None:
-        self._se.logits_log = log
+    # -- public API -------------------------------------------------------------
 
     def generate_batch(self, prompts, max_new_tokens: int, eos_ids=(), *,
                        noise=None, forced=None) -> List[list]:
@@ -459,19 +670,19 @@ class BatchOffloadEngine:
             raise ValueError(f"need exactly {self.B} prompts, "
                              f"got {len(prompts)}")
         prompts = [np.asarray(p, np.int64) for p in prompts]
-        self._setup(max(int(p.shape[0]) for p in prompts), max_new_tokens,
-                    noise)
+        self.setup(max(int(p.shape[0]) for p in prompts), max_new_tokens,
+                   noise)
         for slot, ids in enumerate(prompts):
             adm = self._admission_start(slot, slot, ids)
             while not self._admission_step(adm):
                 pass
-        return self._decode_until_done(max_new_tokens, eos_ids, forced)
+        return self.decode_until_done(max_new_tokens, eos_ids, forced)
 
-    def _decode_until_done(self, max_new_tokens: int, eos_ids=(),
-                           forced=None) -> List[list]:
+    def decode_until_done(self, max_new_tokens: int, eos_ids=(),
+                          forced=None) -> List[list]:
         """Decode every admitted slot until EOS or max_new_tokens (the rest
-        of ``generate_batch``, shared with the sharded tier's ring
-        prefill; ``forced`` as there). Returns a list of token lists."""
+        of ``generate_batch``; ``forced`` as there). Returns a list of
+        token lists."""
         for s in self.slots:
             if s.tokens[-1] in eos_ids or max_new_tokens <= 1:
                 s.done = True
@@ -505,9 +716,9 @@ class BatchOffloadEngine:
         queue = [(sid, np.asarray(ids, np.int64)) for sid, ids in requests]
         if not queue:
             return {}
-        self._setup(prefill_len if prefill_len is not None
-                    else max(int(p.shape[0]) for _, p in queue),
-                    max_new_tokens, noise)
+        self.setup(prefill_len if prefill_len is not None
+                   else max(int(p.shape[0]) for _, p in queue),
+                   max_new_tokens, noise)
         arrivals = arrivals or {}
         results: dict = {}
         t0 = time.perf_counter()

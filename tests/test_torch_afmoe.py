@@ -345,6 +345,43 @@ def test_batched_decoder_steps_the_configured_model(model):
     assert torch.equal(got, torch.stack(want))
 
 
+def _llama_engine(name, ecfg, params):
+    """Construct the llama-family engine ``name`` on ``ecfg`` (its checks
+    come before it reads a mesh, so the TP engines take none)."""
+    from pqcache_tpu_torch.parallel.batch_tp import BatchTPEngine
+    from pqcache_tpu_torch.parallel.tp_decode import TPEngine
+    from pqcache_tpu_torch.runtime.batch_engine import BatchEngine
+    from pqcache_tpu_torch.runtime.generate import Engine
+    from pqcache_tpu_torch.runtime.offload_batch import BatchOffloadEngine
+    from pqcache_tpu_torch.runtime.offload_engine import OffloadEngine
+    dev = dict(dtype=torch.float32, device="cpu")
+    off = dataclasses.replace(ecfg, cache=config.CacheConfig(offload=True))
+    return {
+        "Engine": lambda: Engine(ecfg, params, **dev),
+        "BatchEngine": lambda: BatchEngine(ecfg, params, batch_size=2,
+                                           prefill_len=64,
+                                           max_new_tokens=8, **dev),
+        "OffloadEngine": lambda: OffloadEngine(off, params, **dev),
+        "BatchOffloadEngine": lambda: BatchOffloadEngine(
+            off, params, batch_size=2, **dev),
+        "TPEngine": lambda: TPEngine(ecfg, params, None, 64, 8,
+                                     dtype=torch.float32),
+        "BatchTPEngine": lambda: BatchTPEngine(ecfg, params, None, 64, 8,
+                                               dtype=torch.float32),
+    }[name]()
+
+
+@pytest.mark.parametrize("name", ["Engine", "BatchEngine", "OffloadEngine",
+                                  "BatchOffloadEngine", "TPEngine",
+                                  "BatchTPEngine"])
+def test_llama_engines_refuse_the_afmoe_family(model, name):
+    cfg, params = model
+    with pytest.raises(ValueError, match=rf"^{name} runs the llama family; "
+                       r"'tiny-afmoe' is of the afmoe family, which "
+                       r"runtime/decode_graph\.BatchedDecoder serves$"):
+        _llama_engine(name, engine(cfg, "pq_search"), params)
+
+
 def test_prefill_spans_and_expert_load_counter(model):
     cfg, params = model
     prompt, _ = draws(64, 1, 1, seed=8)

@@ -172,7 +172,7 @@ def test_select_blocks_picks_the_blocks_it_picked_before(defer):
     gen = torch.Generator().manual_seed(5)
     for idx in range(state.jhist.shape[0]):
         q = torch.randn(n_cand_h.shape[0] * pol.group, pol.D, generator=gen)
-        lut = pol._lut(q, state.centroids[idx])
+        lut = pq.adc_lut(q, state.centroids[idx], pol.S, pol.metric)
         pending = None
         if defer == "on":
             pending = pol._pending_span(state, n_cand_h, idx) + (

@@ -18,6 +18,12 @@ selections JAX's. Then the ``max_seq_len`` refusal, the Engine's routing
 (``pq_search_offload``; a prefix raises; ``BatchEngine`` points to
 ``BatchOffloadEngine``) and the accuracy twin: the port's offload engine
 against the port's device-tier Engine at the same ``select_block``.
+The offload engines are one core: ``BatchOffloadEngine`` at one slot
+gives ``OffloadEngine``'s tokens, per-step logits, hits and misses and
+(exact mode) per-layer selections, bf16 and int8, exact and stale, over
+enough steps that evictions fill a tail block and it goes to the host; so
+does ``ShardedOffloadEngine.generate_ring`` at dp 1 x tp 1, whose ring
+prefill hands its K/V to the core through ``admit_prefilled``.
 ``torch.set_num_threads(1)``: the suite runs with several workers.
 """
 
@@ -36,9 +42,12 @@ from pqcache_tpu.runtime import host_offload as jhost_offload
 from pqcache_tpu.runtime.offload_engine import OffloadEngine as JOffload
 from pqcache_tpu_torch import bridge, config
 from pqcache_tpu_torch.core import pq
+from pqcache_tpu_torch.parallel.factory import make_mesh
+from pqcache_tpu_torch.parallel.offload_tp import ShardedOffloadEngine
 from pqcache_tpu_torch.runtime import host_offload
 from pqcache_tpu_torch.runtime.batch_engine import BatchEngine
 from pqcache_tpu_torch.runtime.generate import Engine
+from pqcache_tpu_torch.runtime.offload_batch import BatchOffloadEngine
 from pqcache_tpu_torch.runtime.offload_engine import OffloadEngine
 
 torch.set_num_threads(1)
@@ -257,3 +266,51 @@ def test_offload_matches_device_tier_engine(model):
     assert eng.store.hits > 0
     t = eng.timings
     assert t["steps"] == 9 and t["decode_s"] >= t["host_s"] > 0
+
+
+@pytest.mark.parametrize("kv,stale", [("bf16", False), ("bf16", True),
+                                      ("int8", False), ("int8", True)],
+                         ids=["bf16-exact", "bf16-stale", "int8-exact",
+                              "int8-stale"])
+def test_one_slot_batch_engine_is_the_offload_engine(model, kv, stale):
+    # block 16 and 72 steps: the local window (47 tokens) is passed after
+    # 47 steps, and from then on the evictions fill a tail block, which
+    # goes to the host
+    _, params, ids = model
+    n = 72
+    _, ecfg = _ecfgs(kv, stale, bs=16, cache=64, new=n)
+    one = OffloadEngine(ecfg, params, dtype=torch.float32, device="cpu")
+    bat = BatchOffloadEngine(ecfg, params, batch_size=1, dtype=torch.float32,
+                             device="cpu")
+    for e in (one, bat):
+        e.selection_log, e.logits_log = [], []
+    want = one.generate(ids, n)
+    assert bat.generate_batch([ids], n)[0] == want
+    assert len(one.logits_log) == len(bat.logits_log) == n
+    for a, b in zip(one.logits_log, bat.logits_log):
+        assert torch.equal(a, b.reshape(a.shape))
+    assert (one.store.hits, one.store.misses) == (bat.store.hits,
+                                                  bat.store.misses)
+    assert one.store.d2h_copies == bat.store.d2h_copies
+    assert one.store.valid[0] == bat._valid[0] > 256
+    # stale mode records its first step, the exact one that seeds it
+    assert len(one.selection_log) == len(bat.selection_log) == (
+        1 if stale else n - 1)
+    for a, b in zip(one.selection_log, bat.selection_log):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def test_generate_ring_on_one_rank_is_the_offload_engine(model):
+    _, params, ids = model
+    _, ecfg = _ecfgs()
+    ring = ShardedOffloadEngine(ecfg, params,
+                                make_mesh(config.ParallelConfig(1, 1),
+                                          device="cpu"),
+                                batch_size=1, dtype=torch.float32)
+    one = OffloadEngine(ecfg, params, dtype=torch.float32, device="cpu")
+    ring.core.logits_log, one.logits_log = [], []
+    assert ring.generate_ring(ids, 12) == one.generate(ids, 12)
+    assert len(ring.core.logits_log) == len(one.logits_log) == 12
+    for a, b in zip(one.logits_log, ring.core.logits_log):
+        assert float((a - b.reshape(a.shape)).abs().max()) <= LOGIT_TOL
+    assert ring.core.store.hits > 0
