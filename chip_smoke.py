@@ -930,26 +930,31 @@ def k3_phase(dev) -> dict:
                 library_ms=None)
 
 
-# the 128k decode cell's one layer: 24 slots x 8 kv heads folded, 514
-# blocks of 256, C 64, g 4, 128 deferred joins of which 77 are live
-JHIST_SHAPE = dict(Hf=192, NB=514, C=64, g=4, block=256, K=128, ring_r=77)
+# one layer of each decode cell and of a single sequence: (folded kv heads,
+# blocks, q heads per kv head); C 64, blocks of 256, 128 deferred joins of
+# which 77 are live. NeMo 128k: 24 slots x 8 kv heads, 514 blocks; Mistral
+# 32k: 52 x 8, 127; Trinity 128k: 80 x 4 at g 8; one 32k sequence: 8 x 1.
+# The first is the kernels line's entry.
+JHIST_SHAPES = {"nemo-128k": (192, 514, 4), "mistral-32k": (416, 127, 4),
+                "trinity-128k": (320, 514, 8), "single-32k": (8, 127, 4)}
+JHIST_C, JHIST_BLOCK, JHIST_K, JHIST_RING_R = 64, 256, 128, 77
 
 
-def jhist_phase(dev) -> dict:
-    """The joint-histogram scorer's kernel at JHIST_SHAPE: a histogram
-    built from skewed codes (the last two rows empty) and a pending span
-    that crosses a block boundary. Held to its plain version at 1e-5
-    relative, bit for bit between two calls, and the block top-k of the
-    cell (52 blocks per folded kv head) the same but at near ties (1e-5 of
-    the boundary's group mass). The timed launches cycle over 2 layers of
-    histogram (808 MB, far above the 50 MB L2), as decode reads each
-    layer's cold. The library yardstick is ``torch.bmm`` of the pair table
-    with an f32 copy of the histogram, the copy included: the plain
-    version's product."""
-    sh = JHIST_SHAPE
-    Hf, NB, C, g, bs, K = (sh[k] for k in ("Hf", "NB", "C", "g", "block",
-                                            "K"))
-    L = 2
+def jhist_shape(dev, name: str) -> dict:
+    """The scorer's kernel at one of JHIST_SHAPES: a histogram built from
+    skewed codes (the last two rows empty) and a pending span that crosses
+    a block boundary. Held to its plain version at 1e-5 relative, bit for
+    bit between two calls, and the block top-k (10% of the blocks per
+    folded kv head) the same but at near ties (1e-5 of the boundary's group
+    mass). The timed launches cycle over enough layers of histogram to
+    pass 100 MB (two at the cells' shapes, 400-1350 MB; 25 for a single
+    sequence), far above the 50 MB L2, as decode reads each layer's cold.
+    The library yardstick is ``torch.bmm`` of the pair table with an f32
+    copy of the histogram, the copy included: the plain version's
+    product."""
+    Hf, NB, g = JHIST_SHAPES[name]
+    C, bs, K = JHIST_C, JHIST_BLOCK, JHIST_K
+    L = max(2, -(-100_000_000 // (Hf * NB * C * C)))
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
     lut = torch.randn((Hf * g, 2, C), generator=gen, device=dev) * 4
     e = pq.jhist_exp_lut(lut, 128)
@@ -962,12 +967,14 @@ def jhist_phase(dev) -> dict:
                                       block=bs))
         del u, codes
     nc = torch.full((Hf,), n_cand, device=dev)
-    pending = ((nc - sh["ring_r"])[:, None] + torch.arange(K, device=dev),
+    pending = ((nc - JHIST_RING_R)[:, None] + torch.arange(K, device=dev),
                torch.randint(0, C, (Hf, 2, K), generator=gen, device=dev),
-               torch.tensor(sh["ring_r"], dtype=torch.int32, device=dev))
+               torch.tensor(JHIST_RING_R, dtype=torch.int32, device=dev))
+    mma0 = jhist_block_mass.mma_launches
     got = jhist_block_mass(e, Js[0], pending, block=bs)
     again = jhist_block_mass(e, Js[0], pending, block=bs)
     torch.cuda.synchronize()
+    mma = jhist_block_mass.mma_launches - mma0
     ref = jhist_block_mass_ref(e, Js[0], pending, block=bs)
     err = (got - ref).abs().max().item()
     rel = ((got - ref).abs() / ref.abs().clamp(min=1e-30)).max().item()
@@ -975,8 +982,8 @@ def jhist_phase(dev) -> dict:
 
     def blocks(m):
         m = m / m.sum(-1, keepdim=True).clamp(min=1e-30)
-        return torch.sort(pq.topk_from_block_mass(m, nc, 52 * bs, group=g,
-                                                  block=bs), -1).values
+        return torch.sort(pq.topk_from_block_mass(
+            m, nc, max(1, NB // 10) * bs, group=g, block=bs), -1).values
     a, b = blocks(got), blocks(ref)
     gm = (ref / ref.sum(-1, keepdim=True)).reshape(Hf, g, NB).sum(1)
     partings = 0
@@ -984,14 +991,15 @@ def jhist_phase(dev) -> dict:
         alone = sorted(set(a[row].tolist()) ^ set(b[row].tolist()))
         v = gm[row, alone]
         if (v.max() - v.min()).item() > 1e-5 * v.max().item():
-            raise SystemExit(f"jhist: folded head {row} selects {alone} "
-                             f"apart from its plain version")
+            raise SystemExit(f"jhist {name}: folded head {row} selects "
+                             f"{alone} apart from its plain version")
         partings += 1
-    log(f"jhist: max_abs_err {err:.3e}, {rel:.3e} relative (tol 1e-5); two "
-        f"calls bitwise equal: {same_bits}; block top-k identical but "
-        f"{partings} near ties of {Hf} folded heads")
-    if not rel <= 1e-5 or not same_bits:
-        raise SystemExit("jhist disagrees with its plain version")
+    log(f"jhist {name} (Hf {Hf}, NB {NB}, g {g}): max_abs_err {err:.3e}, "
+        f"{rel:.3e} relative (tol 1e-5); two calls bitwise equal: "
+        f"{same_bits}; block top-k identical but {partings} near ties of "
+        f"{Hf} folded heads; {mma} of 2 launches on the tensor cores")
+    if not rel <= 1e-5 or not same_bits or mma != 2:
+        raise SystemExit(f"jhist {name} disagrees with its plain version")
     layer = iter(range(10 ** 9))
     ms = graph_ms(lambda: jhist_block_mass(e, Js[next(layer) % L], pending,
                                            block=bs), 4 * L)
@@ -1004,9 +1012,9 @@ def jhist_phase(dev) -> dict:
         e, Js[next(layer) % L], pending, block=bs), 40, warmup=4)
     nbytes = Js[0].numel() + e.numel() * 4 + got.numel() * 4
     bound_ms = nbytes / PEAK_BYTES * 1e3
-    log(f"jhist: kernel {ms * 1e3:.1f} us of device time per call, histogram "
-        f"cold ({nbytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%} of its "
-        f"bound), {call_ms * 1e3:.1f} us per call from Python; plain "
+    log(f"jhist {name}: kernel {ms * 1e3:.1f} us of device time per call, "
+        f"histogram cold ({nbytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%} "
+        f"of its bound), {call_ms * 1e3:.1f} us per call from Python; plain "
         f"{plain_ms * 1e3:.1f} us; library (f32 copy + torch.bmm) "
         f"{lib_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.1f} us (bytes)")
     del Js, pair, got, again, ref
@@ -1014,9 +1022,16 @@ def jhist_phase(dev) -> dict:
     return dict(name="jhist_block_mass", route="cuda",
                 source="pqcache_tpu_torch/csrc/jhist_mass.cu",
                 replaces="none: pqcache_tpu/core/pq.py:498 (XLA einsum)",
-                max_abs_err=err, max_row_rel_err=rel, ms=ms, call_ms=call_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                library_ms=lib_ms)
+                shape=name, max_abs_err=err, max_row_rel_err=rel, ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=lib_ms, mma_launches=mma)
+
+
+def jhist_phase(dev) -> dict:
+    """The scorer's kernel at every one of JHIST_SHAPES (jhist_shape);
+    returns the first shape's entry, the 128k cell's layer."""
+    entries = [jhist_shape(dev, name) for name in JHIST_SHAPES]
+    return entries[0]
 
 
 def k6_phase(dev) -> dict:

@@ -150,19 +150,7 @@ __device__ __forceinline__ void ldsm4_t(uint32_t a, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
-// c[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, f32 out. Lane (j, t) = (lane
-// / 4, lane % 4) holds a0: A row j, k 2t + {0, 1}; a1: row j + 8; a2, a3:
-// the same at k + 8; b0: B column j, k 2t + {0, 1}; b1: k + 8; c[0], c[1]:
-// row j, columns 2t + {0, 1}; c[2], c[3]: row j + 8
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-// the same with f16 A and B
+// mma16816 (mma_sm90.cuh) with f16 A and B
 __device__ __forceinline__ void mma16816h(float (&c)[4], uint32_t a0, uint32_t a1,
                                           uint32_t a2, uint32_t a3, uint32_t b0,
                                           uint32_t b1) {

@@ -5,7 +5,8 @@
 // the uint8 -> f32 convert into the dot; the port's plain version
 // (ops/jhist.py::jhist_block_mass_ref) copies the histogram to f32 and runs
 // an f32 GEMM. For one layer:
-//   e      [Hf * g, 2, C] f32    exp-LUT factors (core/pq.py::jhist_exp_lut)
+//   e      [Hf * g, 2, C] f32    exp-LUT factors in [0, 1]
+//                                (core/pq.py::jhist_exp_lut)
 //   J      [Hf, NB, C * C] uint8 joint code histogram, read in place
 //   pending (optional): pos [Hf, K] int64 tail positions and codes
 //          [Hf, 2, K] int64 of the joins the histogram does not count yet,
@@ -14,49 +15,79 @@
 //   mass[h, n] = sum_c0 e0[h, c0] * sum_c1 e1[h, c1] * J[kv(h), n, c0 C + c1]
 //              + sum_{t < ring_r, clamp(pos_t / block, 0, NB - 1) == n}
 //                    e0[h, code0_t] * e1[h, code1_t]
-// The pair table e0 x e1 is never built: the factored sum reads 2 C floats a
-// head and does half the operations. Counts convert to floats exactly and
-// every sum is f32 (exact products while e1 >= 2^-103; the factors are at
-// most 1, as jhist_exp_lut gives them). The pending terms are summed in order t = 0 .. K - 1 and
-// then added to the histogram's sum, as the plain version adds its one-hot
-// product; every sum runs in a fixed order, so two calls agree bit for bit.
+// The pair table e0 x e1 is never built: per folded kv head and row n,
+//   T[c0, h] = sum_c1 J_n[c0, c1] e1[h, c1]      on the tensor cores,
+//   mass[h, n] = sum_c0 e0[h, c0] T[c0, h]       64 FFMAs a head at C 64.
+// The pending terms are summed in order t = 0 .. K - 1 and then added to
+// the histogram's sum, as the plain version adds its one-hot product; every
+// sum runs in a fixed order, so two calls agree bit for bit.
 //
-// What bounds it: the histogram's bytes. Each byte feeds g FFMAs (8 FLOP a
-// byte at g 4), far below the ~295 FLOP a byte where the tensor cores would
-// matter, and a bf16 product would round the f32 factors. At the 128k decode
-// cell (192 folded kv heads x 514 blocks x 4096 bytes) one layer streams
-// 404 MB: 0.121 ms at 3.35 TB/s. The FFMAs, one byte permute a byte and the
-// loads' bookkeeping come to about 7 instructions a byte, which the SMs
-// issue in about 0.09 ms of the same layer: the kernel has to overlap its
-// arithmetic with the stream to approach the bound.
+// What bounds it: the histogram's bytes. At the 128k decode cell (192
+// folded kv heads x 514 blocks x 4096 bytes) one layer streams 404 MB:
+// 0.121 ms at 3.35 TB/s. The version before this one contracted on the CUDA
+// cores, g FFMAs, a byte permute and load bookkeeping for every byte (about
+// 7 instructions a byte at g 4): it could not issue them fast enough to
+// overlap the stream and read 54-60% of the bytes (34% at g 8). On the
+// tensor cores a byte costs half a byte permute and 3 / 256 of an MMA
+// (mma.sync m16n8k16, 48 a 4 KB row), about 1.2 instructions a byte in all,
+// and the kernel streams: on an H100 SXM at 700 W, 0.144-0.147 ms for that
+// layer, cold (82-86% of the bytes), 77-79% at the 32k cell's 127 rows a
+// head, whose short CTAs spend more of their time starting.
+//
+// The product T = J_n e1 as m16n8k16 MMAs: M = c0 (C / 16 tiles), K = c1
+// (C / 16 tiles), N = 8 heads (the g of the group, the rest zero).
+// - Operand layout. The K index may be permuted at will if B's rows follow
+//   it: lane (grp = lane / 4, t = lane % 4) takes the c1 of its A fragments
+//   as V consecutive bytes, c1 in [64 j + t V, 64 j + t V + V), V =
+//   min(16, C / 4); the 4 bytes of its k-tile's word w are its fragment's
+//   k slots 2t, 2t + 1 (bytes 0, 1) and 2t + 8, 2t + 9 (bytes 2, 3). Its
+//   rows are c0 = grp and grp + 8 of each m tile. So a warp's load of a row
+//   covers 8 c0 rows of 4 V bytes each, contiguous at C <= 64: one 16-byte
+//   copy a lane, 512 bytes a warp, at the 128k cell.
+// - The counts, exactly. A byte b zero-extended to 16 bits is the bf16
+//   b 2^-133 for every b in 0..255 (a subnormal below 128, a normal at 128
+//   and above; the tensor cores keep both): one byte permute makes two
+//   A elements, no conversion.
+// - The factors at f32 precision. e1 2^126 is cut into three bf16 pieces,
+//   hi + mid + lo, each the next 8 bits of the significand, truncated:
+//   each residual is exact, and 3 x 8 bits hold f32's 24
+//   (ops/jhist.py::split_factors is the plain twin). The pieces keep f32's
+//   exponent range, and every nonzero piece is a normal bf16 (e1 2^126 >=
+//   2^-23). A count times a piece has at most 16 significant bits: exact
+//   in the MMA, whose sums are f32. Each k tile takes three MMAs, one a
+//   piece (lo, mid, hi), into one accumulator.
+// - Scale. Each product is (b e1 2^126) 2^-133 = b e1 2^-7, so T is 2^-7
+//   of the true sum: normal while e1 >= 2^-119, and e0 is held as e0 2^7 to
+//   give mass unscaled.
+// - Rows past C (C < 16) meet zero e0 and columns past C zero B, so
+//   whatever their slots hold (finite: a byte read as a bf16 is finite)
+//   adds nothing: one body for every C in 2..256.
 //
 // Design:
 // - A CTA of NWARPS warps takes one folded kv head and a tile of rows, rpw
-//   contiguous rows a warp (a head's last tile may be shorter). The CTA
-//   stages the head's factors in shared memory, e0 as [C][G] (one 16-byte
-//   load gives 4 heads' factors of a c0) and e1 as [G][C].
-// - A lane reads V consecutive bytes of a row at a time (16, or 8 where 8
-//   heads need the registers): one c0 and V consecutive c1. The lanes of a
-//   row take fixed columns, so each lane holds its V x G e1 factors in
-//   registers, and a load costs V byte permutes, V x G FFMAs into per-head
-//   partial sums and G FFMAs by e0. A byte becomes a float without a
-//   conversion: its bits as a float are x 2^-149, exactly, and with e1
-//   held as e1 2^126 each product is e1 x 2^-23, exactly.
-// - Loads are cp.async copies into a per-lane ring of DEPTH slots in shared
-//   memory, AHEAD loads ahead: a lane reads back only what it copied, so it
-//   needs no barrier, and the bytes in flight cost no registers. A lane sums
-//   two loads at a time, in independent chains.
-// - The first copies fly while the CTA stages the factors; the pending
-//   joins' positions and codes are loaded with the factors, in the same
-//   round trip, and read after the rows.
-// - At a row's end its lanes sum across the warp (shuffles, a fixed tree),
-//   and the row's sums go to shared memory. The CTA then adds the pending
-//   terms of its rows (only a CTA whose rows hold a pending join loops over
-//   them) and writes its outputs, coalesced along the rows.
+//   contiguous rows a warp (a head's last warps may have fewer). The CTA
+//   stages the head's factors in shared memory: B's fragments
+//   [k tile][piece][lane], e0 2^7 as [c0][8] (a float2 gives the lane's two
+//   heads of a c0) and e1 [8][C] for the pending terms.
+// - A warp walks its rows in units of at most UNIT loads a lane: at C <= 64
+//   one row, above it MG m tiles of a row, every k tile. Loads are cp.async
+//   copies into a per-lane ring of DEPTH slots in shared memory, AHEAD
+//   loads ahead: a lane reads back only what it copied, so it needs no
+//   barrier, and the bytes in flight cost no registers. The first copies
+//   fly while the CTA stages the factors; the pending joins' positions and
+//   codes are loaded with the factors and read after the rows.
+// - A unit's MG m tiles are independent accumulator chains. At a unit's end
+//   each lane dots its rows of T with e0 (4 FFMAs an m tile); at a row's
+//   end the 8 lanes of a head pair sum across the warp (shuffles, a fixed
+//   tree) and the row's sums go to shared memory. The CTA then adds the
+//   pending terms of its rows (only a CTA whose rows hold a pending join
+//   loops over them) and writes its outputs, coalesced along the rows.
 // - The grid is sized from the SM count and the bytes: rows per warp so that
-//   the grid makes about WAVES waves of CTAS_PER_SM CTAs an SM.
+//   the grid makes about WAVES waves of CTAS_PER_SM CTAs an SM, evened out
+//   over a head's tiles. Small CTAs, many to an SM (4 warps, 5 CTAs), keep
+//   more warps streaming than 8-warp CTAs whose rings and registers allow 2.
 // Every row is read, the zero rows past a slot's candidates too.
-// C = 2 rows (4 bytes) are too narrow for cp.async: V 2 loads synchronously.
+// C = 2 (2-byte runs) is too narrow for cp.async: V 2 loads synchronously.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,15 +96,34 @@
 
 namespace {
 
-constexpr int NWARPS = 8;
+constexpr int NWARPS = 4;
 constexpr int THREADS = 32 * NWARPS;
-constexpr int DEPTH = 8;           // loads per lane in the ring
-constexpr int AHEAD = DEPTH - 2;   // copies in flight ahead of the sums
-constexpr int CTAS_PER_SM = 2;
-constexpr int WAVES = 8;           // waves of CTAs the grid aims at
-constexpr int MAX_RPW = 16;        // rows per warp
-constexpr int MAX_K = 1024;        // pending joins
+constexpr int UNIT = 8;              // most loads of a lane a unit sums
+constexpr int AHEAD = 8;             // copies in flight ahead of the unit
+constexpr int DEPTH = UNIT + AHEAD;  // ring slots a lane, 16 bytes each
+constexpr int SLOT = 16;
+constexpr int HEADS = 8;             // the MMA's N: a group's heads, padded
+constexpr int PIECES = 3;            // bf16 pieces of an f32 factor
+constexpr int CTAS_PER_SM = 5;      // 20 warps an SM, at most 102 registers
+constexpr int WAVES = 8;             // waves of CTAs the grid aims at
+constexpr int MAX_RPW = 16;          // rows per warp
+constexpr int MAX_K = 1024;          // pending joins
 constexpr int SMEM_DEFAULT = 48 * 1024;
+constexpr float E1_SCALE = 0x1p126f; // B = e1 2^126; a count is b 2^-133
+constexpr float E0_SCALE = 0x1p7f;   // so T is 2^-7 of the true sum
+
+// The walk over one row of C x C counts
+template <int C>
+struct Walk {
+  static constexpr int V = C >= 64 ? 16 : C >= 16 ? C / 4 : (C < 4 ? C : 4);
+  static constexpr int J = C > 64 ? C / 64 : 1;   // copies of a c0 row
+  static constexpr int MT = C > 16 ? C / 16 : 1;  // m tiles (c0), k tiles (c1)
+  static constexpr int WPL = V >= 4 ? V / 4 : 1;  // 32-bit words a copy
+  static constexpr int NL = 2 * MT * J;           // copies of a row, a lane
+  static constexpr int UL = NL < UNIT ? NL : UNIT;
+  static constexpr int MG = UL / (2 * J);         // m tiles of a unit
+  static constexpr int UPR = NL / UL;             // units of a row
+};
 
 template <int V> struct Vec;
 template <> struct Vec<16> { using T = uint4; };
@@ -107,7 +157,7 @@ __device__ __forceinline__ void wait_ahead() {
 
 // the V bytes of a slot as 32-bit words (V 2: one half word)
 template <int V>
-__device__ __forceinline__ void read_slot(const void* slot, uint32_t (&w)[(V + 3) / 4]) {
+__device__ __forceinline__ void read_slot(const void* slot, uint32_t (&w)[V >= 4 ? V / 4 : 1]) {
   const typename Vec<V>::T v = *static_cast<const typename Vec<V>::T*>(slot);
   if constexpr (V == 16) {
     w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
@@ -118,68 +168,67 @@ __device__ __forceinline__ void read_slot(const void* slot, uint32_t (&w)[(V + 3
   }
 }
 
-// the G factors e0[., c0] of a shared [C][G] table
-template <int G>
-__device__ __forceinline__ void load_e0(const float* e0s, int c0, float (&z)[G]) {
-  if constexpr (G % 4 == 0) {
+// x = sum of the three bf16 bit patterns p, exactly: each piece is the
+// residual cut to its top 16 bits (sign, exponent, 7 bits), so each
+// subtraction is exact and the third residual has at most 8 bits
+__device__ __forceinline__ void split_factor(float x, uint32_t (&p)[PIECES]) {
 #pragma unroll
-    for (int q = 0; q < G / 4; ++q) {
-      const float4 t = reinterpret_cast<const float4*>(e0s + c0 * G)[q];
-      z[4 * q] = t.x; z[4 * q + 1] = t.y; z[4 * q + 2] = t.z; z[4 * q + 3] = t.w;
-    }
-  } else if constexpr (G == 2) {
-    const float2 t = reinterpret_cast<const float2*>(e0s)[c0];
-    z[0] = t.x; z[1] = t.y;
-  } else {
-    z[0] = e0s[c0];
+  for (int q = 0; q < PIECES; ++q) {
+    const uint32_t top = __float_as_uint(x) & 0xffff0000u;
+    p[q] = top >> 16;
+    x -= __uint_as_float(top);
   }
 }
 
-// Shared memory: the lanes' rings, e0 [C][G], e1 [G][C], the rows' sums
-// [G][tile], the pending joins' local rows and codes [K] each.
-template <int V>
-__host__ __device__ constexpr int ring_bytes() {
-  return NWARPS * DEPTH * 32 * V;
-}
+// Shared memory: the lanes' rings, B [k tile][piece][lane] (uint2), e0
+// [16 MT][8], e1 [8][C], the rows' sums [8][tile], the pending joins'
+// local rows and codes [K] each.
+constexpr int RING_BYTES = NWARPS * DEPTH * 32 * SLOT;
 
-template <int V, int G>
+template <int C>
 __global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
-jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, int g, int C,
+jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, int g,
                   int NB, int rpw, const int64_t* __restrict__ pos,
                   const int64_t* __restrict__ codes, const int* __restrict__ ring_r, int K,
                   int block, float* __restrict__ out) {
+  using W = Walk<C>;
+  constexpr int R = C * C, KT = W::MT, CP = 16 * W::MT;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int R = C * C;
-  const int LPR = min(32, R / V);        // lanes of a row
-  const int IT = max(1, R / (32 * V));   // loads a lane makes of a row
   // tile b of a head: rows [b tile, (b + 1) tile), rpw a warp
   const int tile = NWARPS * rpw;
   const int hk = blockIdx.y;
   const int tile0 = blockIdx.x * tile;
   const int nrows = min(tile, NB - tile0);
-  float* e0s = reinterpret_cast<float*>(smem + ring_bytes<V>());
-  float* e1s = e0s + C * G;
-  float* res = e1s + G * C;
-  int* pcol = reinterpret_cast<int*>(res + G * tile);
+  uint2* bs = reinterpret_cast<uint2*>(smem + RING_BYTES);
+  float* e0s = reinterpret_cast<float*>(bs + KT * PIECES * 32);
+  float* e1s = e0s + CP * HEADS;
+  float* res = e1s + HEADS * C;
+  int* pcol = reinterpret_cast<int*>(res + HEADS * tile);
   int* pcode = pcol + K;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, t = lane & 3;
 
-  // This warp's rows are contiguous, and each load of the warp covers 32 V
-  // bytes of them: load k of a lane reads the V bytes at k 32 V + lane V
-  // of the warp's span. Its first copies fly while the CTA stages the
-  // factors.
+  // This warp's rows are contiguous. Copy k of a lane is copy l of unit u
+  // of its row: m tile pair i / 2 of the unit, c0 = 8 i + grp, chunk j of
+  // the c0 row, V bytes at c1 = 64 j + t V. Its first copies fly while the
+  // CTA stages the factors.
   const int r0 = warp * rpw;
   const int rows_w = max(0, min(rpw, nrows - r0));
-  const int span = rows_w * R, off = lane * V;
-  const int n_vec = (span + 32 * V - 1) / (32 * V);
-  const uint8_t* src = J + ((size_t)hk * NB + tile0 + r0) * R + off;
-  unsigned char* ring = smem + ((size_t)warp * DEPTH * 32 + lane) * V;
+  const int n_copy = rows_w * W::NL;
+  const uint8_t* src = J + ((size_t)hk * NB + tile0 + r0) * R;
+  unsigned char* ring = smem + ((size_t)warp * DEPTH * 32 + lane) * SLOT;
   auto issue = [&](int k) {
-    if (k < n_vec && k * 32 * V + off < span)
-      copy_in<V>(ring + (k % DEPTH) * 32 * V, src + (size_t)k * 32 * V);
-    if constexpr (V >= 4) commit();
+    if (k < n_copy) {
+      const int row = k / W::NL, kr = k % W::NL;
+      const int u = kr / W::UL, l = kr % W::UL;
+      const int c0 = 8 * (2 * u * W::MG + l / W::J) + grp;
+      const int c1 = 64 * (l % W::J) + t * W::V;
+      if (c0 < C && c1 < C)
+        copy_in<W::V>(ring + (k % DEPTH) * 32 * SLOT, src + (size_t)row * R + c0 * C + c1);
+    }
+    if constexpr (W::V >= 4) commit();
   };
-#pragma unroll
+#pragma unroll 1
   for (int k = 0; k < AHEAD; ++k) issue(k);
 
   // the pending joins' ring count, positions and codes (their low words)
@@ -195,120 +244,118 @@ jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, in
       p_b = codes32[2 * (((size_t)hk * 2 + 1) * K + tid)];
     }
   }
-  for (int i = tid; i < G * C; i += THREADS) {
-    const int h = i / C, c = i - h * C;
-    float a = 0.f, b = 0.f;
-    if (h < g) {
-      const float* eh = e + ((size_t)hk * g + h) * 2 * C;
-      a = eh[c];
-      b = eh[C + c];
+  // e0 2^7 [CP][8] and e1 [8][C], zero past g and past C
+  const float* eh = e + (size_t)hk * g * 2 * C;
+  for (int i = tid; i < CP * HEADS; i += THREADS) {
+    const int c = i / HEADS, h = i % HEADS;
+    e0s[i] = h < g && c < C ? eh[h * 2 * C + c] * E0_SCALE : 0.f;
+  }
+  for (int i = tid; i < HEADS * C; i += THREADS) {
+    const int h = i / C, c = i % C;
+    e1s[i] = h < g ? eh[h * 2 * C + C + c] : 0.f;
+  }
+  __syncthreads();
+  // B's fragments: lane ln's k slots 2 tl + 8 r + {0, 1} of k tile kt are
+  // bytes 2 r + {0, 1} of its word kt % WPL of chunk kt / WPL, i.e. c1 =
+  // 64 j + tl V + 4 w + 2 r + {0, 1}, for head ln / 4
+  for (int i = tid; i < KT * 32 * 2; i += THREADS) {
+    const int r = i & 1, ln = (i >> 1) & 31, kt = i >> 6;
+    const int h = ln >> 2, tl = ln & 3, w = kt % W::WPL;
+    uint32_t word[PIECES] = {0u, 0u, 0u};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int b = 4 * w + 2 * r + half;
+      const int c1 = 64 * (kt / W::WPL) + tl * W::V + b;
+      uint32_t p[PIECES];
+      split_factor(b < W::V && c1 < C ? e1s[h * C + c1] * E1_SCALE : 0.f, p);
+#pragma unroll
+      for (int q = 0; q < PIECES; ++q) word[q] |= p[q] << (16 * half);
     }
-    e0s[c * G + h] = a;
-    e1s[h * C + c] = b;
+#pragma unroll
+    for (int q = 0; q < PIECES; ++q)
+      reinterpret_cast<uint32_t*>(bs + (kt * PIECES + q) * 32 + ln)[r] = word[q];
   }
   __syncthreads();
 
-  // this lane's columns [c1b, c1b + V) of c0 = c0b + i dc0 at its i-th
-  // load of a row. A byte taken as a float's bits is x 2^-149, exactly; e1
-  // held as e1 2^126 makes each product e1 x 2^-23 exactly (normal while
-  // e1 >= 2^-103), so the sums are the unscaled sums' roundings, 2^-23
-  // times, and a row's sum is scaled back by 2^23: no conversion op
-  const int sub = lane % LPR;
-  const int c1b = (sub * V) % C, c0b = (sub * V) / C, dc0 = LPR * V / C;
-  float e1r[G][V];
-#pragma unroll
-  for (int h = 0; h < G; ++h)
-#pragma unroll
-    for (int j = 0; j < V; ++j) e1r[h][j] = e1s[h * C + c1b + j] * 0x1p126f;
-
-  // Row steps of RPS rows (one row where a row spans the warp), each of
-  // IT loads a lane, summed two loads at a time where IT allows: the pair's
-  // partial sums are independent chains. Copies run AHEAD loads ahead, so
-  // that a pair's two copies land in the slots of the two loads before it.
-  const int RPS = 32 / LPR;
-  const int steps = (rows_w + RPS - 1) / RPS;
-  int k = 0;                             // the lane's next load
-  auto fetch = [&](int at, bool live, uint32_t (&w)[(V + 3) / 4]) {
-    read_slot<V>(ring + (at % DEPTH) * 32 * V, w);
-    if (!live) {
-#pragma unroll
-      for (int j = 0; j < (V + 3) / 4; ++j) w[j] = 0u;
-    }
-  };
-  auto sum = [&](const uint32_t (&w)[(V + 3) / 4], int i, float (&acc)[G]) {
-    float z[G];
-    load_e0<G>(e0s, c0b + i * dc0, z);
-    float p[G];
-#pragma unroll
-    for (int h = 0; h < G; ++h) p[h] = 0.f;
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const float x = __uint_as_float(__byte_perm(w[j / 4], 0u, 0x4440u | (j % 4)));
-#pragma unroll
-      for (int h = 0; h < G; ++h) p[h] = fmaf(e1r[h][j], x, p[h]);
-    }
-#pragma unroll
-    for (int h = 0; h < G; ++h) acc[h] = fmaf(z[h], p[h], acc[h]);
-  };
+  // Units of UL copies: issue the unit's share of copies AHEAD ahead, wait
+  // for its own, and multiply. A byte zero-extended to 16 bits is the bf16
+  // b 2^-133: a0 / a2 are bytes 0-1 / 2-3 of the c0 = grp word, a1 / a3 of
+  // the grp + 8 word.
+  const float2* e0p = reinterpret_cast<const float2*>(e0s);
+  float s0 = 0.f, s1 = 0.f;              // heads 2t, 2t + 1 of the row
+  const int n_unit = rows_w * W::UPR;
 #pragma unroll 1
-  for (int st = 0; st < steps; ++st) {
-    const int rl = st * RPS + lane / LPR;
-    const bool live = rl < rows_w;
-    float acc[G];
+  for (int u = 0; u < n_unit; ++u) {
 #pragma unroll
-    for (int h = 0; h < G; ++h) acc[h] = 0.f;
-    if (IT == 1) {
-      issue(k + AHEAD);
-      wait_ahead<V>();
-      uint32_t w[(V + 3) / 4];
-      fetch(k, live, w);
-      sum(w, 0, acc);
-      ++k;
-    } else {
-#pragma unroll 1
-      for (int i = 0; i < IT; i += 2, k += 2) {
-        issue(k + AHEAD);
-        issue(k + AHEAD + 1);
-        wait_ahead<V>();
-        uint32_t wa[(V + 3) / 4], wb[(V + 3) / 4];
-        fetch(k, live, wa);
-        fetch(k + 1, live, wb);
-        float acc_b[G];
+    for (int l = 0; l < W::UL; ++l) issue(u * W::UL + AHEAD + l);
+    wait_ahead<W::V>();
+    uint32_t wd[W::UL][W::WPL];
 #pragma unroll
-        for (int h = 0; h < G; ++h) acc_b[h] = 0.f;
-        sum(wa, i, acc);
-        sum(wb, i + 1, acc_b);
+    for (int l = 0; l < W::UL; ++l)
+      read_slot<W::V>(ring + ((u * W::UL + l) % DEPTH) * 32 * SLOT, wd[l]);
+    float acc[W::MG][4];
 #pragma unroll
-        for (int h = 0; h < G; ++h) acc[h] += acc_b[h];
+    for (int m = 0; m < W::MG; ++m)
+      acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      uint2 b[PIECES];
+#pragma unroll
+      for (int q = 0; q < PIECES; ++q) b[q] = bs[(kt * PIECES + q) * 32 + lane];
+      const int j = kt / W::WPL, w = kt % W::WPL;
+#pragma unroll
+      for (int m = 0; m < W::MG; ++m) {
+        const uint32_t lo = wd[2 * m * W::J + j][w], hi = wd[(2 * m + 1) * W::J + j][w];
+        const uint32_t a0 = __byte_perm(lo, 0u, 0x4140u), a1 = __byte_perm(hi, 0u, 0x4140u);
+        const uint32_t a2 = __byte_perm(lo, 0u, 0x4342u), a3 = __byte_perm(hi, 0u, 0x4342u);
+#pragma unroll
+        for (int q = PIECES - 1; q >= 0; --q)
+          mma16816(acc[m], a0, a1, a2, a3, b[q].x, b[q].y);
       }
     }
-    // the step's rows, each summed over its LPR lanes in a fixed tree
+    // the unit's rows of T (c0 = 16 mt + grp, + 8; heads 2t, 2t + 1)
+    // against e0
+    const int mt0 = (u % W::UPR) * W::MG;
 #pragma unroll
-    for (int h = 0; h < G; ++h) {
-      for (int o = LPR / 2; o > 0; o >>= 1)
-        acc[h] += __shfl_xor_sync(0xffffffffu, acc[h], o);
+    for (int m = 0; m < W::MG; ++m) {
+      const int c0 = 16 * (mt0 + m) + grp;
+      const float2 za = e0p[c0 * (HEADS / 2) + t], zb = e0p[(c0 + 8) * (HEADS / 2) + t];
+      s0 = fmaf(za.x, acc[m][0], s0);
+      s0 = fmaf(zb.x, acc[m][2], s0);
+      s1 = fmaf(za.y, acc[m][1], s1);
+      s1 = fmaf(zb.y, acc[m][3], s1);
     }
-    if (sub == 0 && live) {
+    if (u % W::UPR == W::UPR - 1) {
+      // the row's sums over the 8 lanes of each head pair, in a fixed tree
 #pragma unroll
-      for (int h = 0; h < G; ++h) res[h * tile + r0 + rl] = acc[h] * 0x1p23f;
+      for (int o = 4; o < 32; o <<= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      const int rl = r0 + u / W::UPR;
+      if (grp == 0) {
+        if (2 * t < g) res[2 * t * tile + rl] = s0;
+        if (2 * t + 1 < g) res[(2 * t + 1) * tile + rl] = s1;
+      }
+      s0 = s1 = 0.f;
     }
   }
   // the pending joins of this tile's rows: their local row (or -1) and
   // codes
   int any = 0;
-  for (int t = tid; t < K; t += THREADS) {
-    if (t >= THREADS) {
-      p_pos = pos32[2 * ((size_t)hk * K + t)];
-      p_a = codes32[2 * ((size_t)hk * 2 * K + t)];
-      p_b = codes32[2 * (((size_t)hk * 2 + 1) * K + t)];
+  for (int i = tid; i < K; i += THREADS) {
+    if (i >= THREADS) {
+      p_pos = pos32[2 * ((size_t)hk * K + i)];
+      p_a = codes32[2 * ((size_t)hk * 2 * K + i)];
+      p_b = codes32[2 * (((size_t)hk * 2 + 1) * K + i)];
     }
     int col = -1;
-    if (t < rr) {
+    if (i < rr) {
       const int c = min(max(p_pos, 0) / block, NB - 1);
       if (c >= tile0 && c < tile0 + nrows) col = c - tile0;
     }
-    pcol[t] = col;
-    pcode[t] = min(max(p_a, 0), C - 1) | (min(max(p_b, 0), C - 1) << 16);
+    pcol[i] = col;
+    pcode[i] = min(max(p_a, 0), C - 1) | (min(max(p_b, 0), C - 1) << 16);
     any |= col >= 0;
   }
   any = __syncthreads_or(any);
@@ -318,10 +365,11 @@ jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, in
     float v = res[h * tile + r];
     if (any) {
       float s = 0.f;
-      for (int t = 0; t < K; ++t) {
-        if (pcol[t] == r) {
-          const int pc = pcode[t];
-          s = __fadd_rn(s, __fmul_rn(e0s[(pc & 0xffff) * G + h], e1s[h * C + (pc >> 16)]));
+      for (int k = 0; k < K; ++k) {
+        if (pcol[k] == r) {
+          const int pc = pcode[k];
+          const float z = e0s[(pc & 0xffff) * HEADS + h] * (1.f / E0_SCALE);
+          s = __fadd_rn(s, __fmul_rn(z, e1s[h * C + (pc >> 16)]));
         }
       }
       v = __fadd_rn(v, s);
@@ -330,24 +378,25 @@ jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, in
   }
 }
 
-template <int V, int G>
-cudaError_t launch(const float* e, const uint8_t* J, int Hf, int g, int C, int NB,
+template <int C>
+cudaError_t launch(const float* e, const uint8_t* J, int Hf, int g, int NB,
                    const int64_t* pos, const int64_t* codes, const int* ring_r, int K,
                    int block, float* out, cudaStream_t st) {
-  if (reinterpret_cast<uintptr_t>(J) % V) return cudaErrorMisalignedAddress;
+  using W = Walk<C>;
+  if (reinterpret_cast<uintptr_t>(J) % W::V) return cudaErrorMisalignedAddress;
   // rows per warp: the bytes over about WAVES waves of CTAS_PER_SM CTAs an
-  // SM, a whole number of row steps, at most MAX_RPW and no more than a
-  // head's rows need
-  const int R = C * C, RPS = 32 / min(32, R / V);
+  // SM, at most MAX_RPW, then evened out over a head's tiles
+  const int R = C * C;
   const double per_warp = (double)Hf * NB * R /
                           ((double)sm_count() * CTAS_PER_SM * NWARPS * WAVES);
-  int rpw = max(1, min((int)((per_warp + R - 1) / R),
-                       min(MAX_RPW, (NB + NWARPS - 1) / NWARPS)));
-  rpw = (rpw + RPS - 1) / RPS * RPS;
+  int rpw = max(1, min((int)((per_warp + R - 1) / R), MAX_RPW));
+  const int tiles = (NB + NWARPS * rpw - 1) / (NWARPS * rpw);
+  rpw = (NB + tiles * NWARPS - 1) / (tiles * NWARPS);
   const int tile = NWARPS * rpw;
-  const int smem = ring_bytes<V>() + (int)sizeof(float) * (2 * C * G + G * tile) +
+  const int smem = RING_BYTES + (int)sizeof(uint2) * W::MT * PIECES * 32 +
+                   (int)sizeof(float) * (16 * W::MT * HEADS + HEADS * C + HEADS * tile) +
                    (int)sizeof(int) * 2 * K;
-  auto kernel = jhist_mass_kernel<V, G>;
+  auto kernel = jhist_mass_kernel<C>;
   if (smem > SMEM_DEFAULT) {
     // allowed once per process and instantiation, so that a launch inside a
     // CUDA-graph capture makes no attribute call
@@ -355,51 +404,38 @@ cudaError_t launch(const float* e, const uint8_t* J, int Hf, int g, int C, int N
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin_smem());
     if (attr != cudaSuccess) return attr;
   }
-  kernel<<<dim3((NB + tile - 1) / tile, Hf), THREADS, smem, st>>>(
-      e, J, g, C, NB, rpw, pos, codes, ring_r, K, block, out);
+  kernel<<<dim3(tiles, Hf), THREADS, smem, st>>>(
+      e, J, g, NB, rpw, pos, codes, ring_r, K, block, out);
   return cudaGetLastError();
-}
-
-template <int G>
-cudaError_t by_width(const float* e, const uint8_t* J, int Hf, int g, int C, int NB,
-                     const int64_t* pos, const int64_t* codes, const int* ring_r, int K,
-                     int block, float* out, cudaStream_t st) {
-#define PQ_ARGS e, J, Hf, g, C, NB, pos, codes, ring_r, K, block, out, st
-  // V: one c0's run of bytes, at most 16 (8 at G 8: V x G factors in
-  // registers)
-  const int V = min(C, G <= 4 ? 16 : 8);
-  switch (V) {
-    case 16:
-      if constexpr (G <= 4) return launch<16, G>(PQ_ARGS);
-      return cudaErrorInvalidValue;
-    case 8: return launch<8, G>(PQ_ARGS);
-    case 4: return launch<4, G>(PQ_ARGS);
-    case 2: return launch<2, G>(PQ_ARGS);
-    default: return cudaErrorInvalidValue;
-  }
-#undef PQ_ARGS
 }
 
 }  // namespace
 
-// e [Hf * g, 2, C] f32, J [Hf, NB, C * C] uint8, out [Hf * g, NB] f32, all
-// contiguous; C a power of two in [2, 256], 1 <= g <= 8. Pending joins: pos
-// [Hf, K] and codes [Hf, 2, K] int64 contiguous, ring_r one int32 on the
-// device, 1 <= block; K 0 (and null pointers) for none, at most 1024. One
-// launch, which writes out and nothing else. Returns a cudaError_t (0 =
-// launched).
+// e [Hf * g, 2, C] f32 in [0, 1], J [Hf, NB, C * C] uint8, out [Hf * g, NB]
+// f32, all contiguous; C a power of two in [2, 256], 1 <= g <= 8. Pending
+// joins: pos [Hf, K] and codes [Hf, 2, K] int64 contiguous, ring_r one
+// int32 on the device, 1 <= block; K 0 (and null pointers) for none, at
+// most 1024. One launch, which writes out and nothing else. Returns a
+// cudaError_t (0 = launched).
 extern "C" int pq_jhist_block_mass(const float* e, const uint8_t* J, int Hf, int g, int C,
                                    int NB, const int64_t* pos, const int64_t* codes,
                                    const int* ring_r, int K, int block, float* out,
                                    void* stream) {
-  if (Hf < 1 || Hf > 65535 || NB < 1 || g < 1 || g > 8 || C < 2 || C > 256 || (C & (C - 1)) ||
-      K < 0 || K > MAX_K || (K > 0 && (!pos || !codes || !ring_r || block < 1)))
+  if (Hf < 1 || Hf > 65535 || NB < 1 || g < 1 || g > HEADS || K < 0 || K > MAX_K ||
+      (K > 0 && (!pos || !codes || !ring_r || block < 1)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PQ_ARGS e, J, Hf, g, C, NB, pos, codes, ring_r, K, block, out, st
-  if (g == 1) return by_width<1>(PQ_ARGS);
-  if (g == 2) return by_width<2>(PQ_ARGS);
-  if (g <= 4) return by_width<4>(PQ_ARGS);
-  return by_width<8>(PQ_ARGS);
+#define PQ_ARGS e, J, Hf, g, NB, pos, codes, ring_r, K, block, out, st
+  switch (C) {
+    case 2: return launch<2>(PQ_ARGS);
+    case 4: return launch<4>(PQ_ARGS);
+    case 8: return launch<8>(PQ_ARGS);
+    case 16: return launch<16>(PQ_ARGS);
+    case 32: return launch<32>(PQ_ARGS);
+    case 64: return launch<64>(PQ_ARGS);
+    case 128: return launch<128>(PQ_ARGS);
+    case 256: return launch<256>(PQ_ARGS);
+    default: return cudaErrorInvalidValue;
+  }
 #undef PQ_ARGS
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the prefill kernels K2
 // (flash_attention.cu) and K4 (flash_scores.cu) and the decode kernels K1
-// (block_attn.cu) and K3 (adc.cu): the wgmma shared-memory descriptor for
+// (block_attn.cu), K3 (adc.cu) and the scorer J (jhist_mass.cu): mma.sync
+// m16n8k16 in bf16, the wgmma shared-memory descriptor for
 // 128-byte swizzled tiles, wgmma.mma_async (A from shared memory or from
 // registers) with its fence / commit / wait, mbarrier rings, TMA tile loads
 // (cp.async.bulk.tensor with complete_tx) and 1-D bulk copies, setmaxnreg,
@@ -164,6 +165,20 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
 #pragma unroll
   for (int c = 0; c < D / 64; ++c)
     tma_load_3d(dst + c * R * 128, map, bar, c * 64, row, head);
+}
+
+// ----------------------------------------------------------------- mma.sync
+// c[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, f32 out. Lane (j, t) = (lane
+// / 4, lane % 4) holds a0: A row j, k 2t + {0, 1}; a1: row j + 8; a2, a3:
+// the same at k + 8; b0: B column j, k 2t + {0, 1}; b1: k + 8; c[0], c[1]:
+// row j, columns 2t + {0, 1}; c[2], c[3]: row j + 8
+__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // -------------------------------------------------------------------- wgmma

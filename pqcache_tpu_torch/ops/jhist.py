@@ -9,7 +9,9 @@ uint8 -> f32 convert into the dot. Its plain PyTorch version
 histogram and a batched product with the [g, C^2] pair table) plus the
 pending joins' mass as a one-hot product. On a CPU tensor the wrapper
 computes the plain version; on a CUDA tensor it launches the kernel or
-raises.
+raises. The kernel contracts the counts with e1 on the tensor cores, e1
+cut exactly into three bf16 pieces; ``split_factors`` is that cut in plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ MAX_CENTROIDS = 256       # histogram rows of C^2 <= 64 KB
 MAX_GROUP = 8             # q heads per kv head
 MAX_BLOCK = 256           # uint8 counts (core/pq.py::jhist_dtype)
 MAX_PENDING = 1024        # pending joins per folded kv head (csrc MAX_K)
+FACTOR_SCALE = 2.0 ** 126  # e1's scale before the cut (csrc E1_SCALE)
 
 
 def _shapes(e: torch.Tensor, J: torch.Tensor, pending, block: int):
@@ -57,6 +60,21 @@ def _shapes(e: torch.Tensor, J: torch.Tensor, pending, block: int):
     return Hf, g, C, NB, K
 
 
+def split_factors(e1: torch.Tensor) -> torch.Tensor:
+    """The kernel's cut of the factors: e1 · 2^126 (f32) as three bf16
+    pieces [3, *e1.shape], hi + mid + lo, each the residual's top 16 bits
+    (sign, exponent, 7 bits), truncated, so that each residual and the sum
+    of the pieces are exact. For e1 in [0, 1] every nonzero piece is a
+    normal bf16."""
+    x = e1.float() * FACTOR_SCALE
+    pieces = []
+    for _ in range(3):
+        top = (x.view(torch.int32) & -0x10000).view(torch.float32)
+        pieces.append(top.to(torch.bfloat16))
+        x = x - top
+    return torch.stack(pieces)
+
+
 @scoped("pq_score")
 def jhist_block_mass_ref(e: torch.Tensor, J: torch.Tensor, pending=None, *,
                          block: int = 1) -> torch.Tensor:
@@ -84,7 +102,8 @@ def jhist_block_mass(e: torch.Tensor, J: torch.Tensor, pending=None, *,
                      block: int = 1) -> torch.Tensor:
     """Raw per-q-head block mass of one layer's joint histogram.
 
-    e [Hf·g, 2, C] f32, the exp-LUT factors (``core/pq.jhist_exp_lut``); J
+    e [Hf·g, 2, C] f32 in [0, 1], the exp-LUT factors
+    (``core/pq.jhist_exp_lut``); J
     [Hf, NB, C²] uint8, read in place. ``pending``: the joins the histogram
     does not count yet, (pos [Hf, K] int64 tail positions, codes [Hf, 2, K]
     int64, ring_r: the first ring_r of the K are live, a 0-d int32 tensor
@@ -92,7 +111,9 @@ def jhist_block_mass(e: torch.Tensor, J: torch.Tensor, pending=None, *,
     clamp(pos // block, 0, NB - 1). Returns mass [Hf·g, NB] f32:
     mass[h, n] = Σ_c0 e0[h, c0] Σ_c1 e1[h, c1] J[kv(h), n, c0·C + c1]
     plus the pending terms, not normalised. C <= 256, g <= 8, block <=
-    256."""
+    256. ``launches`` counts the kernel's launches, ``mma_launches`` those
+    that contracted on the tensor cores (all of them: one body for every
+    C)."""
     Hf, g, C, NB, K = _shapes(e, J, pending, block)
     if e.device.type == "cpu":
         return jhist_block_mass_ref(e, J, pending, block=block)
@@ -127,7 +148,9 @@ def jhist_block_mass(e: torch.Tensor, J: torch.Tensor, pending=None, *,
         e.data_ptr(), J.data_ptr(), Hf, g, C, NB, *ptrs, K, int(block),
         out.data_ptr(), _build.stream_ptr(e.device)), "jhist_block_mass")
     jhist_block_mass.launches += 1
+    jhist_block_mass.mma_launches += 1     # one tensor-core body for every C
     return out
 
 
 jhist_block_mass.launches = 0
+jhist_block_mass.mma_launches = 0

@@ -32,6 +32,7 @@ bitwise the same output.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -1390,14 +1391,17 @@ def test_parallel_tp2_on_one_card_matches_engine(dev):
         assert r["launches"]["block_topk_attention"] == m.num_layers * steps
 
 
-# (Hf, g, C, NB, K, ring_r, block): both decode cells' one-layer shapes
-# (128k: 24 slots x 8 kv heads, 514 blocks; 32k: 52 x 8, 127 blocks), a
-# single sequence at 128k, the largest histogram rows (C 256) with a
-# pending span over many blocks, and every lane layout of the kernel (C
-# 128 to 2, g 1 to 8, 3 and 5 padded to 4 and 8)
+# (Hf, g, C, NB, K, ring_r, block[, e1's floor]): the decode cells'
+# one-layer shapes (NeMo 128k: 24 slots x 8 kv heads, 514 blocks; Mistral
+# 32k: 52 x 8, 127 blocks; Trinity 128k: 80 x 4 at g 8), a single sequence
+# at 128k, the largest histogram rows (C 256) with a pending span over many
+# blocks, every lane layout of the kernel (C 128 to 2, g 1 to 8, 3 and 5
+# padded to 4 and 8), and factors down to 1e-30 that a rounded or flushed
+# factor format would lose
 JHIST_CASES = {
     "128k": (192, 4, 64, 514, 128, 77, 256),
     "32k": (416, 4, 64, 127, 128, 128, 256),
+    "trinity-128k": (320, 8, 64, 514, 128, 100, 256),
     "single-128k": (8, 4, 64, 514, 0, None, 256),
     "C256": (4, 4, 256, 9, 128, 100, 16),
     "C128-g2": (7, 2, 128, 20, 0, None, 64),
@@ -1406,19 +1410,28 @@ JHIST_CASES = {
     "C8-g3": (5, 3, 8, 70, 32, 0, 8),
     "C4-g1": (3, 1, 4, 300, 16, 16, 4),
     "C2-g2": (3, 2, 2, 41, 8, 5, 2),
+    "C64-g8-tiny": (24, 8, 64, 66, 128, 77, 256, 1e-30),
 }
 
 
-def _jhist_inputs(dev, Hf, g, C, NB, K, ring_r, block, seed=0):
+def _jhist_inputs(dev, Hf, g, C, NB, K, ring_r, block, floor=None, seed=0):
     """Exp-LUT factors, a histogram built from skewed codes (the last two
     rows empty, a few counts saturated) and the pending span of the
-    slots' last ring_r candidates (or None); each kv head's n_cand."""
+    slots' last ring_r candidates (or None); each kv head's n_cand. With a
+    floor, e1's LUT is scaled up into a ramp, e1 = floor^((C-1-c)/(C-1)),
+    and the even blocks hold only the codes c1 < 4 (e1 within 30x of the
+    floor), whose mass only those factors carry."""
     gen = torch.Generator(device=dev).manual_seed(seed + Hf * NB + C)
     lut = torch.randn((Hf * g, 2, C), generator=gen, device=dev) * 4
+    if floor is not None:
+        ramp = torch.arange(C - 1, -1, -1, device=dev) / (C - 1)
+        lut[:, 1] = ramp * (128 ** 0.5 * math.log(floor))
     e = pq.jhist_exp_lut(lut, 128)
     T = NB * block
     u = torch.rand((Hf, 2, T), generator=gen, device=dev)
     codes = (C * u * u).long().clamp(max=C - 1).to(torch.uint8)
+    if floor is not None:
+        codes[:, 1].view(Hf, NB, block)[:, ::2] %= 4
     n_cand = T - 2 * block
     J = pq.build_joint_hist(codes, n_cand, n_centroids=C, block=block)
     J[:, 1:-2:5, ::97] = 255
@@ -1451,13 +1464,17 @@ def _assert_same_blocks(got, ref, n_cand, g, block):
 
 @pytest.mark.parametrize("case", list(JHIST_CASES))
 def test_jhist_block_mass_kernel_matches_plain(dev, case):
-    Hf, g, C, NB, K, ring_r, block = JHIST_CASES[case]
-    e, J, pending, nc = _jhist_inputs(dev, Hf, g, C, NB, K, ring_r, block)
-    n0 = jhist_block_mass.launches
+    Hf, g, C, NB, K, ring_r, block, *floor = JHIST_CASES[case]
+    e, J, pending, nc = _jhist_inputs(dev, Hf, g, C, NB, K, ring_r, block,
+                                      *floor)
+    if floor:
+        assert e[:, 1].min().item() <= floor[0] * 1.01
+    n0, m0 = jhist_block_mass.launches, jhist_block_mass.mma_launches
     got = jhist_block_mass(e, J, pending, block=block)
     again = jhist_block_mass(e, J, pending, block=block)
     torch.cuda.synchronize()
     assert jhist_block_mass.launches == n0 + 2
+    assert jhist_block_mass.mma_launches == m0 + 2   # on the tensor cores
     assert torch.equal(got, again)                   # bit for bit
     ref = jhist_block_mass_ref(e, J, pending, block=block)
     assert got.shape == ref.shape == (Hf * g, NB)

@@ -5,8 +5,12 @@ scorer's definition in float64 (the factored double sum over the uint8
 counts plus the live pending joins' terms) and to the arithmetic the
 policy ran before the scorer had a kernel: ``core/pq.joint_block_mass``'s
 pair table against an f32 copy of the histogram, plus the one-hot product
-of the deferred-join correction. The CUDA kernel itself is held to the
-plain version on the card (``tests/test_torch_cuda.py -k jhist``).
+of the deferred-join correction. The kernel's exact arithmetic on the
+tensor cores rests on two facts held here: a count byte read as bf16 bits
+is the count times 2^-133, and ``split_factors`` cuts every factor into
+three bf16 pieces that sum back to it exactly. The CUDA kernel itself is
+held to the plain version on the card (``tests/test_torch_cuda.py -k
+jhist``).
 """
 
 import numpy as np
@@ -17,7 +21,8 @@ from pqcache_tpu_torch import config
 from pqcache_tpu_torch.core import pq
 from pqcache_tpu_torch.core.budget import compute_budget
 from pqcache_tpu_torch.models import llama
-from pqcache_tpu_torch.ops.jhist import jhist_block_mass
+from pqcache_tpu_torch.ops.jhist import (FACTOR_SCALE, jhist_block_mass,
+                                         split_factors)
 from pqcache_tpu_torch.policies.base import get_policy
 from pqcache_tpu_torch.runtime.state import per_head
 
@@ -124,6 +129,53 @@ def test_wrapper_raises_outside_its_limits():
         jhist_block_mass(e, J.float())
     with pytest.raises(ValueError, match="block 512"):
         jhist_block_mass(e, J, pending, block=512)
+
+
+def test_count_bytes_read_as_bf16_are_exact():
+    # the kernel's A operand: a byte zero-extended to 16 bits, read as a
+    # bf16, is b 2^-133 for every count (subnormal below 128)
+    b = torch.arange(256, dtype=torch.int16)
+    got = b.view(torch.bfloat16).double()
+    assert torch.equal(got, b.double() * 2.0 ** -133)
+
+
+def _factors(spread: float, seed: int) -> torch.Tensor:
+    """Exp-LUT factors whose logits spread over `spread` (as
+    jhist_exp_lut's exponent), from 1 down past f32's smallest subnormal,
+    with 0, 1 and the edges of the subnormal range appended."""
+    rng = np.random.default_rng(seed)
+    lut = torch.from_numpy(-rng.random((64, 2, 64)) * spread
+                           * 128 ** 0.5).float()
+    e = pq.jhist_exp_lut(lut, 128).reshape(-1)
+    tiny = torch.finfo(torch.float32).tiny
+    edges = torch.tensor([0.0, 1.0, 1 - 2 ** -24, tiny, tiny * (1 - 2 ** -23),
+                          2.0 ** -149, 2.0 ** -126 * 3, 1e-30])
+    return torch.cat([e, edges])
+
+
+@pytest.mark.parametrize("spread", [4.0, 70.0, 110.0])
+def test_split_factors_sum_back_exactly(spread):
+    e = _factors(spread, int(spread))
+    assert e.min() == 0 and (e[e > 0].min() < 2 ** -126 or spread < 100)
+    p = split_factors(e)
+    assert p.shape == (3,) + e.shape and p.dtype == torch.bfloat16
+    assert torch.equal(p.double().sum(0), e.double() * FACTOR_SCALE)
+
+
+@pytest.mark.parametrize("spread", [4.0, 110.0])
+def test_split_factor_pieces_are_normal_bf16s(spread):
+    # every nonzero piece is a normal bf16 holding at most 8 significant
+    # bits, so a count (8 bits) times a piece is exact in the MMA; for a
+    # factor >= 2^-119 the count 1 times its top piece, 2^-133 hi, is a
+    # normal f32, so the kernel's sums T (2^-7 of the true ones) are too
+    e = _factors(spread, 7)
+    p = split_factors(e).double()
+    nz = p[p != 0]
+    assert (nz.abs() >= 2.0 ** -126).all()
+    lead = torch.floor(torch.log2(nz))
+    assert torch.equal(torch.frac(nz * 2 ** (7 - lead)), torch.zeros_like(nz))
+    big = e.double() >= 2.0 ** -119
+    assert (p[0][big] * 2.0 ** -133 >= 2.0 ** -126).all()
 
 
 def _decoding_state(defer: str, steps: int = 3):
