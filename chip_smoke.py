@@ -7,7 +7,10 @@ Builds the port's CUDA kernels from ``pqcache_tpu_torch/csrc``, holds each
 against its plain PyTorch version at the main path's shapes (K2
 also on the serving path's admission slabs at q_offset and on the 128k
 chunked prefill's slabs against 131072 keys, and its window variant on an
-AFMoE sliding layer's 128k slabs, timed beside the band's bound), serves
+AFMoE sliding layer's 128k slabs, timed beside the band's bound), holds
+and times the MLA path's kernels at the 128k MLA cell's shapes (K1's latent
+variant, K2 at 192 / 128 on the prefill's slabs, the scorer at 16 heads;
+``python3 chip_smoke.py mla`` runs that phase alone), serves
 requests
 through ``Engine.generate`` at Llama-3.1-8B width and 8 layers (random
 weights from a seeded generator) on the block path (joint-histogram scorer + K1),
@@ -556,6 +559,113 @@ def k2_window_slabs(dev, g) -> dict:
             worst = dict(window_ms=ms, window_bound_ms=bound_ms)
         del qs, got, want
     return worst
+
+
+# DeepSeek-V2's latent attention at the 128k MLA cell's shapes: K1's latent
+# variant over one layer (slots, tail rows, selected blocks, block, win_max,
+# win_len), K2's 192 / 128 variant on the prefill's slabs (16 expanded
+# heads, MLA_SLAB rows against up to MLA_T keys, the cell's softmax scale),
+# and the joint-histogram scorer at 16 heads a latent kv head
+MLA_K1 = (40, 131840, 52, 256, 13104, 12976)
+MLA_T, MLA_SLAB, MLA_HEADS = 131072, 32768, 16
+MLA_SCALE = 192 ** -0.5 * 1.5896
+MLA_JHIST = (40, 515, 64)
+
+
+def mla_phase(dev) -> None:
+    """The three kernels of the MLA path, each held to its plain version
+    and timed beside its bound: the latent K1 (bytes: the attended rows'
+    576 bf16 columns, the queries, the partials out), K2 at 192 / 128 on
+    each prefill slab (operations: 2 H (192 + 128) over the causal pairs;
+    its share of the prefill, which the decode trace does not see) and the
+    scorer at 16 heads (bytes: the histogram). Raises on a disagreement."""
+    from pqcache_tpu_torch.ops.block_attn import (
+        block_topk_latent_attention, block_topk_latent_attention_ref)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    Hf, N, nb, bs, wm, wl = MLA_K1
+    kv = torch.randn((1, Hf, N, 576), generator=g, device=dev).bfloat16()
+    q = (torch.randn((Hf * 16, 1, 576), generator=g, device=dev)
+         * 0.5).bfloat16()
+    n_c = N - wm - 3 * bs
+    n_cand = torch.full((Hf,), n_c, dtype=torch.int32, device=dev)
+    blk = torch.stack([torch.randperm(n_c // bs, generator=g, device=dev)[:nb]
+                       for _ in range(Hf)]).int()
+    win = torch.full((Hf,), wl, dtype=torch.int32, device=dev)
+
+    def k1():
+        return block_topk_latent_attention(q, kv, 0, blk, n_cand, block=bs,
+                                           v_dim=512, win_len=win,
+                                           win_max=wm)
+    m, l, acc = k1()
+    mr, lr, accr = block_topk_latent_attention_ref(
+        q, kv, 0, blk, n_cand, block=bs, v_dim=512, win_len=win, win_max=wm)
+    out, outr = acc / l[..., None], accr / lr[..., None]
+    err = ((out - outr).abs().max() / outr.abs().max()).item()
+    ms = cuda_ms(k1, 20)
+    rows = Hf * (nb * bs + wl)
+    nbytes = rows * 576 * 2 + Hf * 16 * 576 * 2 + Hf * 16 * 514 * 4
+    bound = nbytes / PEAK_BYTES * 1e3
+    log(f"K1 latent [{Hf} slots x 16 heads, rows of 576, {nb} blocks of "
+        f"{bs} + a window of {wl}]: max err / max |out| {err:.2e} (tol "
+        f"1e-4); {ms:.3f} ms, {bound / ms:.1%} of its bound {bound:.3f} ms "
+        f"(bytes, {nbytes / 1e9:.2f} GB)")
+    if not err <= 1e-4:
+        raise SystemExit("K1's latent variant disagrees with its plain "
+                         "version")
+    del kv, m, l, acc, mr, lr, accr, out, outr
+    torch.cuda.empty_cache()
+    H = MLA_HEADS
+    k = torch.randn((H, MLA_T, 192), generator=g, device=dev).bfloat16()
+    v = torch.randn((H, MLA_T, 128), generator=g, device=dev).bfloat16()
+    total = 0.0
+    for c0 in range(0, MLA_T, MLA_SLAB):
+        qs = torch.randn((H, MLA_SLAB, 192), generator=g,
+                         device=dev).bfloat16()
+        c1 = c0 + MLA_SLAB
+
+        def k2():
+            return flash_attention(qs, k[:, :c1], v[:, :c1], valid_lo=0,
+                                   q_offset=c0, scale=MLA_SCALE)
+        got = k2()
+        rws = torch.arange(0, MLA_SLAB, 211, device=dev)
+        sc = torch.einsum("hqd,hkd->hqk", qs[:, rws].float(),
+                          k[:, :c1].float()) * MLA_SCALE
+        kp = torch.arange(c1, device=dev)
+        sc = torch.where(kp[None, None] <= (c0 + rws)[None, :, None], sc,
+                         -torch.inf)
+        want = torch.softmax(sc, -1) @ v[:, :c1].float()
+        rel = row_rel_err(got[:, rws], want)
+        ms = cuda_ms(k2, 3)
+        total += ms
+        ops = 2.0 * H * (192 + 128) * MLA_SLAB * (c0 + (MLA_SLAB + 1) / 2)
+        bound = ops / PEAK_BF16 * 1e3
+        log(f"K2 192/128 slab q [{H}, {MLA_SLAB}, 192] at q_offset {c0}, "
+            f"keys [{H}, {c1}, 192 | 128]: worst sampled row ||err||/||ref|| "
+            f"{rel:.3e} (tol {K2_TOL}); {ms:.3f} ms, {bound / ms:.1%} of its "
+            f"bound {bound:.3f} ms (operations)")
+        if not rel <= K2_TOL:
+            raise SystemExit(f"K2's 192 / 128 variant disagrees with dense "
+                             f"attention on the slab at {c0}")
+        del qs, got, sc, want
+    log(f"K2 192/128: {total:.1f} ms a layer over the 128k prefill's "
+        f"{MLA_T // MLA_SLAB} slabs")
+    del k, v
+    torch.cuda.empty_cache()
+    Hf, NB, C = MLA_JHIST
+    e = torch.rand((Hf * 16, 2, C), generator=g, device=dev)
+    J = torch.randint(0, 256, (Hf, NB, C * C), generator=g, device=dev,
+                      dtype=torch.uint8)
+    got = jhist_block_mass(e, J)
+    rel = ((got - jhist_block_mass_ref(e, J)).abs()
+           / jhist_block_mass_ref(e, J).abs()).max().item()
+    ms = cuda_ms(lambda: jhist_block_mass(e, J), 20)
+    bound = J.numel() / PEAK_BYTES * 1e3
+    log(f"scorer at 16 heads [{Hf}, {NB}, {C * C}]: max rel err {rel:.2e} "
+        f"(tol 1e-5); {ms:.3f} ms, {bound / ms:.1%} of its bound "
+        f"{bound:.3f} ms (bytes)")
+    if not rel <= 1e-5:
+        raise SystemExit("the scorer at 16 heads disagrees with its plain "
+                         "version")
 
 
 def head_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -3468,6 +3578,7 @@ def main() -> int:
     entries = [k2_phase(dev), k4_phase(dev), k1_phase(dev), k3_phase(dev),
                k5_phase(dev), k6_phase(dev), jhist_phase(dev)]
     entries.append(w8_step_entry(dev, w8_phase(dev)))
+    mla_phase(dev)
     log(f"kernel phases done at {time.perf_counter() - t0:.0f} s")
 
     model = dataclasses.replace(config.LLAMA31_8B, num_layers=LAYERS)
@@ -3549,4 +3660,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["mla"]:      # the MLA kernels' phase alone
+        environment()
+        mla_phase(torch.device("cuda"))
+        sys.exit(0)
     sys.exit(main())

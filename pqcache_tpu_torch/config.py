@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from dataclasses import dataclass, field
 from typing import Literal, Optional
 
@@ -82,12 +83,28 @@ class ModelConfig:
         """Layer idx's attention window in tokens; 0 = unbounded."""
         return 0
 
+    @property
+    def latent_kv(self) -> bool:
+        """Whether a layer caches one latent row per token that is its key
+        and, in its first ``value_dim`` columns, its value
+        (``DeepseekV2Config``), instead of separate K and V heads."""
+        return False
+
+    @property
+    def value_dim(self) -> int:
+        """Width of the cached values: head_dim, or the latent's value
+        columns."""
+        return self.head_dim
+
     @staticmethod
     def from_hf_config(d: dict, name: str = "hf") -> "ModelConfig":
         """Build from a HuggingFace config.json dict (mistral/llama
-        families; ``model_type`` "afmoe" gives an ``AfmoeConfig``)."""
+        families; ``model_type`` "afmoe" gives an ``AfmoeConfig``,
+        "deepseek_v2" a ``DeepseekV2Config``)."""
         if d.get("model_type") == "afmoe":
             return AfmoeConfig.from_afmoe(d, name)
+        if d.get("model_type") == "deepseek_v2":
+            return DeepseekV2Config.from_deepseek_v2(d, name)
         rs = d.get("rope_scaling") or {}
         is_llama3_rs = rs.get("rope_type", rs.get("type")) == "llama3"
         head_dim = d.get("head_dim") or d["hidden_size"] // d["num_attention_heads"]
@@ -198,6 +215,139 @@ class AfmoeConfig(ModelConfig):
             route_norm=bool(d.get("route_norm", True)),
             route_scale=float(d.get("route_scale", 1.0)),
             mup_enabled=bool(d.get("mup_enabled", True)))
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention scale of a context stretched ``factor`` times:
+    0.1 mscale ln(factor) + 1 (1 where factor <= 1)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+@dataclass(frozen=True)
+class DeepseekV2Config(ModelConfig):
+    """DeepSeek-V2 (``model_type`` "deepseek_v2", arXiv 2405.04434):
+    multi-head latent attention (MLA) and a mixture of experts.
+
+    Attention without a q LoRA: q = x W_q, per head [q_nope (qk_nope) |
+    q_pe (qk_rope)]; [c | k_pe] = x W_kv_a, c = RMSNorm(c) of
+    ``kv_lora_rank`` columns, k_pe of qk_rope columns shared by every
+    head; per head [k_nope | v] = c W_kv_b; RoPE (YaRN, on adjacent pairs)
+    on q_pe and k_pe; logits times ``softmax_scale``; out = concat_h(o_h)
+    W_o. A layer caches one latent row [c | k_pe] per token: the port
+    keeps it as ONE kv head of ``head_dim`` = kv_lora_rank + qk_rope
+    columns whose first ``value_dim`` = kv_lora_rank columns are the
+    value, for all ``num_heads`` query heads (the absorbed form of
+    ``models/deepseek_v2.py``). ``num_kv_heads`` is therefore 1 and
+    ``head_dim`` 576 at DeepSeek-V2's widths; the per-head widths are the
+    fields below.
+
+    MLP: the first ``first_k_dense_replace`` layers a SwiGLU of
+    ``intermediate_size``, every later one ``num_experts`` SwiGLU experts
+    of ``moe_intermediate_size``: f32 softmax router scores, the greedy top
+    ``num_experts_per_tok``, weighted by their scores (renormalised only
+    with ``norm_topk_prob``) times ``routed_scaling_factor``, plus
+    ``num_shared_experts`` shared ones as one SwiGLU of their summed
+    width."""
+
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    first_k_dense_replace: int = 0
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    num_shared_experts: int = 0
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = False
+    # YaRN ("rope_scaling" type "yarn"); factor None = plain RoPE
+    yarn_factor: Optional[float] = None
+    yarn_original_max_position: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
+    def __post_init__(self):
+        if self.num_kv_heads != 1 or self.head_dim != (
+                self.kv_lora_rank + self.qk_rope_head_dim):
+            raise ValueError("deepseek_v2: the latent cache is one kv head "
+                             "of kv_lora_rank + qk_rope_head_dim columns")
+        if not 0 <= self.first_k_dense_replace <= self.num_layers:
+            raise ValueError("first_k_dense_replace outside [0, num_layers]")
+        if self.first_k_dense_replace < self.num_layers and not (
+                0 < self.num_experts_per_tok <= self.num_experts):
+            raise ValueError("MoE layers need 0 < num_experts_per_tok <= "
+                             "num_experts")
+
+    @property
+    def latent_kv(self) -> bool:
+        return True
+
+    @property
+    def value_dim(self) -> int:
+        return self.kv_lora_rank
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        """qk_head_dim^-0.5, times mscale(factor, mscale_all_dim)^2 under
+        YaRN, as DeepSeek's modelling code computes it (transformers'
+        in-tree deepseek_v2 leaves the YaRN factor out)."""
+        s = self.qk_head_dim ** -0.5
+        if self.yarn_factor and self.yarn_mscale_all_dim:
+            s *= yarn_mscale(self.yarn_factor, self.yarn_mscale_all_dim) ** 2
+        return s
+
+    @staticmethod
+    def from_deepseek_v2(d: dict, name: str = "hf") -> "DeepseekV2Config":
+        """From a deepseek_v2 config.json dict. Only what this port computes
+        is accepted: no q LoRA, greedy routing over one group, a MoE on
+        every layer from first_k_dense_replace on, YaRN or no rope
+        scaling."""
+        if d.get("q_lora_rank") is not None:
+            raise ValueError("deepseek_v2: a q LoRA is not supported")
+        if (d.get("topk_method", "greedy") != "greedy"
+                or d.get("scoring_func", "softmax") != "softmax"
+                or max(d.get("n_group") or 1, d.get("topk_group") or 1) != 1
+                or d.get("moe_layer_freq", 1) != 1):
+            raise ValueError("deepseek_v2: only greedy softmax routing over "
+                             "one group, on every layer, is supported")
+        rs = d.get("rope_scaling") or {}
+        kind = rs.get("rope_type", rs.get("type"))
+        if rs and kind != "yarn":
+            raise ValueError(f"deepseek_v2: rope scaling {kind!r} is not "
+                             f"supported")
+        R, Dr = d["kv_lora_rank"], d["qk_rope_head_dim"]
+        return DeepseekV2Config(
+            name=name, vocab_size=d["vocab_size"],
+            hidden_size=d["hidden_size"],
+            intermediate_size=d["intermediate_size"],
+            num_layers=d["num_hidden_layers"],
+            num_heads=d["num_attention_heads"], num_kv_heads=1,
+            head_dim=R + Dr, rms_norm_eps=d.get("rms_norm_eps", 1e-6),
+            rope_theta=d.get("rope_theta", 10000.0),
+            tie_word_embeddings=d.get("tie_word_embeddings", False),
+            max_position_embeddings=d.get("max_position_embeddings", 4096),
+            kv_lora_rank=R, qk_nope_head_dim=d["qk_nope_head_dim"],
+            qk_rope_head_dim=Dr, v_head_dim=d["v_head_dim"],
+            first_k_dense_replace=d.get("first_k_dense_replace", 0),
+            num_experts=d.get("n_routed_experts") or 0,
+            num_experts_per_tok=d.get("num_experts_per_tok") or 0,
+            moe_intermediate_size=d.get("moe_intermediate_size", 0),
+            num_shared_experts=d.get("n_shared_experts") or 0,
+            routed_scaling_factor=float(d.get("routed_scaling_factor", 1.0)),
+            norm_topk_prob=bool(d.get("norm_topk_prob", False)),
+            yarn_factor=float(rs["factor"]) if rs else None,
+            yarn_original_max_position=int(rs.get(
+                "original_max_position_embeddings", 4096)),
+            yarn_beta_fast=float(rs.get("beta_fast", 32)),
+            yarn_beta_slow=float(rs.get("beta_slow", 1)),
+            yarn_mscale=float(rs.get("mscale", 1.0)),
+            yarn_mscale_all_dim=float(rs.get("mscale_all_dim", 0.0)))
 
 
 @dataclass(frozen=True)
@@ -406,8 +556,10 @@ class EngineConfig:
         m = d.get("model", {})
         if "layer_types" in m:
             m = dict(m, layer_types=tuple(m["layer_types"]))
+        kind = (AfmoeConfig if "layer_types" in m else DeepseekV2Config
+                if "kv_lora_rank" in m else ModelConfig)
         return EngineConfig(
-            model=(AfmoeConfig if "layer_types" in m else ModelConfig)(**m),
+            model=kind(**m),
             pq=PQConfig(**d.get("pq", {})),
             budget=BudgetConfig(**d.get("budget", {})),
             cache=CacheConfig(**d.get("cache", {})),

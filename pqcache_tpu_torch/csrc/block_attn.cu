@@ -805,3 +805,350 @@ extern "C" int pq_block_attn(const void* q, const void* kv, int kv_dtype,
 
 // CTAs per kv head that the last pq_block_attn launch chose
 extern "C" int pq_block_attn_ctas() { return last_ctas; }
+
+// ---------------------------------------------------------------------------
+// K1's latent variant (latent_attn_kernel, latent_merge_kernel), for a latent
+// (MLA) tail: one kv head whose rows are the keys, [c (512) | k_pe (64)] in
+// bf16, and whose first DV columns are the values, for G = 16 query heads.
+// The same function as pq_block_attn of bf16 rows with q and k 576 wide and
+// v the rows' first 512 columns: the online-softmax partials (m, l, acc) of
+// the 16 heads over the selected blocks' rows below n_cand and, with
+// win_max > 0, the window's rows [n_cand, n_cand + win_len), logits x
+// 1/sqrt(D); a head with no row gives (-1e30, 0, 0).
+//
+// What bounds it: the rows' bytes. Each row is read once from HBM and used
+// for the 16 heads' logits and values, about 2 x 16 x (576 + 512) / 1152 =
+// 30 FLOP a byte: below the card's ridge. At the 128k MLA cell (40 slots,
+// about 26.2k rows a slot) one layer-step reads 1.2 GB: 0.36 ms at 3.35 TB/s.
+//
+// Design: grid (splits, H_kv), 8 warps a CTA, two CTAs an SM (96 KB of
+// shared memory each: the two interleave, one's softmax and barriers under
+// the other's products and copies). CTA s of a head takes whole 32-row
+// tiles of the head's selection rows (selected blocks then window, as
+// pq_block_attn orders them), tiles [s T / splits, (s + 1) T / splits).
+// A tile is copied by cp.async into one of two shared-memory buffers while
+// the other is used, each row at a pitch of 1168 bytes so that ldmatrix's
+// 8 rows fall on distinct banks; a row not to use is zero-filled (src-size
+// 0) and masked. Three barriers a tile.
+//   * S = Q K^T by mma.sync m16n8k16 with the 16 heads on M (Q from shared
+//     memory by ldmatrix) and the tile's rows on N: warp w takes rows
+//     [8 (w % 4), + 8) over half w / 4 of the 36 k-steps, in four
+//     independent accumulators, and the two halves add in shared memory;
+//     bf16 q times bf16 k is exact, f32 sums.
+//   * Online softmax in f32 through shared memory: warp w keeps the running
+//     (m, l) of heads 2w, 2w + 1, writes P and each head's rescale factor.
+//   * O += P V with the heads on M and the values on N: warp w owns value
+//     columns [64w, 64w + 64) (8 n8 tiles, 32 f32 a lane); P enters as
+//     bf16 hi + lo pairs (good to 2^-17, as pq_block_attn's), V^T's
+//     fragments by ldmatrix.trans from the same tile.
+// On an H100 (700 W) at the MLA cell's layer (40 slots, 1.21 GB): 0.494 ms,
+// 73.5% of the bytes' time, where one CTA an SM on 64-row tiles with four
+// barriers and one S accumulator took 0.560 ms (64.8%).
+// Each CTA writes its partial (acc [16][512], m [16], l [16]) to `part`;
+// latent_merge_kernel then merges a head's splits in split order, so the
+// same inputs give bitwise the same output.
+
+namespace {
+namespace latent {
+
+constexpr int G = 16;             // query heads: the MMA's M
+constexpr int T = 32;             // rows a tile
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+
+template <int D, int DV>
+struct LCfg {
+  static constexpr int ROW = D * 2;           // bytes of a row
+  static constexpr int PITCH = ROW + 16;      // its pitch in shared memory
+  static constexpr int CHUNKS = ROW / 16;     // 16-byte pieces of a row
+  static constexpr int TILE_BYTES = T * PITCH;
+  static constexpr int Q_BYTES = G * PITCH;
+  static constexpr int SP = T + 4;            // f32 pitch of the S / P tile
+  static constexpr int SMEM = 2 * TILE_BYTES + Q_BYTES + (2 * G * SP + G + 4 * T) * 4;
+  static constexpr int KSTEPS = D / 16;
+  static constexpr int VCOLS = DV / WARPS;    // value columns a warp
+  static constexpr int NT = VCOLS / 8;        // its n8 tiles
+  // a lane holds one row of a head in the softmax; two k halves of whole
+  // pairs of k-steps; two heads a warp
+  static_assert(T == 32 && KSTEPS % 4 == 0 && NT % 2 == 0 && G == 2 * WARPS,
+                "shape");
+};
+
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// part [H_kv, splits, G * DV + 2 G]: acc [G][DV], then m [G], then l [G]
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS, 2)
+latent_attn_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ kv,
+                   int layer, int H_kv, int N, const void* __restrict__ blk_idx,
+                   int idx64, int nb_sel, const int* __restrict__ n_cand_vec,
+                   int n_cand_stride, int n_cand_scalar, int win_max,
+                   const int* __restrict__ win_vec, int win_stride, int win_scalar,
+                   int bs, float scale, float* __restrict__ part) {
+  using C = LCfg<D, DV>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* qs = smem + 2 * C::TILE_BYTES;
+  float* sp = reinterpret_cast<float*>(qs + C::Q_BYTES);   // [2][G][SP]
+  float* alpha = sp + 2 * G * C::SP;                       // [G]
+  int* ok = reinterpret_cast<int*>(alpha + G);             // [2][T]
+  int* rowtab = ok + 2 * T;                                // [2][T]
+
+  const int h = blockIdx.y, part_i = blockIdx.x, splits = gridDim.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, t4 = lane & 3;
+
+  // (selection rows of a head fit an int: the entry point checks)
+  const int n_c = n_cand_vec ? n_cand_vec[h * n_cand_stride] : n_cand_scalar;
+  int win = 0;
+  if (win_max) {
+    win = win_vec ? win_vec[h * win_stride] : win_scalar;
+    win = max(0, min(win, min(win_max, N - n_c)));
+  }
+  const int sel_rows = nb_sel * bs;
+  const int total = sel_rows + win_max;
+  const int tiles = (total + T - 1) / T;
+  const int t0 = (int)((long long)tiles * part_i / splits);
+  const int t1 = (int)((long long)tiles * (part_i + 1) / splits);
+  const int j0 = t0 * T, j1 = min(t1 * T, total);
+  const int ntiles = t1 - t0;
+  const uint16_t* base = kv + ((size_t)layer * H_kv + h) * (size_t)N * D;
+
+  // rowtab[buf][r]: the tail row of selection row j0 + it T + r of tile it,
+  // or -1: a selected block's row below n_cand (an id out of range: none),
+  // or a window row. Threads [0, T) fill a tile's table a tile ahead of its
+  // copies, so the copies read it after a barrier.
+  auto fill_rows = [&](int it, int buf) {
+    if (tid >= T || it >= ntiles) return;
+    const int j = j0 + it * T + tid;
+    int row = -1;
+    if (j < j1 && j < sel_rows) {
+      const int kb = j / bs;
+      const size_t i = (size_t)h * nb_sel + kb;
+      const long long blk = idx64 ? static_cast<const long long*>(blk_idx)[i]
+                                  : static_cast<const int*>(blk_idx)[i];
+      if (blk >= 0 && (blk + 1) * bs <= N) {
+        const long long r = blk * bs + (j - kb * bs);
+        row = r < n_c ? (int)r : -1;
+      }
+    } else if (j < j1 && j - sel_rows < win) {
+      row = n_c + (j - sel_rows);
+    }
+    rowtab[buf * T + tid] = row;
+  };
+  auto load = [&](int buf) {
+    const uint32_t dst = smem_u32(smem + buf * C::TILE_BYTES);
+    const int* rows = rowtab + buf * T;
+    for (int c = tid; c < T * C::CHUNKS; c += THREADS) {
+      const int r = c / C::CHUNKS, k = c - r * C::CHUNKS;
+      const int row = rows[r];
+      cp16(dst + r * C::PITCH + k * 16, row >= 0 ? base + (size_t)row * D + k * 8 : base,
+           row >= 0 ? 16 : 0);
+      if (k == 0) ok[buf * T + r] = row >= 0;
+    }
+    cp_commit();
+  };
+
+  // the head's queries, then the first tile
+  const uint16_t* qh = q + (size_t)h * G * D;
+  for (int c = tid; c < G * C::CHUNKS; c += THREADS) {
+    const int r = c / C::CHUNKS, k = c - r * C::CHUNKS;
+    cp16(smem_u32(qs + r * C::PITCH + k * 16), qh + r * D + k * 8, 16);
+  }
+  cp_commit();
+  fill_rows(0, 0);
+  __syncthreads();
+  if (ntiles > 0) load(0);
+  fill_rows(1, 1);   // read after the first tile's barrier
+
+  float m_run[2] = {MASKED, MASKED}, l_run[2] = {0.f, 0.f};
+  float acc[C::NT][4];
+#pragma unroll
+  for (int i = 0; i < C::NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const uint32_t qb = smem_u32(qs);
+
+#pragma unroll 1
+  for (int it = 0; it < ntiles; ++it) {
+    const int buf = it & 1;
+    // the tile has landed and every warp is done with the last one: its
+    // buffer, its table and S / P may be rewritten
+    cp_wait<0>();
+    __syncthreads();
+    if (it + 1 < ntiles) load(buf ^ 1);
+    fill_rows(it + 2, buf);
+    const uint32_t tb = smem_u32(smem + buf * C::TILE_BYTES);
+    // S of rows [8 warp, 8 warp + 8): c[0..1] head grp, c[2..3] head grp + 8,
+    // rows 8 warp + 2 t4 (+ 1)
+    const int rw = warp & 3, kh = warp >> 2;   // rows [8 rw, +8), k half kh
+    float sa[4][4] = {};
+#pragma unroll
+    for (int k2 = 0; k2 < C::KSTEPS / 2; k2 += 2) {
+      const int kk = kh * (C::KSTEPS / 2) + k2;
+      uint32_t a0[4], a1[4], b[4];
+      ldsm4(qb + (lane & 15) * C::PITCH + (kk * 16 + (lane >> 4) * 8) * 2, a0);
+      ldsm4(qb + (lane & 15) * C::PITCH + ((kk + 1) * 16 + (lane >> 4) * 8) * 2, a1);
+      ldsm4(tb + (8 * rw + (lane & 7)) * C::PITCH + (kk * 16 + (lane >> 3) * 8) * 2, b);
+      mma16816(sa[(k2 >> 1) & 3], a0[0], a0[1], a0[2], a0[3], b[0], b[1]);
+      mma16816(sa[(k2 >> 1) & 3], a1[0], a1[1], a1[2], a1[3], b[2], b[3]);
+    }
+    float s[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[e] = (sa[0][e] + sa[1][e]) + (sa[2][e] + sa[3][e]);
+    {
+      // half 0 masks a row (MASKED), half 1 adds 0 to it
+      const int n0 = 8 * rw + 2 * t4;
+      const int* okb = ok + buf * T;
+      const bool u0 = okb[n0], u1 = okb[n0 + 1];
+      const float x0 = kh ? 0.f : MASKED;
+      float* sh = sp + kh * G * C::SP;
+      *reinterpret_cast<float2*>(sh + grp * C::SP + n0) =
+          make_float2(u0 ? s[0] * scale : x0, u1 ? s[1] * scale : x0);
+      *reinterpret_cast<float2*>(sh + (grp + 8) * C::SP + n0) =
+          make_float2(u0 ? s[2] * scale : x0, u1 ? s[3] * scale : x0);
+    }
+    __syncthreads();
+    // the softmax of heads 2 warp, 2 warp + 1 over the tile's 64 rows
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int hh = 2 * warp + i;
+      float* row = sp + hh * C::SP;
+      const float x0 = row[lane] + row[G * C::SP + lane];
+      float mx = x0;
+#pragma unroll
+      for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float p0 = x0 > MASKED ? expf(x0 - m_new) : 0.f;
+      float sum = p0;
+#pragma unroll
+      for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float a = m_run[i] > MASKED ? expf(m_run[i] - m_new) : 1.f;
+      l_run[i] = l_run[i] * a + sum;
+      m_run[i] = m_new;
+      row[lane] = p0;
+      if (lane == 0) alpha[hh] = a;
+    }
+    __syncthreads();
+    // O of value columns [64 warp, 64 warp + 64): rescale, then P V
+    {
+      const float a_lo = alpha[grp], a_hi = alpha[grp + 8];
+#pragma unroll
+      for (int i = 0; i < C::NT; ++i) {
+        acc[i][0] *= a_lo;
+        acc[i][1] *= a_lo;
+        acc[i][2] *= a_hi;
+        acc[i][3] *= a_hi;
+      }
+#pragma unroll
+      for (int ks = 0; ks < T / 16; ++ks) {
+        const float* p0 = sp + grp * C::SP + 16 * ks + 2 * t4;
+        const float* p1 = sp + (grp + 8) * C::SP + 16 * ks + 2 * t4;
+        uint32_t ah[4], al[4];
+        split(p0[0], p0[1], ah[0], al[0]);
+        split(p1[0], p1[1], ah[1], al[1]);
+        split(p0[8], p0[9], ah[2], al[2]);
+        split(p1[8], p1[9], ah[3], al[3]);
+#pragma unroll
+        for (int np = 0; np < C::NT / 2; ++np) {
+          uint32_t b[4];
+          ldsm4_t(tb + (16 * ks + (lane & 7) + 8 * ((lane >> 3) & 1)) * C::PITCH +
+                      (C::VCOLS * warp + 16 * np + 8 * (lane >> 4)) * 2,
+                  b);
+          mma16816(acc[2 * np], ah[0], ah[1], ah[2], ah[3], b[0], b[1]);
+          mma16816(acc[2 * np], al[0], al[1], al[2], al[3], b[0], b[1]);
+          mma16816(acc[2 * np + 1], ah[0], ah[1], ah[2], ah[3], b[2], b[3]);
+          mma16816(acc[2 * np + 1], al[0], al[1], al[2], al[3], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+
+  float* ph = part + ((size_t)h * splits + part_i) * (G * DV + 2 * G);
+#pragma unroll
+  for (int i = 0; i < C::NT; ++i) {
+    const int col = C::VCOLS * warp + 8 * i + 2 * t4;
+    *reinterpret_cast<float2*>(ph + grp * DV + col) = make_float2(acc[i][0], acc[i][1]);
+    *reinterpret_cast<float2*>(ph + (grp + 8) * DV + col) = make_float2(acc[i][2], acc[i][3]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ph[G * DV + 2 * warp + i] = m_run[i];
+      ph[G * DV + G + 2 * warp + i] = l_run[i];
+    }
+  }
+}
+
+// grid (H_kv, G), DV threads: head (h, hh)'s splits merged in split order
+template <int DV>
+__global__ void __launch_bounds__(DV)
+latent_merge_kernel(const float* __restrict__ part, int splits, float* __restrict__ m_out,
+                    float* __restrict__ l_out, float* __restrict__ acc_out) {
+  const int h = blockIdx.x, hh = blockIdx.y, c = threadIdx.x;
+  const size_t stride = (size_t)G * DV + 2 * G;
+  const float* p = part + (size_t)h * splits * stride;
+  float M = MASKED;
+  for (int s = 0; s < splits; ++s) M = fmaxf(M, p[s * stride + G * DV + hh]);
+  float L = 0.f, A = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float ms = p[s * stride + G * DV + hh];
+    const float w = ms > MASKED ? expf(ms - M) : 0.f;
+    L += w * p[s * stride + G * DV + G + hh];
+    A += w * p[s * stride + hh * DV + c];
+  }
+  acc_out[((size_t)h * G + hh) * DV + c] = A;
+  if (c == 0) {
+    m_out[h * G + hh] = M;
+    l_out[h * G + hh] = L;
+  }
+}
+
+}  // namespace latent
+}  // namespace
+
+// The latent variant: q [H_kv, 16, 576] bf16, kv [L, H_kv, N, 576] bf16 (the
+// values its rows' first 512 columns), blk_idx, the counts and win_max as
+// pq_block_attn's; D 576, v_dim 512, g 16. `part` holds splits x H_kv x
+// (16 x 512 + 32) f32 of scratch. Two launches, the splits and their merge;
+// writes m, l [H_kv, 16], acc [H_kv, 16, 512] (and part). Returns a
+// cudaError_t (0 = launched).
+extern "C" int pq_latent_attn(const void* q, const void* kv, int H_kv, int N, int D,
+                              int v_dim, int g, int layer, const void* blk_idx, int idx64,
+                              int nb_sel, const int* n_cand_vec, int n_cand_stride,
+                              int n_cand_scalar, int win_max, const int* win_vec,
+                              int win_stride, int win_scalar, int bs, int splits,
+                              float* part, float* m, float* l, float* acc, void* stream) {
+  using namespace latent;
+  constexpr int LD = 576, LDV = 512;
+  using C = LCfg<LD, LDV>;
+  if (D != LD || v_dim != LDV || g != G || nb_sel < 1 || bs < 1 || H_kv < 1 ||
+      H_kv > 65535 || N < bs || N % bs || win_max < 0 || splits < 1 || splits > 64 ||
+      (long long)N >= (1ll << 31) ||
+      (long long)nb_sel * bs + win_max > (1ll << 30) ||
+      reinterpret_cast<uintptr_t>(kv) % 16 || reinterpret_cast<uintptr_t>(q) % 16)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto kernel = latent_attn_kernel<LD, LDV>;
+  // once per process, so that a launch inside a CUDA-graph capture makes no
+  // attribute call
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<dim3(splits, H_kv), THREADS, C::SMEM, s>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(kv), layer, H_kv, N,
+      blk_idx, idx64, nb_sel, n_cand_vec, n_cand_stride, n_cand_scalar, win_max, win_vec,
+      win_stride, win_scalar, bs, 1.0f / sqrtf((float)LD), part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  latent_merge_kernel<LDV><<<dim3(H_kv, G), LDV, 0, s>>>(part, splits, m, l, acc);
+  return cudaGetLastError();
+}

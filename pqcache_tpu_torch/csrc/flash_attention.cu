@@ -74,26 +74,29 @@ constexpr int BN = 128;        // keys per K / V tile
 constexpr int NTHREADS = 384;  // two consumer warpgroups + the producer
 constexpr float NO_KEY_M = -1e30f;
 
-template <int D>
+// D: the q and k width; DV: the v width (D but in the MLA variant)
+template <int D, int DV = D>
 struct Cfg {
   static constexpr int STAGES = 2;
   static constexpr int Q_BYTES = BM * D * 2;
-  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;     // a K tile
+  static constexpr int V_BYTES = BN * DV * 2;     // a V tile
   // 1024 bytes of slack to align the base, Q, the K and V rings, barriers
-  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 256;
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * (KV_BYTES + V_BYTES) + 256;
 };
 
 // Shared-memory layout of one CTA: Q, the K and V rings, the mbarriers.
-template <int D>
+template <int D, int DV = D>
 struct Smem {
-  static constexpr int S = Cfg<D>::STAGES;
+  using C = Cfg<D, DV>;
+  static constexpr int S = C::STAGES;
   uint32_t q, k, v, bar;
   Smem() = default;
   __device__ explicit Smem(uint32_t base)
-      : q(base), k(base + Cfg<D>::Q_BYTES),
-        v(k + S * Cfg<D>::KV_BYTES), bar(v + S * Cfg<D>::KV_BYTES) {}
-  __device__ uint32_t k_tile(int s) const { return k + s * Cfg<D>::KV_BYTES; }
-  __device__ uint32_t v_tile(int s) const { return v + s * Cfg<D>::KV_BYTES; }
+      : q(base), k(base + C::Q_BYTES),
+        v(k + S * C::KV_BYTES), bar(v + S * C::V_BYTES) {}
+  __device__ uint32_t k_tile(int s) const { return k + s * C::KV_BYTES; }
+  __device__ uint32_t v_tile(int s) const { return v + s * C::V_BYTES; }
   __device__ uint32_t q_full() const { return bar; }
   __device__ uint32_t k_full(int s) const { return bar + 8 * (1 + s); }
   __device__ uint32_t k_empty(int s) const { return bar + 8 * (1 + S + s); }
@@ -106,14 +109,14 @@ struct Smem {
 // One consumer warpgroup's state (64 q rows): the O accumulator, the S / P
 // tile, P in bf16 as the register A operand of P V, and the online-softmax
 // running max and sum. Thread (warp w, lane) holds rows r and r + 8.
-template <int D, bool WIN>
+template <int D, bool WIN, int DV = D>
 struct Consumer {
-  static constexpr int S = Cfg<D>::STAGES;
-  Smem<D> sm;
+  static constexpr int S = Cfg<D, DV>::STAGES;
+  Smem<D, DV> sm;
   int cw, t, r, c0, pos_lo, j_lo, valid_lo, valid_hi, q_offset, causal,
       window;
   float sl2;
-  float o[D / 2];
+  float o[DV / 2];
   float sc[BN / 2];
   uint32_t pa[BN / 16][4];
   float m_r[2], l_r[2], corr[2];
@@ -136,7 +139,7 @@ struct Consumer {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk)
-      wgmma_rs_tb<D>(o, pa[kk], desc_mnmajor<BN>(sm.v_tile(s), kk));
+      wgmma_rs_tb<DV>(o, pa[kk], desc_mnmajor<BN>(sm.v_tile(s), kk));
     wgmma_commit();
   }
   // once S of key tile `it` has landed: release its K stage, mask, update
@@ -194,7 +197,7 @@ struct Consumer {
   // rescale O by the new max, pack P to bf16
   __device__ __forceinline__ void rescale_pack() {
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
+    for (int i = 0; i < DV / 8; ++i) {
       o[4 * i] *= corr[0];
       o[4 * i + 1] *= corr[0];
       o[4 * i + 2] *= corr[1];
@@ -218,16 +221,16 @@ struct Consumer {
   }
 };
 
-template <int D, bool PV, bool WIN>
+template <int D, bool PV, bool WIN, int DV = D>
 __device__ __forceinline__ void flash_fwd(
     const CUtensorMap* tm_q, const CUtensorMap* tm_k, const CUtensorMap* tm_v,
     uint16_t* __restrict__ out, float* __restrict__ m_out,
     float* __restrict__ l_out, int group, int Tq, int valid_lo, int valid_hi,
     int q_offset, int causal, float scale, int window) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DV>;
   constexpr int S = C::STAGES;
   extern __shared__ uint8_t smem_raw[];
-  const Smem<D> sm((smem_u32(smem_raw) + 1023) & ~1023u);
+  const Smem<D, DV> sm((smem_u32(smem_raw) + 1023) & ~1023u);
 
   const int h = blockIdx.x, hk = h / group;
   const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;
@@ -274,8 +277,8 @@ __device__ __forceinline__ void flash_fwd(
         tma_tile<D, BN>(sm.k_tile(s), tm_k, sm.k_full(s), row, hk);
         if constexpr (PV) {
           mbar_wait(sm.v_empty(s), ph ^ 1);
-          mbar_expect_tx(sm.v_full(s), C::KV_BYTES);
-          tma_tile<D, BN>(sm.v_tile(s), tm_v, sm.v_full(s), row, hk);
+          mbar_expect_tx(sm.v_full(s), C::V_BYTES);
+          tma_tile<DV, BN>(sm.v_tile(s), tm_v, sm.v_full(s), row, hk);
         }
       }
     }
@@ -283,7 +286,7 @@ __device__ __forceinline__ void flash_fwd(
     // ---------------------------------------------------------- consumers
     setmaxnreg_inc<232>();
     const int lane = t % 32;
-    Consumer<D, WIN> c;
+    Consumer<D, WIN, DV> c;
     c.sm = sm;
     c.cw = wg;                               // which 64 rows of the tile
     c.t = t;
@@ -298,7 +301,7 @@ __device__ __forceinline__ void flash_fwd(
     c.window = window;
     c.sl2 = scale * LOG2E;
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) c.o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) c.o[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       c.m_r[i] = NEG_INF;   // running max of raw logits
@@ -328,9 +331,9 @@ __device__ __forceinline__ void flash_fwd(
         const int row = c.r + 8 * i;
         if (row >= Tq) continue;
         const float inv = 1.f / fmaxf(c.l_r[i], 1e-30f);
-        uint16_t* orow = out + ((size_t)h * Tq + row) * D + c.c0;
+        uint16_t* orow = out + ((size_t)h * Tq + row) * DV + c.c0;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < DV / 8; ++j)
           *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack_bf16(
               c.o[4 * j + 2 * i] * inv, c.o[4 * j + 2 * i + 1] * inv);
       }
@@ -372,6 +375,42 @@ flash_fwd_window_kernel(const __grid_constant__ CUtensorMap tm_q,
   flash_fwd<D, true, true>(&tm_q, &tm_k, &tm_v, out, nullptr, nullptr, group,
                            Tq, valid_lo, valid_hi, q_offset, 1, scale,
                            window);
+}
+
+// The MLA variant (MLA's expanded prefill heads): q and k D wide, v DV,
+// logits times `scale`, causal or not, no statistics
+template <int D, int DV>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_dv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    uint16_t* __restrict__ out, int group, int Tq, int valid_lo,
+                    int valid_hi, int q_offset, int causal, float scale) {
+  flash_fwd<D, true, false, DV>(&tm_q, &tm_k, &tm_v, out, nullptr, nullptr,
+                                group, Tq, valid_lo, valid_hi, q_offset,
+                                causal, scale, 0);
+}
+
+template <int D, int DV>
+cudaError_t launch_dv(const void* q, const void* k, const void* v, void* out,
+                      int H, int H_kv, int Tq, int Tk, int valid_lo,
+                      int valid_hi, int q_offset, int causal, float scale,
+                      cudaStream_t stream) {
+  using C = Cfg<D, DV>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_dv_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap tq, tk, tv;
+  cudaError_t e = make_tmap(&tq, q, H, Tq, D, BM);
+  if (e == cudaSuccess) e = make_tmap(&tk, k, H_kv, Tk, D, BN);
+  if (e == cudaSuccess) e = make_tmap(&tv, v, H_kv, Tk, DV, BN);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(H, (Tq + BM - 1) / BM);
+  flash_fwd_dv_kernel<D, DV><<<grid, NTHREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<uint16_t*>(out), H / H_kv, Tq, valid_lo,
+      valid_hi, q_offset, causal, scale);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -482,4 +521,20 @@ extern "C" int pq_flash_attention_window(const void* q, const void* k,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The MLA variant of pq_flash_attention (no row statistics): q, k [., D]
+// and v, out [., Dv] with (D, Dv) = (192, 128), logits times `scale`.
+extern "C" int pq_flash_attention_dv(const void* q, const void* k,
+                                     const void* v, void* out, int H,
+                                     int H_kv, int Tq, int Tk, int D, int Dv,
+                                     int valid_lo, int valid_hi, int q_offset,
+                                     int causal, float scale, void* stream) {
+  if (Tq <= 0) return cudaSuccess;
+  if (Tk <= 0 || !v) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 192 && Dv == 128)
+    return launch_dv<192, 128>(q, k, v, out, H, H_kv, Tq, Tk, valid_lo,
+                               valid_hi, q_offset, causal, scale, s);
+  return cudaErrorInvalidValue;
 }

@@ -102,7 +102,7 @@ constexpr int UNIT = 8;              // most loads of a lane a unit sums
 constexpr int AHEAD = 8;             // copies in flight ahead of the unit
 constexpr int DEPTH = UNIT + AHEAD;  // ring slots a lane, 16 bytes each
 constexpr int SLOT = 16;
-constexpr int HEADS = 8;             // the MMA's N: a group's heads, padded
+constexpr int HEADS = 8;             // the MMA's N: an n tile of a group's heads
 constexpr int PIECES = 3;            // bf16 pieces of an f32 factor
 constexpr int CTAS_PER_SM = 5;      // 20 warps an SM, at most 102 registers
 constexpr int WAVES = 8;             // waves of CTAs the grid aims at
@@ -180,19 +180,21 @@ __device__ __forceinline__ void split_factor(float x, uint32_t (&p)[PIECES]) {
   }
 }
 
-// Shared memory: the lanes' rings, B [k tile][piece][lane] (uint2), e0
-// [16 MT][8], e1 [8][C], the rows' sums [8][tile], the pending joins'
-// local rows and codes [K] each.
+// Shared memory: the lanes' rings, B [k tile][n tile][piece][lane] (uint2),
+// e0 [16 MT][NH], e1 [NH][C], the rows' sums [NH][tile], the pending joins'
+// local rows and codes [K] each. NH, the group's heads padded, is 8 (one n
+// tile) or 16 (two: MLA's 16 heads of one latent kv head, the counts still
+// read once; 3 CTAs an SM for the doubled accumulators).
 constexpr int RING_BYTES = NWARPS * DEPTH * 32 * SLOT;
 
-template <int C>
-__global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
+template <int C, int NH = HEADS>
+__global__ void __launch_bounds__(THREADS, NH == HEADS ? CTAS_PER_SM : 3)
 jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, int g,
                   int NB, int rpw, const int64_t* __restrict__ pos,
                   const int64_t* __restrict__ codes, const int* __restrict__ ring_r, int K,
                   int block, float* __restrict__ out) {
   using W = Walk<C>;
-  constexpr int R = C * C, KT = W::MT, CP = 16 * W::MT;
+  constexpr int R = C * C, KT = W::MT, CP = 16 * W::MT, NTN = NH / HEADS;
   extern __shared__ __align__(16) unsigned char smem[];
   // tile b of a head: rows [b tile, (b + 1) tile), rpw a warp
   const int tile = NWARPS * rpw;
@@ -200,10 +202,10 @@ jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, in
   const int tile0 = blockIdx.x * tile;
   const int nrows = min(tile, NB - tile0);
   uint2* bs = reinterpret_cast<uint2*>(smem + RING_BYTES);
-  float* e0s = reinterpret_cast<float*>(bs + KT * PIECES * 32);
-  float* e1s = e0s + CP * HEADS;
-  float* res = e1s + HEADS * C;
-  int* pcol = reinterpret_cast<int*>(res + HEADS * tile);
+  float* e0s = reinterpret_cast<float*>(bs + KT * NTN * PIECES * 32);
+  float* e1s = e0s + CP * NH;
+  float* res = e1s + NH * C;
+  int* pcol = reinterpret_cast<int*>(res + NH * tile);
   int* pcode = pcol + K;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int grp = lane >> 2, t = lane & 3;
@@ -244,23 +246,24 @@ jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, in
       p_b = codes32[2 * (((size_t)hk * 2 + 1) * K + tid)];
     }
   }
-  // e0 2^7 [CP][8] and e1 [8][C], zero past g and past C
+  // e0 2^7 [CP][NH] and e1 [NH][C], zero past g and past C
   const float* eh = e + (size_t)hk * g * 2 * C;
-  for (int i = tid; i < CP * HEADS; i += THREADS) {
-    const int c = i / HEADS, h = i % HEADS;
+  for (int i = tid; i < CP * NH; i += THREADS) {
+    const int c = i / NH, h = i % NH;
     e0s[i] = h < g && c < C ? eh[h * 2 * C + c] * E0_SCALE : 0.f;
   }
-  for (int i = tid; i < HEADS * C; i += THREADS) {
+  for (int i = tid; i < NH * C; i += THREADS) {
     const int h = i / C, c = i % C;
     e1s[i] = h < g ? eh[h * 2 * C + C + c] : 0.f;
   }
   __syncthreads();
   // B's fragments: lane ln's k slots 2 tl + 8 r + {0, 1} of k tile kt are
   // bytes 2 r + {0, 1} of its word kt % WPL of chunk kt / WPL, i.e. c1 =
-  // 64 j + tl V + 4 w + 2 r + {0, 1}, for head ln / 4
-  for (int i = tid; i < KT * 32 * 2; i += THREADS) {
-    const int r = i & 1, ln = (i >> 1) & 31, kt = i >> 6;
-    const int h = ln >> 2, tl = ln & 3, w = kt % W::WPL;
+  // 64 j + tl V + 4 w + 2 r + {0, 1}, for head 8 nt + ln / 4 of n tile nt
+  for (int i = tid; i < KT * NTN * 32 * 2; i += THREADS) {
+    const int r = i & 1, ln = (i >> 1) & 31, ktn = i >> 6;
+    const int kt = ktn / NTN, nt = ktn % NTN;
+    const int h = HEADS * nt + (ln >> 2), tl = ln & 3, w = kt % W::WPL;
     uint32_t word[PIECES] = {0u, 0u, 0u};
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -273,7 +276,7 @@ jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, in
     }
 #pragma unroll
     for (int q = 0; q < PIECES; ++q)
-      reinterpret_cast<uint32_t*>(bs + (kt * PIECES + q) * 32 + ln)[r] = word[q];
+      reinterpret_cast<uint32_t*>(bs + (ktn * PIECES + q) * 32 + ln)[r] = word[q];
   }
   __syncthreads();
 
@@ -282,7 +285,9 @@ jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, in
   // b 2^-133: a0 / a2 are bytes 0-1 / 2-3 of the c0 = grp word, a1 / a3 of
   // the grp + 8 word.
   const float2* e0p = reinterpret_cast<const float2*>(e0s);
-  float s0 = 0.f, s1 = 0.f;              // heads 2t, 2t + 1 of the row
+  float s0[NTN], s1[NTN];                // heads 8 nt + 2t, + 1 of the row
+#pragma unroll
+  for (int nt = 0; nt < NTN; ++nt) s0[nt] = s1[nt] = 0.f;
   const int n_unit = rows_w * W::UPR;
 #pragma unroll 1
   for (int u = 0; u < n_unit; ++u) {
@@ -293,15 +298,20 @@ jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, in
 #pragma unroll
     for (int l = 0; l < W::UL; ++l)
       read_slot<W::V>(ring + ((u * W::UL + l) % DEPTH) * 32 * SLOT, wd[l]);
-    float acc[W::MG][4];
+    float acc[W::MG][NTN][4];
 #pragma unroll
     for (int m = 0; m < W::MG; ++m)
-      acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NTN; ++nt)
+        acc[m][nt][0] = acc[m][nt][1] = acc[m][nt][2] = acc[m][nt][3] = 0.f;
 #pragma unroll
     for (int kt = 0; kt < KT; ++kt) {
-      uint2 b[PIECES];
+      uint2 b[NTN][PIECES];
 #pragma unroll
-      for (int q = 0; q < PIECES; ++q) b[q] = bs[(kt * PIECES + q) * 32 + lane];
+      for (int nt = 0; nt < NTN; ++nt)
+#pragma unroll
+        for (int q = 0; q < PIECES; ++q)
+          b[nt][q] = bs[((kt * NTN + nt) * PIECES + q) * 32 + lane];
       const int j = kt / W::WPL, w = kt % W::WPL;
 #pragma unroll
       for (int m = 0; m < W::MG; ++m) {
@@ -309,35 +319,45 @@ jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, in
         const uint32_t a0 = __byte_perm(lo, 0u, 0x4140u), a1 = __byte_perm(hi, 0u, 0x4140u);
         const uint32_t a2 = __byte_perm(lo, 0u, 0x4342u), a3 = __byte_perm(hi, 0u, 0x4342u);
 #pragma unroll
-        for (int q = PIECES - 1; q >= 0; --q)
-          mma16816(acc[m], a0, a1, a2, a3, b[q].x, b[q].y);
+        for (int nt = 0; nt < NTN; ++nt)
+#pragma unroll
+          for (int q = PIECES - 1; q >= 0; --q)
+            mma16816(acc[m][nt], a0, a1, a2, a3, b[nt][q].x, b[nt][q].y);
       }
     }
-    // the unit's rows of T (c0 = 16 mt + grp, + 8; heads 2t, 2t + 1)
+    // the unit's rows of T (c0 = 16 mt + grp, + 8; heads 8 nt + 2t, + 1)
     // against e0
     const int mt0 = (u % W::UPR) * W::MG;
 #pragma unroll
     for (int m = 0; m < W::MG; ++m) {
       const int c0 = 16 * (mt0 + m) + grp;
-      const float2 za = e0p[c0 * (HEADS / 2) + t], zb = e0p[(c0 + 8) * (HEADS / 2) + t];
-      s0 = fmaf(za.x, acc[m][0], s0);
-      s0 = fmaf(zb.x, acc[m][2], s0);
-      s1 = fmaf(za.y, acc[m][1], s1);
-      s1 = fmaf(zb.y, acc[m][3], s1);
+#pragma unroll
+      for (int nt = 0; nt < NTN; ++nt) {
+        const float2 za = e0p[c0 * (NH / 2) + HEADS / 2 * nt + t];
+        const float2 zb = e0p[(c0 + 8) * (NH / 2) + HEADS / 2 * nt + t];
+        s0[nt] = fmaf(za.x, acc[m][nt][0], s0[nt]);
+        s0[nt] = fmaf(zb.x, acc[m][nt][2], s0[nt]);
+        s1[nt] = fmaf(za.y, acc[m][nt][1], s1[nt]);
+        s1[nt] = fmaf(zb.y, acc[m][nt][3], s1[nt]);
+      }
     }
     if (u % W::UPR == W::UPR - 1) {
       // the row's sums over the 8 lanes of each head pair, in a fixed tree
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-      }
       const int rl = r0 + u / W::UPR;
-      if (grp == 0) {
-        if (2 * t < g) res[2 * t * tile + rl] = s0;
-        if (2 * t + 1 < g) res[(2 * t + 1) * tile + rl] = s1;
+#pragma unroll
+      for (int nt = 0; nt < NTN; ++nt) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s0[nt] += __shfl_xor_sync(0xffffffffu, s0[nt], o);
+          s1[nt] += __shfl_xor_sync(0xffffffffu, s1[nt], o);
+        }
+        const int h0 = HEADS * nt + 2 * t;
+        if (grp == 0) {
+          if (h0 < g) res[h0 * tile + rl] = s0[nt];
+          if (h0 + 1 < g) res[(h0 + 1) * tile + rl] = s1[nt];
+        }
+        s0[nt] = s1[nt] = 0.f;
       }
-      s0 = s1 = 0.f;
     }
   }
   // the pending joins of this tile's rows: their local row (or -1) and
@@ -368,7 +388,7 @@ jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, in
       for (int k = 0; k < K; ++k) {
         if (pcol[k] == r) {
           const int pc = pcode[k];
-          const float z = e0s[(pc & 0xffff) * HEADS + h] * (1.f / E0_SCALE);
+          const float z = e0s[(pc & 0xffff) * NH + h] * (1.f / E0_SCALE);
           s = __fadd_rn(s, __fmul_rn(z, e1s[h * C + (pc >> 16)]));
         }
       }
@@ -378,7 +398,7 @@ jhist_mass_kernel(const float* __restrict__ e, const uint8_t* __restrict__ J, in
   }
 }
 
-template <int C>
+template <int C, int NH>
 cudaError_t launch(const float* e, const uint8_t* J, int Hf, int g, int NB,
                    const int64_t* pos, const int64_t* codes, const int* ring_r, int K,
                    int block, float* out, cudaStream_t st) {
@@ -393,10 +413,10 @@ cudaError_t launch(const float* e, const uint8_t* J, int Hf, int g, int NB,
   const int tiles = (NB + NWARPS * rpw - 1) / (NWARPS * rpw);
   rpw = (NB + tiles * NWARPS - 1) / (tiles * NWARPS);
   const int tile = NWARPS * rpw;
-  const int smem = RING_BYTES + (int)sizeof(uint2) * W::MT * PIECES * 32 +
-                   (int)sizeof(float) * (16 * W::MT * HEADS + HEADS * C + HEADS * tile) +
+  const int smem = RING_BYTES + (int)sizeof(uint2) * W::MT * (NH / HEADS) * PIECES * 32 +
+                   (int)sizeof(float) * (16 * W::MT * NH + NH * C + NH * tile) +
                    (int)sizeof(int) * 2 * K;
-  auto kernel = jhist_mass_kernel<C>;
+  auto kernel = jhist_mass_kernel<C, NH>;
   if (smem > SMEM_DEFAULT) {
     // allowed once per process and instantiation, so that a launch inside a
     // CUDA-graph capture makes no attribute call
@@ -412,7 +432,8 @@ cudaError_t launch(const float* e, const uint8_t* J, int Hf, int g, int NB,
 }  // namespace
 
 // e [Hf * g, 2, C] f32 in [0, 1], J [Hf, NB, C * C] uint8, out [Hf * g, NB]
-// f32, all contiguous; C a power of two in [2, 256], 1 <= g <= 8. Pending
+// f32, all contiguous; C a power of two in [2, 256] and 1 <= g <= 8, or C
+// in [16, 256] and 9 <= g <= 16. Pending
 // joins: pos [Hf, K] and codes [Hf, 2, K] int64 contiguous, ring_r one
 // int32 on the device, 1 <= block; K 0 (and null pointers) for none, at
 // most 1024. One launch, which writes out and nothing else. Returns a
@@ -421,20 +442,30 @@ extern "C" int pq_jhist_block_mass(const float* e, const uint8_t* J, int Hf, int
                                    int NB, const int64_t* pos, const int64_t* codes,
                                    const int* ring_r, int K, int block, float* out,
                                    void* stream) {
-  if (Hf < 1 || Hf > 65535 || NB < 1 || g < 1 || g > HEADS || K < 0 || K > MAX_K ||
+  if (Hf < 1 || Hf > 65535 || NB < 1 || g < 1 || g > 2 * HEADS || K < 0 || K > MAX_K ||
       (K > 0 && (!pos || !codes || !ring_r || block < 1)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define PQ_ARGS e, J, Hf, g, NB, pos, codes, ring_r, K, block, out, st
+  if (g > HEADS) {   // 9 to 16 heads: two n tiles (C 64: the MLA cell's)
+    switch (C) {
+      case 16: return launch<16, 2 * HEADS>(PQ_ARGS);
+      case 32: return launch<32, 2 * HEADS>(PQ_ARGS);
+      case 64: return launch<64, 2 * HEADS>(PQ_ARGS);
+      case 128: return launch<128, 2 * HEADS>(PQ_ARGS);
+      case 256: return launch<256, 2 * HEADS>(PQ_ARGS);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (C) {
-    case 2: return launch<2>(PQ_ARGS);
-    case 4: return launch<4>(PQ_ARGS);
-    case 8: return launch<8>(PQ_ARGS);
-    case 16: return launch<16>(PQ_ARGS);
-    case 32: return launch<32>(PQ_ARGS);
-    case 64: return launch<64>(PQ_ARGS);
-    case 128: return launch<128>(PQ_ARGS);
-    case 256: return launch<256>(PQ_ARGS);
+    case 2: return launch<2, HEADS>(PQ_ARGS);
+    case 4: return launch<4, HEADS>(PQ_ARGS);
+    case 8: return launch<8, HEADS>(PQ_ARGS);
+    case 16: return launch<16, HEADS>(PQ_ARGS);
+    case 32: return launch<32, HEADS>(PQ_ARGS);
+    case 64: return launch<64, HEADS>(PQ_ARGS);
+    case 128: return launch<128, HEADS>(PQ_ARGS);
+    case 256: return launch<256, HEADS>(PQ_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef PQ_ARGS

@@ -26,16 +26,21 @@ BUILD_DIR = CSRC.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each library's C entry points (all return a cudaError_t)
 SIGNATURES = {
     "flash_attention": {"pq_flash_attention": [_P] * 6 + [_I] * 9 + [_P],
                         "pq_flash_attention_window": [_P] * 4 + [_I] * 9
-                        + [_P]},
+                        + [_P],
+                        "pq_flash_attention_dv": [_P] * 4 + [_I] * 10
+                        + [_F, _P]},
     "flash_scores": {"pq_flash_scores": [_P] * 6 + [_I] * 8 + [_P]},
     "block_attn": {"pq_block_attn": [_P, _P] + [_I] * 6
                    + [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I] + [_P] * 4,
-                   "pq_block_attn_ctas": []},
+                   "pq_block_attn_ctas": [],
+                   "pq_latent_attn": [_P, _P] + [_I] * 6
+                   + [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I, _I, _I]
+                   + [_P] * 5},
     "adc": {"pq_adc_scores": [_P, _P] + [_I] * 6 + [_P, _P],
             "pq_adc_block_scores": [_P, _P, _P] + [_I] * 9 + [_P] * 2,
             "pq_adc_block_scores_ctas": []},

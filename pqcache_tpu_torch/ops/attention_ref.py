@@ -137,7 +137,8 @@ def flash_scores_ref(q: torch.Tensor, k: torch.Tensor, valid_lo=0,
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       valid_len=None, valid_lo=None, *, causal: bool = True,
                       q_offset: int = 0, block: int = 512,
-                      return_stats: bool = False, window: int = 0):
+                      return_stats: bool = False, window: int = 0,
+                      scale: Optional[float] = None):
     """Online-softmax attention with q-block x k-block tiling in float32.
 
     Keys outside [valid_lo, valid_len) are masked (left-padded prompts);
@@ -150,6 +151,9 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = 0 for a row that sees no key or whose position q_offset + row lies
     outside [valid_lo, valid_len).
 
+    ``scale``: the logits' scale (1/sqrt(D) unless given); v may be
+    narrower than q and k ([H_kv, Tk, Dv]), the output then [H, Tq, Dv].
+
     Masked probabilities are zeroed, as in the Pallas kernel
     (``pqcache_tpu/ops/flash_attention.py``): a query row that sees no key
     (a left-pad row) comes out 0. The JAX XLA twin leaves those probabilities
@@ -158,12 +162,13 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     H, Tq, D = q.shape
     H_kv, Tk, _ = k.shape
+    Dv = v.shape[-1]
     group = H // H_kv
-    scale = 1.0 / (D ** 0.5)
+    scale = 1.0 / (D ** 0.5) if scale is None else scale
     hi = Tk if valid_len is None else min(_as_int(valid_len), Tk)
     lo = 0 if valid_lo is None else max(_as_int(valid_lo), 0)
 
-    out = torch.zeros((H_kv, group, Tq, D), dtype=torch.float32,
+    out = torch.zeros((H_kv, group, Tq, Dv), dtype=torch.float32,
                       device=q.device)
     m_all = torch.full((H_kv, group, Tq), NEG_INF, device=q.device)
     l_all = torch.zeros((H_kv, group, Tq), device=q.device)
@@ -176,7 +181,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_i = qg[:, :, i0:i1]
         m = torch.full((H_kv, group, i1 - i0), NEG_INF, device=q.device)
         l = torch.zeros((H_kv, group, i1 - i0), device=q.device)
-        acc = torch.zeros((H_kv, group, i1 - i0, D), device=q.device)
+        acc = torch.zeros((H_kv, group, i1 - i0, Dv), device=q.device)
         k_end = hi if not causal else min(hi, q_offset + i1)
         k_lo = max(lo, q_offset + i0 - window + 1) if window else lo
         # whole k blocks outside [k_lo, k_end) contribute nothing: skip them
@@ -201,7 +206,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         seen = (qpos >= lo) & (qpos < hi)
         m_all[:, :, i0:i1] = torch.where(seen, m, NEG_INF)
         l_all[:, :, i0:i1] = torch.where(seen, l, 0.0)
-    out = out.reshape(H, Tq, D).to(q.dtype)
+    out = out.reshape(H, Tq, Dv).to(q.dtype)
     if return_stats:
         return out, m_all.reshape(H, Tq), l_all.reshape(H, Tq)
     return out
@@ -245,17 +250,20 @@ def decode_window_attention_segments(q: torch.Tensor, segments,
 
     q [H, 1, D]; segments: list of (k [H_kv, W_i, D], v, mask [H_kv, W_i]
     bool or None); partials: precomputed (m [H_kv, g], l [H_kv, g],
-    acc [H_kv, g, D]) from the block-retrieval kernel, merged the same way.
-    Returns [H, 1, D] in q.dtype."""
+    acc [H_kv, g, Dv]) from the block-retrieval kernel, merged the same
+    way. The values may be narrower than the keys (Dv < D: a latent cache,
+    whose values are the keys' first Dv columns). Returns [H, 1, Dv] in
+    q.dtype."""
     H, _, D = q.shape
     H_kv = (segments[0][0] if segments else partials[0][0]).shape[0]
+    Dv = (segments[0][1] if segments else partials[0][2]).shape[-1]
     group = H // H_kv
     scale = 1.0 / (D ** 0.5)
     qg = q.reshape(H_kv, group, D)
 
     m = torch.full((H_kv, group), NEG_INF, device=q.device)
     l = torch.zeros((H_kv, group), device=q.device)
-    acc = torch.zeros((H_kv, group, D), device=q.device)
+    acc = torch.zeros((H_kv, group, Dv), device=q.device)
     for pm, pl_, pacc in partials:
         m_new = torch.maximum(m, pm)
         c_old = torch.exp(m - m_new)
@@ -276,7 +284,7 @@ def decode_window_attention_segments(q: torch.Tensor, segments,
         acc = acc * corr[..., None] + _bmm_f32(p.to(v_seg.dtype), v_seg)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(H, 1, D).to(q.dtype)
+    return out.reshape(H, 1, Dv).to(q.dtype)
 
 
 def decode_window_attention(q: torch.Tensor, k_win: torch.Tensor,

@@ -44,7 +44,7 @@ def dense_prefill_attention(q: torch.Tensor, k: torch.Tensor,
 def prefill_chunk_attention(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, pad_len, *, q_offset: int,
                             use_kernel: bool = True,
-                            window: int = 0) -> torch.Tensor:
+                            window: int = 0, scale=None) -> torch.Tensor:
     """Causal attention of one prefill q chunk [H, Tq, D], whose row 0 sits
     at key index q_offset, against the keys k/v [H_kv, Tk, D] (keys before
     ``pad_len`` masked; keys past q_offset + Tq - 1 are masked by causality,
@@ -52,9 +52,12 @@ def prefill_chunk_attention(q: torch.Tensor, k: torch.Tensor,
     or with use_kernel=False its plain version, which the JAX package's
     ``chunked_attention_rect`` computes too. ``window`` > 0: a sliding
     layer's band, each row attending its last ``window`` keys (K2's
-    window bound)."""
+    window bound). ``scale``: the logits' scale where it is not
+    1/sqrt(q width), and v [H_kv, Tk, Dv] may then be narrower than q and
+    k (MLA's expanded heads, K2's 192 / 128 variant)."""
     attn = flash_attention if use_kernel else chunked_attention
     if window:
         return attn(q, k, v, valid_lo=pad_len, causal=True,
                     q_offset=q_offset, window=window)
-    return attn(q, k, v, valid_lo=pad_len, causal=True, q_offset=q_offset)
+    return attn(q, k, v, valid_lo=pad_len, causal=True, q_offset=q_offset,
+                scale=scale)

@@ -15,11 +15,15 @@ from pqcache_tpu_torch.ops import _build
 from pqcache_tpu_torch.ops.attention_ref import _as_int, chunked_attention
 
 SUPPORTED_HEAD_DIMS = (64, 128)
+# (q/k width, v width) of K2's variant with values narrower than the keys
+# and a given logit scale: MLA's expanded heads (``models/deepseek_v2.py``)
+SUPPORTED_QK_V = ((192, 128),)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor | None,
-           what: str) -> None:
-    """Raise on what the kernel does not take (CUDA tensors only)."""
+           what: str, dv: bool = False) -> None:
+    """Raise on what the kernel does not take (CUDA tensors only); ``dv``:
+    the variant with narrower values (SUPPORTED_QK_V)."""
     H, _, D = q.shape
     H_kv, Tk, Dk = k.shape
     if q.device.type != "cuda":
@@ -29,8 +33,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor | None,
     dtypes = (q.dtype, k.dtype) + (() if v is None else (v.dtype,))
     if any(dt != torch.bfloat16 for dt in dtypes):
         raise TypeError(f"{what} kernel takes bf16, got {dtypes}")
-    if (D not in SUPPORTED_HEAD_DIMS or Dk != D or Tk < 1
-            or (v is not None and v.shape != k.shape)):
+    if dv:
+        ok = ((D, v.shape[-1]) in SUPPORTED_QK_V and Dk == D and Tk >= 1
+              and v.shape[:2] == k.shape[:2])
+    else:
+        ok = (D in SUPPORTED_HEAD_DIMS and Dk == D and Tk >= 1
+              and (v is None or v.shape == k.shape))
+    if not ok:
         raise ValueError(f"{what}: unsupported shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)}"
                          + ("" if v is None else f" v {tuple(v.shape)}"))
@@ -39,17 +48,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor | None,
 
 
 def _launch(q, k, v, out, m, l, lo: int, hi: int, q_offset: int,
-            causal: bool, what: str, window: int = 0) -> None:
+            causal: bool, what: str, window: int = 0, scale=None) -> None:
     """One launch of K2 (v None: its stats-only mode; window > 0: its
-    window variant, causal, no statistics); tensors contiguous, on one
-    card. TMA reads 16-byte aligned rows."""
+    window variant, causal, no statistics; scale given: its variant with
+    narrower values, no statistics); tensors contiguous, on one card. TMA
+    reads 16-byte aligned rows."""
     ptrs = [0 if x is None else x.data_ptr() for x in (q, k, v, out, m, l)]
     if any(p % 16 for p in ptrs[:4]):
         raise ValueError(f"{what}: q, k, v must be 16-byte aligned")
     H, Tq, D = q.shape
     H_kv, Tk, _ = k.shape
     lib, stream = _build.lib("flash_attention"), _build.stream_ptr(q.device)
-    if window:
+    if scale is not None:
+        rc = lib.pq_flash_attention_dv(*ptrs[:4], H, H_kv, Tq, Tk, D,
+                                       v.shape[-1], lo, hi, int(q_offset),
+                                       int(causal), float(scale), stream)
+    elif window:
         rc = lib.pq_flash_attention_window(*ptrs[:4], H, H_kv, Tq, Tk, D, lo,
                                            hi, int(q_offset), int(window),
                                            stream)
@@ -62,7 +76,7 @@ def _launch(q, k, v, out, m, l, lo: int, hi: int, q_offset: int,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_lo=0, valid_len=None, *, causal: bool = True,
                     q_offset: int = 0, return_stats: bool = False,
-                    window: int = 0):
+                    window: int = 0, scale=None):
     """q [H, Tq, D], k/v [H_kv, Tk, D] -> out [H, Tq, D] (q.dtype).
 
     Keys outside [valid_lo, valid_len) are masked (valid_len defaults to
@@ -76,6 +90,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     masks by element only the tiles that straddle it; window 0 launches
     the kernel without the bound.
 
+    ``scale`` given (no window, no statistics): logits times ``scale``
+    instead of 1/sqrt(D), and v may be narrower, [H_kv, Tk, Dv], the output
+    [H, Tq, Dv]: the kernel's variant for (D, Dv) in SUPPORTED_QK_V, MLA's
+    expanded prefill heads (192 / 128).
+
     With ``return_stats`` returns (out, m, l), the row statistics K4 reads
     ([H, Tq] f32): m the row max of the scaled logit, l the sum of
     exp(logit - m) over the row's valid keys; a row that sees no key, or
@@ -84,23 +103,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window and (not causal or return_stats or window < 0):
         raise ValueError("a window needs causal attention without row "
                          "statistics")
+    if scale is not None and (window or return_stats):
+        raise ValueError("a given scale takes no window and no row "
+                         "statistics")
     if q.device.type == "cpu":
         return chunked_attention(q, k, v, valid_len=valid_len,
                                  valid_lo=valid_lo, causal=causal,
                                  q_offset=q_offset, return_stats=return_stats,
-                                 window=window)
-    _check(q, k, v, "flash_attention")
+                                 window=window, scale=scale)
+    _check(q, k, v, "flash_attention", dv=scale is not None)
     H, Tq, _ = q.shape
     Tk = k.shape[1]
     lo = max(_as_int(valid_lo), 0)
     hi = Tk if valid_len is None else min(_as_int(valid_len), Tk)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    out = torch.empty((H, Tq, v.shape[-1]), dtype=q.dtype, device=q.device)
     m = l = None
     if return_stats:
         m, l = torch.empty((2, H, Tq), dtype=torch.float32, device=q.device)
     _launch(q, k, v, out, m, l, lo, hi, q_offset, causal, "flash_attention",
-            window)
+            window, scale)
     flash_attention.launches += 1
     return (out, m, l) if return_stats else out
 

@@ -22,7 +22,7 @@ from pqcache_tpu_torch.ops import _build
 from pqcache_tpu_torch.runtime.stages import scoped
 
 MAX_CENTROIDS = 256       # histogram rows of C^2 <= 64 KB
-MAX_GROUP = 8             # q heads per kv head
+MAX_GROUP = 16            # q heads per kv head (16: MLA's latent head)
 MAX_BLOCK = 256           # uint8 counts (core/pq.py::jhist_dtype)
 MAX_PENDING = 1024        # pending joins per folded kv head (csrc MAX_K)
 FACTOR_SCALE = 2.0 ** 126  # e1's scale before the cut (csrc E1_SCALE)
@@ -110,7 +110,7 @@ def jhist_block_mass(e: torch.Tensor, J: torch.Tensor, pending=None, *,
     on the device), each adding e0[h, code0] · e1[h, code1] to block
     clamp(pos // block, 0, NB - 1). Returns mass [Hf·g, NB] f32:
     mass[h, n] = Σ_c0 e0[h, c0] Σ_c1 e1[h, c1] J[kv(h), n, c0·C + c1]
-    plus the pending terms, not normalised. C <= 256, g <= 8, block <=
+    plus the pending terms, not normalised. C <= 256, g <= 16, block <=
     256. ``launches`` counts the kernel's launches, ``mma_launches`` those
     that contracted on the tensor cores (all of them: one body for every
     C)."""
@@ -126,6 +126,9 @@ def jhist_block_mass(e: torch.Tensor, J: torch.Tensor, pending=None, *,
     if C < 2 or C & (C - 1):
         raise ValueError(f"jhist_block_mass: the kernel takes C a power of "
                          f"two from 2 to {MAX_CENTROIDS}, got {C}")
+    if g > 8 and C < 16:
+        raise ValueError(f"jhist_block_mass: the kernel takes 9 to 16 q "
+                         f"heads per kv head at C >= 16, got C {C}")
     if e.dtype != torch.float32 or not e.is_contiguous():
         raise ValueError(f"jhist_block_mass: e must be contiguous f32, got "
                          f"{e.dtype}")

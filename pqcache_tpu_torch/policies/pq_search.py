@@ -58,6 +58,15 @@ LUT to bf16 as the v2 TPU kernel does, on both routes, so a kernels-vs-plain
 run selects the same tokens; JAX's XLA route ignores adc_mode and sums the
 f32 LUT, which is adc_mode "v1" here.
 
+A model with a latent cache (``config.DeepseekV2Config``, MLA): one kv
+head of width D (576) per layer whose rows are the keys and whose first Dv
+(512) columns are the values, for every query head of the layer. The tail,
+the sink and the ring hold each row once (``runtime/state.py``), the
+codebooks and the histogram are over the rows, the LUT comes from the
+model's absorbed query, and the block path's K1 is its latent variant
+(``block_topk_latent_attention``), which reads each selected row once for
+all the heads; the merge takes values narrower than the keys.
+
 A model with sliding-window layers (``config.AfmoeConfig``): the PQ state
 above exists for its full-attention layers only, stacked over
 ``ModelConfig.full_layers``; each window layer keeps a ring of its last
@@ -84,8 +93,9 @@ from pqcache_tpu_torch.ops.adc import (adc_block_scores, adc_scores,
 from pqcache_tpu_torch.ops.attention_ref import (
     decode_window_attention, decode_window_attention_segments,
     segment_partial)
-from pqcache_tpu_torch.ops.block_attn import (block_topk_attention,
-                                              block_topk_attention_ref)
+from pqcache_tpu_torch.ops.block_attn import (
+    block_topk_attention, block_topk_attention_ref,
+    block_topk_latent_attention, block_topk_latent_attention_ref)
 from pqcache_tpu_torch.ops.dispatch import dense_prefill_attention
 from pqcache_tpu_torch.ops.gather import gather_rows
 from pqcache_tpu_torch.policies.base import register_policy, use_kernels
@@ -106,6 +116,9 @@ class PQSearchPolicy:
         self.group = m.num_groups
         self.H_kv = m.num_kv_heads
         self.D = m.head_dim
+        # a latent cache's values are its rows' first Dv columns
+        self.Dv = m.value_dim
+        self.latent = m.latent_kv
         self.select_block = max(cfg.pq.select_block, 1)
         self.use_kernel = use_kernels(cfg)
         self.adc_mode = cfg.pq.adc_mode
@@ -154,18 +167,28 @@ class PQSearchPolicy:
 
     # -- helpers ----------------------------------------------------------
 
+    def _kv_view(self, rows):
+        """(k, v) views of raw rows: K | V halves, or a latent row and its
+        first Dv columns."""
+        if self.latent:
+            return rows, rows[..., :self.Dv]
+        return rows[..., :self.D], rows[..., self.D:]
+
     def _split_rows(self, kv_rows, state: PQState, idx: int):
-        """Split (and dequantize) tail rows [H_kv, T, 2D] -> (k, v) in the
-        engine dtype."""
+        """Split (and dequantize) tail rows [H_kv, T, 2D] (a latent tail's
+        [H_kv, T, D]) -> (k, v) in the engine dtype."""
         if not self.kv_int8:
-            return kv_rows[..., :self.D], kv_rows[..., self.D:]
+            return self._kv_view(kv_rows)
         return quant.dequant_kv(kv_rows, state.k_scale[idx],
                                 state.v_scale[idx], dtype=state.k_sink.dtype)
 
     def _tail_kv(self, k, v, state: PQState, idx=None):
         """Interleave (and quantize) K/V rows into tail storage. k, v
         [..., T, D] with the scales' leading axes ([H_kv] for a layer idx,
-        [L, H_kv] when idx is None)."""
+        [L, H_kv] when idx is None); a latent tail stores k alone, v
+        being its first Dv columns."""
+        if self.latent:
+            return k.to(state.kv_tail.dtype)
         if not self.kv_int8:
             return torch.cat([k, v], -1).to(state.kv_tail.dtype)
         ks = state.k_scale if idx is None else state.k_scale[idx]
@@ -187,7 +210,14 @@ class PQSearchPolicy:
                          n_cand, win_len=None, win_max: int = 0):
         """K1 (or its plain version) over the selected blocks and, with
         win_max > 0, each head's local window; the V scale of an int8 tail
-        applied to acc (acc is linear in V)."""
+        applied to acc (acc is linear in V). A latent tail takes K1's
+        latent variant."""
+        if self.latent:
+            attn = (block_topk_latent_attention if self.use_kernel
+                    else block_topk_latent_attention_ref)
+            return attn(q_flat.reshape(-1, 1, self.D), state.kv_tail, idx,
+                        blk_idx, n_cand, block=self.select_block,
+                        v_dim=self.Dv, win_len=win_len, win_max=win_max)
         attn = (block_topk_attention if self.use_kernel
                 else block_topk_attention_ref)
         m_p, l_p, acc_p = attn(
@@ -238,7 +268,8 @@ class PQSearchPolicy:
             n_src = P - b.sink
             dt = state.k_sink.dtype
             state.k_sink[idx] = t.k_sink.to(dt)
-            state.v_sink[idx] = t.v_sink.to(dt)
+            if not self.latent:        # a latent sink's v is a view of k
+                state.v_sink[idx] = t.v_sink.to(dt)
             if self.kv_int8:
                 state.k_scale[idx], state.v_scale[idx] = t.k_scale, t.v_scale
             state.kv_tail[idx, :, :n_src] = self._tail_kv(
@@ -528,7 +559,8 @@ class PQSearchPolicy:
             h = slice(slot * Hk, (slot + 1) * Hk)
             N = state.kv_tail.shape[2]
             bstate.k_sink[:, h] = state.k_sink
-            bstate.v_sink[:, h] = state.v_sink
+            if not self.latent:
+                bstate.v_sink[:, h] = state.v_sink
             bstate.kv_tail[:, h, :N] = state.kv_tail
             bstate.codes[:, h, :, :N] = state.codes
             bstate.centroids[:, h] = state.centroids
@@ -625,16 +657,16 @@ class PQSearchPolicy:
                 # the chunk's tokens, raw in the ring's dtype until the flush
                 rkv = state.ring_kv[idx]                   # [B·H_kv, K, 2D]
                 rmask = torch.arange(self.ring_k, device=rkv.device) < r
-                segs.append((rkv[..., :self.D], rkv[..., self.D:],
+                segs.append((*self._kv_view(rkv),
                              rmask[None].expand(Hf, -1)))
             if top is not None:
                 segs.append(top)
             k_new_f = k_new.reshape(Hf, 1, self.D).to(dt)
-            v_new_f = v_new.reshape(Hf, 1, self.D).to(dt)
+            v_new_f = v_new.reshape(Hf, 1, self.Dv).to(dt)
             out = decode_window_attention_segments(
                 qf.reshape(qf.shape[0], 1, self.D),
                 segs + [(k_new_f, v_new_f, None)], partials=partials)
-        return (out.reshape(B, -1, self.D), (k_new_f[:, 0], v_new_f[:, 0]))
+        return (out.reshape(B, -1, self.Dv), (k_new_f[:, 0], v_new_f[:, 0]))
 
     def _jhist_defer(self, state: PQState) -> bool:
         """Defer the per-step histogram join to the chunk's flush
@@ -728,7 +760,8 @@ class PQSearchPolicy:
         k_new, v_new = payloads
         n_cand_h = shared["n_cand_h"]
         if state.ring_kv is not None:
-            kv = torch.cat([k_new, v_new], -1).to(state.ring_kv.dtype)
+            kv = (k_new if self.latent else torch.cat([k_new, v_new], -1)
+                  ).to(state.ring_kv.dtype)
             state.ring_kv.index_copy_(2, state.ring_r.reshape(1).long(),
                                       kv[:, :, None])
             if self.use_jhist and not self._jhist_defer(state):
@@ -757,7 +790,7 @@ class PQSearchPolicy:
         if self._jhist_defer(state):
             self._jhist_flush_join(state)
         L, Hf, K, _ = state.ring_kv.shape
-        keys, vals = state.ring_kv[..., :self.D], state.ring_kv[..., self.D:]
+        keys, vals = self._kv_view(state.ring_kv)
         src = (self._tail_kv(keys, vals, state) if self.kv_int8
                else state.ring_kv.to(state.kv_tail.dtype))
         N = state.kv_tail.shape[2]

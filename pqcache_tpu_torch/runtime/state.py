@@ -31,6 +31,12 @@ tokens of the current decode chunk, raw until the chunk's flush) with its
 fill count ``ring_r`` (int32, 0-d), and a tail ``tail_pad`` rows longer,
 so that the flush's ring_k rows never run past it.
 
+A model with a latent cache (``config.DeepseekV2Config``, MLA) keeps one
+kv head of width D (576) per layer, whose rows are the keys and whose
+first Dv (512) columns are the values: ``kv_tail`` [L, H_kv, N_tail, D]
+and ``ring_kv`` [L, B·H_kv, ring_k, D] hold each row once, and ``v_sink``
+is the view ``k_sink[..., :Dv]``. Its tail is bf16.
+
 A model with sliding-window layers (``config.AfmoeConfig``) keeps the
 retrieval state (or the dense cache) of its full-attention layers only,
 stacked over ``ModelConfig.full_layers``; its window layers keep
@@ -138,16 +144,22 @@ def make_pq_state(cfg: EngineConfig, budget: Budget, *,
     Hf = max(batch, 1) * m.num_kv_heads
     N_tail = budget.n_tail_max + tail_pad
     kv_int8 = cfg.cache.kv_dtype == "int8"
+    if kv_int8 and m.latent_kv:
+        raise ValueError("a latent (MLA) tail is bf16; kv_dtype int8 is "
+                         "not supported there")
+    row = D if m.latent_kv else 2 * D      # a tail row: latent, or K | V
 
     def z(*shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
 
     n_cand, pos = _counters(batch, device, 2)
     win_k, win_v = _window_ring(m, batch, dtype, device)
+    k_sink = z(L, Hf, budget.sink, D)
     return PQState(
-        k_sink=z(L, Hf, budget.sink, D),
-        v_sink=z(L, Hf, budget.sink, D),
-        kv_tail=z(L, Hf, N_tail, 2 * D,
+        k_sink=k_sink,
+        v_sink=(k_sink[..., :m.value_dim] if m.latent_kv
+                else z(L, Hf, budget.sink, D)),
+        kv_tail=z(L, Hf, N_tail, row,
                   dt=torch.int8 if kv_int8 else dtype),
         codes=z(L, Hf, S, N_tail, dt=torch.uint8),
         centroids=z(L, Hf, S, C, d_lift, dt=torch.float32),
@@ -159,7 +171,7 @@ def make_pq_state(cfg: EngineConfig, budget: Budget, *,
                  if kv_int8 else None),
         v_scale=(torch.ones((L, Hf, 1, D), device=device)
                  if kv_int8 else None),
-        ring_kv=z(L, Hf, ring_k, 2 * D) if ring_k else None,
+        ring_kv=z(L, Hf, ring_k, row) if ring_k else None,
         ring_r=z(dt=torch.int32) if ring_k else None,
         win_k=win_k, win_v=win_v,
     )
@@ -174,6 +186,8 @@ def make_dense_state(cfg: EngineConfig, max_len: int, *,
     folded into the kv-head axis, counters int32 [B] on the device."""
     device = resolve_device(device)
     m = cfg.model
+    if m.latent_kv:
+        raise ValueError("a latent (MLA) cache is kept by pq_search only")
     max_len = (max_len + 255) // 256 * 256
     shape = (len(m.full_layers), max(batch, 1) * m.num_kv_heads, max_len,
              m.head_dim)

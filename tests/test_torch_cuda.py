@@ -1567,3 +1567,223 @@ def test_jhist_kernel_once_per_layer_per_replayed_step(dev):
             in_scorer.append(ev.name)
     assert len(in_scorer) == L and all(
         "jhist_mass_kernel" in k for k in in_scorer), in_scorer
+
+
+# -- DeepSeek-V2's latent attention (MLA) --------------------------------------
+#
+# K1's latent variant computes what its plain version does from the same bf16
+# rows and queries, P entering the value product as bf16 hi + lo pairs (2^-17)
+# and the splits merged in a fixed order, its f32 sums over ~26k rows in
+# another order: the output to 1e-4 of its largest entry (K1's tolerance; the
+# cell's shape reads 1.1e-5), m to 1e-5, l to 1e-5 relative, and two calls
+# (eager or replayed) bitwise equal. K2's 192 / 128 variant is K2 (bf16 P, bf16 output): held as
+# _check_flash holds K2, entry by entry at 2e-2 and each row to 1e-2 of its
+# norm.
+
+MLA_CELL = (40, 131840, 52, 256, 13104, 12976)   # the 128k MLA cell's layer
+
+
+def _latent_inputs(dev, Hf, N, nb, bs, win_max, win_len, seed=0):
+    """The latent tail [1, Hf, N, 576] and queries [16 Hf, 1, 576] in bf16,
+    n_cand a little below N - win_max, the blocks drawn below it; head 1's
+    n_cand 0 (no candidate) and, given three heads or more, head 2's first
+    id out of range, which the plain version is handed as a block wholly
+    at or past its n_cand."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kv = torch.randn((1, Hf, N, 576), generator=g, device=dev).bfloat16()
+    q = (torch.randn((Hf * 16, 1, 576), generator=g, device=dev)
+         * 0.5).bfloat16()
+    n_cand = torch.full((Hf,), N - win_max - 3 * bs - 5, dtype=torch.int32,
+                        device=dev)
+    n_cand[1] = 0
+    blk = torch.stack([torch.randperm(int(n_cand[0]) // bs, generator=g,
+                                      device=dev)[:nb]
+                       for _ in range(Hf)]).int()
+    win = torch.full((Hf,), win_len, dtype=torch.int32, device=dev)
+    bad, ref_blk = blk.clone(), blk.clone()
+    if Hf > 2:
+        bad[2, 0] = N // bs + 7
+        ref_blk[2, 0] = (int(n_cand[2]) + bs - 1) // bs   # all masked rows
+    return q, kv, bad, ref_blk, n_cand, win
+
+
+def _assert_latent_close(got, ref):
+    m, l, acc = got
+    mr, lr, accr = ref
+    assert torch.allclose(m, mr, atol=1e-5, rtol=0)
+    assert ((l - lr).abs() <= 1e-5 * lr.abs()).all()
+    out = acc / l.clamp(min=1e-30)[..., None]
+    outr = accr / lr.clamp(min=1e-30)[..., None]
+    assert (out - outr).abs().max() <= 1e-4 * outr.abs().max()
+
+
+@pytest.mark.parametrize("shape", ["cell", "small"])
+def test_latent_k1_matches_plain(dev, shape):
+    from pqcache_tpu_torch.ops.block_attn import (
+        block_topk_latent_attention, block_topk_latent_attention_ref)
+    Hf, N, nb, bs, win_max, win_len = (MLA_CELL if shape == "cell"
+                                       else (3, 4096, 5, 64, 300, 211))
+    q, kv, blk, ref_blk, n_cand, win = _latent_inputs(
+        dev, Hf, N, nb, bs, win_max, win_len)
+    n0 = block_topk_latent_attention.launches
+    got = block_topk_latent_attention(q, kv, 0, blk, n_cand, block=bs,
+                                      v_dim=512, win_len=win,
+                                      win_max=win_max)
+    assert block_topk_latent_attention.launches == n0 + 1
+    ref = block_topk_latent_attention_ref(q, kv, 0, ref_blk, n_cand,
+                                          block=bs, v_dim=512, win_len=win,
+                                          win_max=win_max)
+    _assert_latent_close(got, ref)
+    # n_cand 0 with no window row: no row at all
+    lone = block_topk_latent_attention(q, kv, 0, blk, torch.zeros_like(
+        n_cand), block=bs, v_dim=512, win_len=0, win_max=win_max)
+    assert (lone[0] == -1e30).all() and (lone[1] == 0).all()
+    assert (lone[2] == 0).all()
+    again = block_topk_latent_attention(q, kv, 0, blk, n_cand, block=bs,
+                                        v_dim=512, win_len=win,
+                                        win_max=win_max)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_latent_k1_replays_in_a_graph(dev):
+    from pqcache_tpu_torch.ops.block_attn import block_topk_latent_attention
+    q, kv, blk, _, n_cand, win = _latent_inputs(dev, 8, 8192, 6, 256, 700,
+                                                650, seed=1)
+
+    def call():
+        return block_topk_latent_attention(q, kv, 0, blk, n_cand, block=256,
+                                           v_dim=512, win_len=win,
+                                           win_max=700)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = [t.clone() for t in call()]
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            out = call()
+    torch.cuda.current_stream().wait_stream(side)
+    n_cand += 3
+    win -= 3
+    g.replay()
+    torch.cuda.synchronize()
+    moved = call()
+    assert all(torch.equal(a, b) for a, b in zip(out, moved))
+    assert not torch.equal(out[2], eager[2])
+
+
+def test_latent_k1_rejects_what_it_cannot_take(dev):
+    from pqcache_tpu_torch.ops.block_attn import block_topk_latent_attention
+    q, kv, blk, _, n_cand, _ = _latent_inputs(dev, 2, 1024, 2, 64, 0, 0)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        block_topk_latent_attention(q, kv, 0, blk, n_cand, block=64,
+                                    v_dim=256)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        block_topk_latent_attention(q[:16], kv, 0, blk, n_cand, block=64,
+                                    v_dim=512)
+    with pytest.raises(TypeError):
+        block_topk_latent_attention(q.float(), kv, 0, blk, n_cand, block=64,
+                                    v_dim=512)
+
+
+@pytest.mark.parametrize("q_offset,Tq", [(0, 32768), (98304, 32768),
+                                         (1000, 777)])
+def test_k2_mla_192_128_on_the_prefill_slabs(dev, q_offset, Tq):
+    # the 128k MLA cell's prefill: 16 expanded heads, a slab of 32768 rows
+    # against the keys before it (131072 at the last slab), the cell's scale
+    H, Tk = 16, q_offset + Tq
+    g = torch.Generator(device=dev).manual_seed(Tq + q_offset)
+    q = torch.randn((H, Tq, 192), generator=g, device=dev).bfloat16()
+    k = torch.randn((H, Tk, 192), generator=g, device=dev).bfloat16()
+    v = torch.randn((H, Tk, 128), generator=g, device=dev).bfloat16()
+    sc = 192 ** -0.5 * 1.5896
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, valid_lo=0, causal=True,
+                          q_offset=q_offset, scale=sc)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1 and out.shape == (H, Tq, 128)
+    rows = torch.arange(0, Tq, 97 if Tq > 4096 else 1, device=dev)
+    ref = chunked_attention(q[:, rows[0]:], k, v, causal=True,
+                            q_offset=q_offset + int(rows[0]),
+                            scale=sc) if Tq <= 4096 else None
+    if ref is None:
+        # every 97th row, from dense f32 logits
+        s = torch.einsum("hqd,hkd->hqk", q[:, rows].float(), k.float()) * sc
+        kp = torch.arange(Tk, device=dev)
+        s = torch.where(kp[None, None] <= (q_offset + rows)[None, :, None],
+                        s, -torch.inf)
+        ref = torch.softmax(s, -1) @ v.float()
+    got = out[:, rows].float()
+    torch.testing.assert_close(got, ref.float(), rtol=2e-2, atol=2e-2)
+    err = (got - ref.float()).norm(dim=-1)
+    assert (err / ref.float().norm(dim=-1)).max() <= 1e-2
+
+
+def test_jhist_kernel_at_16_heads(dev):
+    # the MLA cell's layer: 40 slots of one latent kv head, 16 heads, C 64
+    g = torch.Generator(device=dev).manual_seed(16)
+    Hf, NB, C, K = 40, 514, 64, 128
+    e = torch.rand((Hf * 16, 2, C), generator=g, device=dev)
+    J = torch.randint(0, 256, (Hf, NB, C * C), generator=g, device=dev,
+                      dtype=torch.uint8)
+    pend = (torch.randint(0, NB * 256, (Hf, K), generator=g, device=dev),
+            torch.randint(0, C, (Hf, 2, K), generator=g, device=dev),
+            torch.tensor(77, dtype=torch.int32, device=dev))
+    got = jhist_block_mass(e, J, pend, block=256)
+    ref = jhist_block_mass_ref(e, J, pend, block=256)
+    assert ((got - ref).abs() <= 1e-5 * ref.abs()).all()
+    assert torch.equal(got, jhist_block_mass(e, J, pend, block=256))
+    with pytest.raises(ValueError, match="C >= 16"):
+        jhist_block_mass(torch.rand((3 * 16, 2, 8), device=dev),
+                         torch.zeros((3, 4, 64), dtype=torch.uint8,
+                                     device=dev))
+
+
+def test_deepseek_replayed_step_is_the_eager_step(dev):
+    # the model at MLA's published head widths (two layers, a smaller
+    # hidden size and fewer experts): a chunk replayed from the CUDA graph
+    # gives the eager chunk's tokens and state, the latent K1 and the
+    # 16-head scorer on the path
+    from pqcache_tpu_torch.config import (BudgetConfig, DeepseekV2Config,
+                                          EngineConfig, PQConfig,
+                                          RuntimeConfig)
+    from pqcache_tpu_torch.models import deepseek_v2
+    from pqcache_tpu_torch.ops.block_attn import block_topk_latent_attention
+    from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
+    cfg = DeepseekV2Config(
+        name="card-dsv2", vocab_size=4096, hidden_size=512,
+        intermediate_size=1024, num_layers=2, num_heads=16, num_kv_heads=1,
+        head_dim=576, rms_norm_eps=1e-6, max_position_embeddings=8192,
+        kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128, first_k_dense_replace=1, num_experts=16,
+        num_experts_per_tok=6, moe_intermediate_size=256,
+        num_shared_experts=2, yarn_factor=40.0, yarn_mscale=0.707,
+        yarn_mscale_all_dim=0.707)
+    params = deepseek_v2.init_params(cfg, torch.Generator(device=dev)
+                                     .manual_seed(0), torch.bfloat16, dev)
+    ecfg = EngineConfig(model=cfg, pq=PQConfig(select_block=64, ring_cap=16),
+                        budget=BudgetConfig(),
+                        runtime=RuntimeConfig(policy="pq_search",
+                                              max_new_tokens=32))
+    P = 4096
+    pol = get_policy(ecfg, compute_budget(ecfg.budget, P, 32), dev)
+    assert pol.latent and pol.use_jhist
+    st = pol.init_state()
+    prompt = torch.randint(0, cfg.vocab_size, (P,), device=dev)
+    deepseek_v2.prefill_chunked(cfg, params, pol, st, prompt, 0, P,
+                                chunk=2048)
+    n0 = block_topk_latent_attention.launches
+    outs, states = [], []
+    for graph in (True, False):
+        bs = pol.init_batched_state(8)
+        for s in range(8):
+            pol.insert_slot(bs, st, s)
+        dec = BatchedDecoder(cfg, params, pol, bs, graph=graph, device=dev)
+        outs.append(dec.generate(torch.arange(8, dtype=torch.int32,
+                                              device=dev),
+                                 torch.full((8,), P, dtype=torch.int32,
+                                            device=dev), 32))
+        states.append(bs)
+    assert block_topk_latent_attention.launches > n0
+    assert torch.equal(outs[0], outs[1])
+    for f in ("kv_tail", "codes", "jhist", "n_cand", "pos"):
+        assert torch.equal(getattr(states[0], f), getattr(states[1], f)), f

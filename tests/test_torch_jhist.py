@@ -123,8 +123,8 @@ def test_wrapper_raises_outside_its_limits():
     with pytest.raises(ValueError, match="C > 256"):
         jhist_block_mass(torch.ones(1, 2, 512), torch.zeros(
             1, 1, 512 * 512, dtype=torch.uint8))
-    with pytest.raises(ValueError, match="at most 8"):
-        jhist_block_mass(torch.ones(9 * 3, 2, 16), J)
+    with pytest.raises(ValueError, match="at most 16"):
+        jhist_block_mass(torch.ones(17 * 3, 2, 16), J)
     with pytest.raises(TypeError, match="uint8"):
         jhist_block_mass(e, J.float())
     with pytest.raises(ValueError, match="block 512"):
