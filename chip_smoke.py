@@ -10,7 +10,10 @@ chunked prefill's slabs against 131072 keys, and its window variant on an
 AFMoE sliding layer's 128k slabs, timed beside the band's bound), holds
 and times the MLA path's kernels at the 128k MLA cell's shapes (K1's latent
 variant, K2 at 192 / 128 on the prefill's slabs, the scorer at 16 heads;
-``python3 chip_smoke.py mla`` runs that phase alone), serves
+``python3 chip_smoke.py mla`` runs that phase alone), holds and times
+the window layers' decode attention (K1 over Trinity's six 2048-row rings
+at the 128k cell's 320 folded heads; ``python3 chip_smoke.py window``
+alone), serves
 requests
 through ``Engine.generate`` at Llama-3.1-8B width and 8 layers (random
 weights from a seeded generator) on the block path (joint-histogram scorer + K1),
@@ -666,6 +669,109 @@ def mla_phase(dev) -> None:
     if not rel <= 1e-5:
         raise SystemExit("the scorer at 16 heads disagrees with its plain "
                          "version")
+
+
+# Trinity's six sliding-window layers at the trinity-mini-decode-128k cell:
+# 80 slots x 4 kv heads folded, g 8, head 128, rings of 2048 rows (K | V),
+# K1 over the ring's 8 blocks of 256; the fills held to the plain version
+# run from one row to a full ring, cycled over the heads
+WIN_RINGS = dict(L=6, Hf=320, g=8, D=128, W=2048, block=256)
+WIN_FILLS = (1, 7, 255, 256, 257, 1000, 2047, 2048)
+WIN_OUT_TOL = 2.0 ** -8   # out in bf16: K1's error plus bf16's rounding
+
+
+def window_phase(dev) -> None:
+    """window_attention (policies/window.py), the window layers' decode
+    attention, on bf16 rings win_kv [6, 320, 2048, 256]. At the per-head
+    fills WIN_FILLS: the K1 partials held to block_attention_ref at
+    K1_TOL, its out (bf16) to the plain acc / l at WIN_OUT_TOL, its one
+    launch read from window_attention.launches. At full rings (the cell's
+    state): timed by graph replay cycling over the six rings (2 GB, above
+    the 50 MB L2), beside the bound of its bytes; the plain-torch segment
+    merge it replaced, on K and V kept apart as before, timed the same
+    way; and K1 alone with each ring cut into 2 and 4 heads of fewer rows
+    (a free view, q repeated per piece; the launches only, not the merge
+    the pieces would need), which tells how much of K1's time at 320 heads
+    is its second wave of CTAs. Raises on a disagreement or a miscount."""
+    from pqcache_tpu_torch.ops.attention_ref import (
+        decode_window_attention_segments)
+    from pqcache_tpu_torch.ops.block_attn import (block_attention,
+                                                  block_attention_ref)
+    from pqcache_tpu_torch.policies.window import window_attention
+    L, Hf, g, D, W, bs = (WIN_RINGS[k] for k in
+                          ("L", "Hf", "g", "D", "W", "block"))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    win_kv = torch.randn((L, Hf, W, 2 * D), generator=gen,
+                         device=dev).bfloat16()
+    q = torch.randn((Hf * g, 1, D), generator=gen, device=dev).bfloat16()
+    blk = torch.arange(W // bs, dtype=torch.int32, device=dev).repeat(Hf, 1)
+    fills = torch.tensor(WIN_FILLS, dtype=torch.int32,
+                         device=dev).repeat(Hf // len(WIN_FILLS))
+    window_attention.launches = 0
+    out = window_attention(q, win_kv, 2, blk, fills, bs)
+    torch.cuda.synchronize()
+    launched = window_attention.launches
+    parts = block_attention(q, win_kv, 2, blk, fills, block=bs)
+    ref = block_attention_ref(q, win_kv, 2, blk, fills, block=bs)
+    rel = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+              for a, b in zip(parts, ref))
+    want = (ref[2] / ref[1][..., None]).reshape(Hf * g, D)
+    out_rel = ((out.float() - want).abs().max()
+               / want.abs().max()).item()
+    log(f"window rings [{L}, {Hf}, {W}, {2 * D}] bf16, g {g}, fills "
+        f"{WIN_FILLS} cycled over the heads: K1 partials {rel:.3e} relative "
+        f"to the largest entry (tol {K1_TOL}); window_attention's bf16 out "
+        f"{out_rel:.3e} (tol {WIN_OUT_TOL:.2e}); window_attention.launches "
+        f"{launched} for one call")
+    if not (rel <= K1_TOL and out_rel <= WIN_OUT_TOL):
+        raise SystemExit("window_attention disagrees with K1's plain "
+                         "version over the window rings")
+    if launched != 1:
+        raise SystemExit(f"window_attention counted {launched} launches "
+                         f"for one call")
+    del out, parts, ref, want
+    full = torch.full((Hf,), W, dtype=torch.int32, device=dev)
+    layer = iter(range(10 ** 9))
+    window_attention.launches = 0
+    ms = graph_ms(lambda: window_attention(q, win_kv, next(layer) % L, blk,
+                                           full, bs), 4 * L)
+    launched = window_attention.launches
+    if launched != 3 + 4 * L:
+        raise SystemExit(f"window_attention counted {launched} launches "
+                         f"for {3 + 4 * L} calls")
+    nbytes = (Hf * W * 2 * D * win_kv.element_size()
+              + q.numel() * q.element_size() + Hf * g * 4 * (2 + D))
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    rk = win_kv[..., :D].contiguous()
+    rv = win_kv[..., D:].contiguous()
+    every = torch.ones((Hf, W), dtype=torch.bool, device=dev)
+
+    def plain():
+        w = next(layer) % L
+        return decode_window_attention_segments(q, [(rk[w], rv[w], every)])
+    plain_ms = graph_ms(plain, 2 * L)
+    log(f"window_attention at full rings: {ms * 1e3:.1f} us a layer "
+        f"({nbytes / ms / 1e6:.0f} GB/s, {bound_ms / ms:.1%} of its bound "
+        f"{bound_ms * 1e3:.1f} us: bytes, {nbytes / 1e6:.1f} MB); "
+        f"{L * ms:.3f} ms for the {L} layers; the plain-torch segments it "
+        f"replaced {plain_ms * 1e3:.1f} us a layer")
+    del rk, rv, every
+    torch.cuda.empty_cache()
+    for S in (2, 4):
+        N = W // S
+        kvS = win_kv.view(L, Hf * S, N, 2 * D)
+        qS = q.view(Hf, 1, g, D).expand(Hf, S, g, D).reshape(
+            Hf * S * g, 1, D).contiguous()
+        blkS = torch.arange(N // bs, dtype=torch.int32,
+                            device=dev).repeat(Hf * S, 1)
+        nS = torch.full((Hf * S,), N, dtype=torch.int32, device=dev)
+        msS = graph_ms(lambda: block_attention(
+            qS, kvS, next(layer) % L, blkS, nS, block=bs), 4 * L)
+        log(f"K1 alone with each ring cut in {S}: {Hf * S} heads of {N} "
+            f"rows, {msS * 1e3:.1f} us a layer ({bound_ms / msS:.1%} of the "
+            f"bound; the pieces' merge not included)")
+    del win_kv
+    torch.cuda.empty_cache()
 
 
 def head_rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -3579,6 +3685,7 @@ def main() -> int:
                k5_phase(dev), k6_phase(dev), jhist_phase(dev)]
     entries.append(w8_step_entry(dev, w8_phase(dev)))
     mla_phase(dev)
+    window_phase(dev)
     log(f"kernel phases done at {time.perf_counter() - t0:.0f} s")
 
     model = dataclasses.replace(config.LLAMA31_8B, num_layers=LAYERS)
@@ -3663,5 +3770,9 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["mla"]:      # the MLA kernels' phase alone
         environment()
         mla_phase(torch.device("cuda"))
+        sys.exit(0)
+    if sys.argv[1:] == ["window"]:   # the window rings' phase alone
+        environment()
+        window_phase(torch.device("cuda"))
         sys.exit(0)
     sys.exit(main())

@@ -10,6 +10,10 @@ raises.
 Both take the TPU kernel's options: local-window coverage (``win_len`` /
 ``win_max``: the batched decode attends each slot's local window in the same
 pass) and the pair fetch (``pair``), which computes the same function.
+Both run in the ``pq_fetch`` profiler scope, as retrieval;
+``block_attention`` and ``block_attention_ref`` are the same work in no
+scope and counting no launch, for a caller that is not retrieval (the
+sliding-window layers' rings, ``policies/window.py``).
 
 ``block_topk_latent_attention`` is K1's latent variant, for a latent (MLA)
 tail whose rows are the keys and whose first ``v_dim`` columns are the
@@ -83,12 +87,10 @@ def _ref_rows(blk_idx, n_cand, N: int, block: int, win_len, win_max: int,
     return rows, mask
 
 
-@scoped("pq_fetch")
-def block_topk_attention_ref(q, kv_tail, layer, blk_idx, n_cand, *, block,
-                             pair: bool = False, win_len=None,
-                             win_max: int = 0):
+def block_attention_ref(q, kv_tail, layer, blk_idx, n_cand, *, block,
+                        pair: bool = False, win_len=None, win_max: int = 0):
     """Plain PyTorch version with the kernel's contract (see
-    block_topk_attention)."""
+    block_topk_attention), in no profiler scope."""
     H, _, D = q.shape
     _, H_kv, N, _ = kv_tail.shape
     _check_options(N, block, pair, win_len, win_max)
@@ -108,6 +110,16 @@ def block_topk_attention_ref(q, kv_tail, layer, blk_idx, n_cand, *, block,
     return m, l, acc
 
 
+@scoped("pq_fetch")
+def block_topk_attention_ref(q, kv_tail, layer, blk_idx, n_cand, *, block,
+                             pair: bool = False, win_len=None,
+                             win_max: int = 0):
+    """block_attention_ref in the ``pq_fetch`` scope."""
+    return block_attention_ref(q, kv_tail, layer, blk_idx, n_cand,
+                               block=block, pair=pair, win_len=win_len,
+                               win_max=win_max)
+
+
 def _count_arg(x, H_kv: int, device, what: str):
     """n_cand or win_len as the kernel reads it: (tensor kept alive, device
     pointer, stride, scalar). A tensor stays on the card (a 0-d one is read
@@ -122,34 +134,20 @@ def _count_arg(x, H_kv: int, device, what: str):
     return x, x.data_ptr(), int(x.dim() == 1), 0
 
 
-@scoped("pq_fetch")
-def block_topk_attention(q: torch.Tensor, kv_tail: torch.Tensor, layer,
-                         blk_idx: torch.Tensor, n_cand, *, block: int,
-                         n_par: int = 4, pair: bool = False, win_len=None,
-                         win_max: int = 0):
-    """Attention partials of q over the selected candidate blocks and, with
-    win_max > 0, each head's local window.
-
-    q [H, 1, D] (bf16 with a bf16 tail; f32 with an int8 tail, its K scale
-    folded in); kv_tail [L, H_kv, N, 2D] (N % block == 0; H_kv may be the
-    folded B·H_kv of the batched decode); layer: int; blk_idx [H_kv, nb_sel]
-    block ids; n_cand: int, 0-d tensor or [H_kv] tensor — tail rows at index
-    >= n_cand are masked.
-
-    ``win_len`` / ``win_max``: win_max > 0 also attends the contiguous rows
-    [n_cand, n_cand + win_len) of each head (win_len: int, 0-d or [H_kv]
-    tensor, at most win_max) in the same online-softmax pass. ``pair``: the
-    TPU kernel's 2·block-aligned pair fetch; the result is the same, and it
-    needs N % (2·block) == 0. ``n_par`` was the TPU kernel's count of DMA
-    lanes and does not change the result: it is accepted and ignored.
-
-    Returns (m [H_kv, g], l [H_kv, g], acc [H_kv, g, D]) float32
-    online-softmax partials (logits scaled by 1/sqrt(D)) for
-    ops/attention_ref.decode_window_attention_segments."""
+def block_attention(q: torch.Tensor, kv_tail: torch.Tensor, layer,
+                    blk_idx: torch.Tensor, n_cand, *, block: int,
+                    pair: bool = False, win_len=None, win_max: int = 0):
+    """K1 in no profiler scope and counting no launch: the work of
+    block_topk_attention (its contract, without n_par), for a caller that
+    scopes and counts its own launches. On a CPU tensor the plain
+    version. Its callers are block_topk_attention and
+    policies/window.py's window_attention, so the card's count of
+    ``block_attn_kernel`` launches is block_topk_attention.launches +
+    window_attention.launches."""
     if q.device.type == "cpu":
-        return block_topk_attention_ref(q, kv_tail, layer, blk_idx, n_cand,
-                                        block=block, pair=pair,
-                                        win_len=win_len, win_max=win_max)
+        return block_attention_ref(q, kv_tail, layer, blk_idx, n_cand,
+                                   block=block, pair=pair, win_len=win_len,
+                                   win_max=win_max)
     if q.device.type != "cuda":
         raise ValueError(f"block_topk_attention: unsupported device "
                          f"{q.device}")
@@ -198,9 +196,38 @@ def block_topk_attention(q: torch.Tensor, kv_tail: torch.Tensor, layer,
         n_stride, n_scalar, int(win_max), w_ptr, w_stride, w_scalar, block,
         m.data_ptr(), l.data_ptr(), acc.data_ptr(),
         _build.stream_ptr(q.device)), "block_topk_attention")
-    m, l, acc = m.view(H_kv, g), l.view(H_kv, g), acc.view(H_kv, g, D)
-    block_topk_attention.launches += 1
-    return m, l, acc
+    return m.view(H_kv, g), l.view(H_kv, g), acc.view(H_kv, g, D)
+
+
+@scoped("pq_fetch")
+def block_topk_attention(q: torch.Tensor, kv_tail: torch.Tensor, layer,
+                         blk_idx: torch.Tensor, n_cand, *, block: int,
+                         n_par: int = 4, pair: bool = False, win_len=None,
+                         win_max: int = 0):
+    """Attention partials of q over the selected candidate blocks and, with
+    win_max > 0, each head's local window.
+
+    q [H, 1, D] (bf16 with a bf16 tail; f32 with an int8 tail, its K scale
+    folded in); kv_tail [L, H_kv, N, 2D] (N % block == 0; H_kv may be the
+    folded B·H_kv of the batched decode); layer: int; blk_idx [H_kv, nb_sel]
+    block ids; n_cand: int, 0-d tensor or [H_kv] tensor — tail rows at index
+    >= n_cand are masked.
+
+    ``win_len`` / ``win_max``: win_max > 0 also attends the contiguous rows
+    [n_cand, n_cand + win_len) of each head (win_len: int, 0-d or [H_kv]
+    tensor, at most win_max) in the same online-softmax pass. ``pair``: the
+    TPU kernel's 2·block-aligned pair fetch; the result is the same, and it
+    needs N % (2·block) == 0. ``n_par`` was the TPU kernel's count of DMA
+    lanes and does not change the result: it is accepted and ignored.
+
+    Returns (m [H_kv, g], l [H_kv, g], acc [H_kv, g, D]) float32
+    online-softmax partials (logits scaled by 1/sqrt(D)) for
+    ops/attention_ref.decode_window_attention_segments."""
+    out = block_attention(q, kv_tail, layer, blk_idx, n_cand, block=block,
+                          pair=pair, win_len=win_len, win_max=win_max)
+    if q.device.type == "cuda":
+        block_topk_attention.launches += 1
+    return out
 
 
 block_topk_attention.launches = 0

@@ -70,7 +70,8 @@ all the heads; the merge takes values narrower than the keys.
 A model with sliding-window layers (``config.AfmoeConfig``): the PQ state
 above exists for its full-attention layers only, stacked over
 ``ModelConfig.full_layers``; each window layer keeps a ring of its last
-``window`` keys and values beside it (``policies/window.py``).
+``window`` keys and values beside it, K | V per row as in the tail, which
+K1 attends outside the ``pq_fetch`` scope (``policies/window.py``).
 ``prefill_tail``, ``insert_slot`` and ``decode_attn_batched`` take the
 model's layer index and dispatch on its kind; a window layer writes its
 new token into its ring inside ``decode_attn_batched`` and returns no

@@ -40,8 +40,9 @@ is the view ``k_sink[..., :Dv]``. Its tail is bf16.
 A model with sliding-window layers (``config.AfmoeConfig``) keeps the
 retrieval state (or the dense cache) of its full-attention layers only,
 stacked over ``ModelConfig.full_layers``; its window layers keep
-``win_k/win_v`` [L_w, H_kv, window, D] beside it: a ring of each
-sequence's last ``window`` keys and values, position p at row p % window
+``win_kv`` [L_w, H_kv, window, 2D] beside it: a ring of each sequence's
+last ``window`` keys and values, position p at row p % window, K and V
+interleaved per row as in ``kv_tail``, so that K1 attends it
 (``policies/window.py``). Both policies that serve such a model hold both
 kinds in one state, so a slot insert moves both.
 
@@ -77,8 +78,7 @@ class PQState:
     v_scale: Optional[torch.Tensor] = None
     ring_kv: Optional[torch.Tensor] = None  # [L, B·H_kv, ring_k, 2D]
     ring_r: Optional[torch.Tensor] = None   # int32 0-d: filled ring columns
-    win_k: Optional[torch.Tensor] = None    # [L_w, H_kv, window, D]
-    win_v: Optional[torch.Tensor] = None
+    win_kv: Optional[torch.Tensor] = None   # [L_w, H_kv, window, 2D]
 
 
 @dataclass
@@ -94,8 +94,7 @@ class DenseState:
     pos: Union[int, torch.Tensor] = 0      # position of the next token
     scores: Optional[torch.Tensor] = None   # [L, H_kv, T_max] f32
     mask: Optional[torch.Tensor] = None     # [L, H_kv, T_max] bool
-    win_k: Optional[torch.Tensor] = None    # [L_w, H_kv, window, D]
-    win_v: Optional[torch.Tensor] = None
+    win_kv: Optional[torch.Tensor] = None   # [L_w, H_kv, window, 2D]
 
 
 def per_head(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -107,14 +106,13 @@ def per_head(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _window_ring(m, batch: int, dtype, device):
-    """The window layers' rings (win_k, win_v) [L_w, B·H_kv, window, D],
-    or (None, None) for a model without window layers."""
+    """The window layers' rings win_kv [L_w, B·H_kv, window, 2D] (K | V),
+    or None for a model without window layers."""
     if not m.window_layers:
-        return None, None
-    shape = (len(m.window_layers), max(batch, 1) * m.num_kv_heads,
-             m.window_of(m.window_layers[0]), m.head_dim)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+        return None
+    return torch.zeros((len(m.window_layers), max(batch, 1) * m.num_kv_heads,
+                        m.window_of(m.window_layers[0]), 2 * m.head_dim),
+                       dtype=dtype, device=device)
 
 
 def _counters(batch: int, device, n: int):
@@ -153,7 +151,6 @@ def make_pq_state(cfg: EngineConfig, budget: Budget, *,
         return torch.zeros(shape, dtype=dt, device=device)
 
     n_cand, pos = _counters(batch, device, 2)
-    win_k, win_v = _window_ring(m, batch, dtype, device)
     k_sink = z(L, Hf, budget.sink, D)
     return PQState(
         k_sink=k_sink,
@@ -173,7 +170,7 @@ def make_pq_state(cfg: EngineConfig, budget: Budget, *,
                  if kv_int8 else None),
         ring_kv=z(L, Hf, ring_k, row) if ring_k else None,
         ring_r=z(dt=torch.int32) if ring_k else None,
-        win_k=win_k, win_v=win_v,
+        win_kv=_window_ring(m, batch, dtype, device),
     )
 
 
@@ -192,7 +189,6 @@ def make_dense_state(cfg: EngineConfig, max_len: int, *,
     shape = (len(m.full_layers), max(batch, 1) * m.num_kv_heads, max_len,
              m.head_dim)
     length, start, pos = _counters(batch, device, 3)
-    win_k, win_v = _window_ring(m, batch, dtype, device)
     return DenseState(
         k_cache=torch.zeros(shape, dtype=dtype, device=device),
         v_cache=torch.zeros(shape, dtype=dtype, device=device),
@@ -201,4 +197,4 @@ def make_dense_state(cfg: EngineConfig, max_len: int, *,
                 else None),
         mask=(torch.ones(shape[:3], dtype=torch.bool, device=device)
               if with_scores else None),
-        win_k=win_k, win_v=win_v)
+        win_kv=_window_ring(m, batch, dtype, device))

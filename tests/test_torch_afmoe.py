@@ -30,7 +30,8 @@ from pqcache_tpu_torch.config import (AfmoeConfig, BudgetConfig,
                                       EngineConfig, PQConfig, RuntimeConfig)
 from pqcache_tpu_torch.core.budget import compute_budget
 from pqcache_tpu_torch.models import afmoe, afmoe_ref, decoder, llama
-from pqcache_tpu_torch.ops.attention_ref import chunked_attention
+from pqcache_tpu_torch.ops.attention_ref import (chunked_attention,
+                                                 decode_window_attention)
 from pqcache_tpu_torch.policies.base import get_policy
 from pqcache_tpu_torch.runtime import stages
 from pqcache_tpu_torch.runtime.decode_graph import BatchedDecoder
@@ -305,6 +306,79 @@ def test_pq_search_selects_as_the_reference(model):
     assert max(float((a - b).abs().max()) for a, b in zip(keep, out)) < TOL
 
 
+# -- the window layers' rings on K1 -------------------------------------------
+
+# each of three slots' position of the new token, window 8
+WINDOW_FILLS = {
+    "filling": [0, 3, 5],       # pos < W - 1: the rows past pos are masked
+    "full": [7, 7, 7],          # pos = W - 1: the ring's last row written
+    "wrapped": [8, 13, 30],     # pos >= W: the oldest row overwritten
+    "mixed": [2, 7, 19],        # slots at different fills in one batch
+}
+
+
+@pytest.mark.parametrize("policy", ("pq_search", "original"))
+@pytest.mark.parametrize("fill", sorted(WINDOW_FILLS))
+def test_window_decode_is_the_masked_formula(model, policy, fill):
+    # a window layer's batched decode on the interleaved ring (K1's plain
+    # twin) is the formula it replaced: decode_window_attention over the
+    # ring's K and V with the rows <= pos, in float32, after the new
+    # token's write at row pos % W; no other ring changes
+    cfg, _ = model
+    B, H, Hk, D, W = 3, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 8
+    ecfg = engine(cfg, policy, T=8)
+    pol = get_policy(ecfg, compute_budget(ecfg.budget, 96, 8), "cpu")
+    bs = pol.init_batched_state(B, torch.float32)
+    g = torch.Generator().manual_seed(11)
+    bs.win_kv.copy_(torch.randn(bs.win_kv.shape, generator=g))
+    bs.pos.copy_(torch.tensor(WINDOW_FILLS[fill], dtype=torch.int32))
+    q = torch.randn(B, H, D, generator=g)
+    k_new, v_new = torch.randn(2, B, Hk, D, generator=g)
+    idx = cfg.window_layers[2]
+    w = pol.kinds.ring[idx]
+    before = bs.win_kv.clone()
+    out, payload = pol.decode_attn_batched(bs, idx, q, k_new, v_new,
+                                           pol.shared_pre_batched(bs))
+    assert payload is None
+    pos_h = torch.tensor(WINDOW_FILLS[fill]).repeat_interleave(Hk)
+    ring = before[w].clone()
+    ring[torch.arange(B * Hk), pos_h % W] = torch.cat(
+        [k_new, v_new], -1).reshape(B * Hk, 2 * D)
+    assert torch.equal(bs.win_kv[w], ring)
+    rest = [i for i in range(len(cfg.window_layers)) if i != w]
+    assert torch.equal(bs.win_kv[rest], before[rest])
+    want = decode_window_attention(
+        q.reshape(B * H, 1, D), ring[..., :D], ring[..., D:],
+        torch.arange(W)[None, :] <= pos_h[:, None])
+    assert (out - want.reshape(B, H, D)).abs().max() < 1e-5
+
+
+@pytest.mark.parametrize("policy", ("pq_search", "original"))
+@pytest.mark.parametrize("true_len,pad", [(5, 0), (8, 3), (21, 4)])
+def test_prefill_and_insert_put_each_token_in_its_ring_row(model, policy,
+                                                           true_len, pad):
+    # prefill_tail -> insert_slot: the last min(true_len, W) real tokens'
+    # K and V in the two halves of row p % W of the slot's heads, every
+    # other row and slot zero
+    cfg, _ = model
+    Hk, D, W = cfg.num_kv_heads, cfg.head_dim, 8
+    ecfg = engine(cfg, policy, T=4)
+    pol = get_policy(ecfg, compute_budget(ecfg.budget, 32, 4), "cpu")
+    st = pol.init_state(torch.float32)
+    g = torch.Generator().manual_seed(true_len)
+    k, v = torch.randn(2, Hk, pad + true_len, D, generator=g)
+    for idx in cfg.window_layers:
+        pol.prefill_tail(st, idx, k + idx, v - idx, pad, true_len)
+    bs = pol.init_batched_state(3, torch.float32)
+    pol.insert_slot(bs, st, 1)
+    want = torch.zeros_like(bs.win_kv)
+    for idx, w in pol.kinds.ring.items():
+        for p in range(max(true_len - W, 0), true_len):
+            want[w, Hk:2 * Hk, p % W, :D] = k[:, pad + p] + idx
+            want[w, Hk:2 * Hk, p % W, D:] = v[:, pad + p] - idx
+    assert torch.equal(bs.win_kv, want)
+
+
 def test_prefill_across_slabs_is_one_pass(model):
     cfg, params = model
     prompt, inputs = draws(96, 2, 4, seed=6)
@@ -314,7 +388,7 @@ def test_prefill_across_slabs_is_one_pass(model):
     assert (one[0] - slabs[0]).abs().max() < 1e-5
     assert (one[1] - slabs[1]).abs().max() < 1e-5
     assert torch.equal(one[3].codes, slabs[3].codes)
-    for f in ("kv_tail", "win_k", "win_v"):
+    for f in ("kv_tail", "win_kv"):
         assert (getattr(one[3], f) - getattr(slabs[3], f)).abs().max() \
             < 1e-5, f
 
@@ -497,8 +571,7 @@ def test_replayed_step_is_the_eager_step(dev):
                                             device=dev), 32))
         states.append(bs)
     assert torch.equal(outs[0], outs[1])
-    for f in ("kv_tail", "codes", "jhist", "win_k", "win_v", "n_cand",
-              "pos"):
+    for f in ("kv_tail", "codes", "jhist", "win_kv", "n_cand", "pos"):
         assert torch.equal(getattr(states[0], f), getattr(states[1], f)), f
 
 
@@ -537,3 +610,92 @@ def test_batched_step_at_b8_against_the_reference(dev):
     rel = (out - ref).norm(dim=-1) / ref.norm(dim=-1)
     assert alike.float().mean() >= 0.5, alike
     assert rel[alike].max() < 5e-2, rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", (10, 80))
+def test_window_attention_matches_plain_at_trinity_shape(dev, slots):
+    # K1 over window rings at Trinity's widths (g 8, D 128, W 2048, blocks
+    # of 256; 10 slots x 4 kv heads folded, several CTAs a head, and the
+    # cell's 80 slots, one CTA a head) at fills from 1 row to full,
+    # against its plain twin at K1's tolerance; the rows past a head's fill
+    # that a box may fetch hold NaN and must not reach the output; a graph
+    # replay reads the fills the card holds
+    from pqcache_tpu_torch.ops.block_attn import (block_attention,
+                                                  block_attention_ref)
+    from pqcache_tpu_torch.policies.window import window_attention
+    Hf, g, D, W, bs = 4 * slots, 8, 128, 2048, 256
+    gen = torch.Generator(device=dev).manual_seed(24)
+    win_kv = torch.randn(2, Hf, W, 2 * D, generator=gen, device=dev).bfloat16()
+    q = torch.randn(Hf * g, 1, D, generator=gen, device=dev).bfloat16()
+    fills = [1, 7, 8, 9, 255, 256, 257, 1000, 2047, 2048]
+    n = torch.tensor(fills * (Hf // 10), dtype=torch.int32, device=dev)
+    blk = torch.arange(W // bs, dtype=torch.int32, device=dev).repeat(Hf, 1)
+    saved = win_kv[1].clone()
+    for h, f in enumerate(n.tolist()):
+        win_kv[1, h, f:f + 8] = float("nan")
+    n0 = window_attention.launches
+    got = window_attention(q, win_kv, 1, blk, n, bs)
+    parts = block_attention(q, win_kv, 1, blk, n, block=bs)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        cap = window_attention(q, win_kv, 1, blk, n, bs)
+    n_now = torch.clamp(n + 5, max=W)
+    n.copy_(n_now)
+    win_kv[1].copy_(saved)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert window_attention.launches == n0 + 2
+    n_was = torch.tensor(fills * (Hf // 10), dtype=torch.int32, device=dev)
+    ref = block_attention_ref(q, win_kv, 1, blk, n_was, block=bs)
+    for a, b in zip(parts, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, b.abs().max().item()))
+    for out, cnt in ((got, n_was), (cap, n_now)):
+        _, l, acc = block_attention_ref(q, win_kv, 1, blk, cnt, block=bs)
+        want = (acc / l[..., None]).reshape(Hf * g, D)
+        assert out.dtype == torch.bfloat16
+        torch.testing.assert_close(out.float(), want, rtol=1e-2, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ("pq_search", "original"))
+def test_window_layers_launch_k1_once_a_layer(dev, policy, monkeypatch):
+    # one eager batched step: each window layer one K1 launch, counted
+    # apart from retrieval's, and the segment merge only on full layers
+    from pqcache_tpu_torch.ops import attention_ref
+    from pqcache_tpu_torch.ops.block_attn import block_topk_attention
+    from pqcache_tpu_torch.policies import original, pq_search, window
+    cfg, params = card_model(dev)
+    P, B = 1024, 4
+    ecfg = dataclasses.replace(
+        engine(cfg, policy, T=4, select_block=64, n_subbits=6, ring_cap=4),
+        runtime=RuntimeConfig(policy=policy, max_new_tokens=4))
+    pol = get_policy(ecfg, compute_budget(ecfg.budget, P, 4), dev)
+    st = pol.init_state()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (P,), device=dev, generator=gen)
+    afmoe.prefill_chunked(cfg, params, pol, st, prompt, 0, P, chunk=512)
+    bs = pol.init_batched_state(B)
+    for s in range(B):
+        pol.insert_slot(bs, st, s)
+    merges = []
+    real = attention_ref.decode_window_attention_segments
+
+    def counted(*args, **kw):
+        merges.append(1)
+        return real(*args, **kw)
+
+    for mod in (attention_ref, original, pq_search):
+        monkeypatch.setattr(mod, "decode_window_attention_segments", counted)
+    n_win = window.window_attention.launches
+    n_k1 = block_topk_attention.launches
+    afmoe.decode_step_batched(
+        cfg, params, pol, bs, torch.arange(B, dtype=torch.int32, device=dev),
+        torch.full((B,), P, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert (window.window_attention.launches - n_win
+            == len(cfg.window_layers))
+    assert len(merges) == len(cfg.full_layers)
+    assert block_topk_attention.launches - n_k1 == (
+        len(cfg.full_layers) if policy == "pq_search" else 0)
